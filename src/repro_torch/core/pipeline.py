@@ -1,0 +1,448 @@
+"""Pipelined int8 executor — the "host program" of §4.2.
+
+Takes a parsed model + per-layer (N, m) quantization specs, quantizes
+weights/biases once, and runs inference by streaming each pipeline stage
+through the fused kernels (conv+ReLU+pool on the conv kernel, FC on the
+GEMM kernel).
+
+The executor is an **interpreter over the DAG stage program**: the
+parser's topologically-scheduled stage list is executed against a
+tensor environment of named int8 NHWC activations, with liveness-based
+release (a tensor is dropped from the environment after its last
+consumer runs, so a residual skip holds exactly as long as its merge
+needs it).  Residual ``Add`` stages align their operands' fixed-point
+positions with per-operand round-half-up shifts before the int32 add
+(see :func:`thread_scales`).
+
+Activations stay NHWC int8 from ingress to egress — one NCHW->NHWC
+conversion when the float input is quantized, one back only if the
+network ends in a spatial stage — and every layer's weights are staged
+on the model's device in the kernel layout once, at
+:func:`build_quantized` time (conv OIHW -> HWIO; FC rows permuted so
+flattening an NHWC activation hits the same features the NCHW-trained
+weights expect).  PyTorch runs the stage loop eagerly; each stage is
+one op of :mod:`repro_torch.kernels.ops`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.kernels import ops
+from . import parser as P
+from .quantize import QuantSpec, quantize_weights
+
+
+@dataclasses.dataclass
+class QuantizedLayer:
+    """One stage with weights staged in the kernel layout: conv -> HWIO
+    int8, FC -> (K, N) int8 in NHWC-flatten row order.  Merge stages
+    carry per-operand alignment shifts instead of weights."""
+
+    info: P.LayerInfo
+    spec: Optional[QuantSpec]
+    w_q: Optional[torch.Tensor]
+    b_q: Optional[torch.Tensor]
+    operand_shifts: Tuple[int, ...] = ()
+    # conv stages with a folded residual add: the merge's own spec
+    # (requant shift from the common operand position to m_y); the
+    # operand_shifts then align (conv intermediate, skip) in that order
+    merge_spec: Optional[QuantSpec] = None
+
+
+@dataclasses.dataclass
+class QuantizedModel:
+    """int8-ready pipeline (weights quantized with the *given* specs and
+    staged on ``device``)."""
+
+    name: str
+    layers: List[QuantizedLayer]
+    input_m: int          # fixed-point exponent of the network input
+    output_m: int
+    parsed: P.ParsedModel
+    device: torch.device
+    _executor: Optional[Callable] = dataclasses.field(default=None,
+                                                      repr=False)
+
+
+def thread_scales(model: P.ParsedModel,
+                  specs: Dict[str, QuantSpec]) -> Dict[str, int]:
+    """Per-tensor fixed-point exponents implied by the per-layer specs —
+    a graph pass over the DAG.
+
+    Rules: a weighted stage pins its input tensor at ``m_x`` and its
+    output at ``m_y``; pools pass the scale through unchanged (both
+    directions, so a pool feeding the first conv resolves too); merge
+    stages output at their spec's ``m_y``, or at the minimum operand
+    position when no spec was given.  A conv with a folded residual add
+    pins its *intermediate* tensor (the unfused conv output) at its own
+    ``m_y`` and its stage output at the merge spec's ``m_y`` — the same
+    two rules the unfused Conv + Add pair would apply.  Iterated to
+    fixpoint; raises if the graph input or output never resolves
+    (under-specified specs).  Per-channel specs change nothing here:
+    tensor positions are activation scales, which stay per-tensor.
+    """
+    tensor_m: Dict[str, int] = {}
+    for _ in range(len(model.layers) + 2):
+        changed = False
+
+        def _set(t: str, m: int) -> None:
+            nonlocal changed
+            if t not in tensor_m:
+                tensor_m[t] = m
+                changed = True
+
+        for li in model.layers:
+            spec = specs.get(li.name)
+            if li.kind in (P.CONV, P.FC):
+                if spec is None:
+                    raise KeyError(f"no QuantSpec for layer {li.name!r}")
+                _set(li.inputs[0], spec.m_x)
+                if li.kind == P.CONV and li.merge is not None:
+                    _set(li.merge_intermediate, spec.m_y)
+                    mspec = specs.get(li.merge.name)
+                    if mspec is not None:
+                        _set(li.output, mspec.m_y)
+                    elif li.skip_input in tensor_m:
+                        _set(li.output,
+                             min(spec.m_y, tensor_m[li.skip_input]))
+                else:
+                    _set(li.output, spec.m_y)
+            elif li.kind == P.POOL:
+                if li.inputs[0] in tensor_m:
+                    _set(li.output, tensor_m[li.inputs[0]])
+                elif li.output in tensor_m:
+                    _set(li.inputs[0], tensor_m[li.output])
+            else:  # add / concat
+                if spec is not None:
+                    _set(li.output, spec.m_y)
+                elif all(t in tensor_m for t in li.inputs):
+                    _set(li.output, min(tensor_m[t] for t in li.inputs))
+        if not changed:
+            break
+    for t in (model.input_name, model.output_name):
+        if t not in tensor_m:
+            raise ValueError("could not resolve fixed-point position of "
+                             f"tensor {t!r} from the given specs")
+    return tensor_m
+
+
+def _stage_weights(li: P.LayerInfo, prev: Optional[P.LayerInfo],
+                   w_q: np.ndarray) -> np.ndarray:
+    """One-time layout staging: conv OIHW -> HWIO; FC weight rows
+    reordered from the exporter's NCHW-flatten order (c, h, w) to the
+    executor's NHWC-flatten order (h, w, c) when the FC consumes a
+    flattened spatial tensor.  ``prev`` is the stage *producing* the
+    FC's input tensor (DAG producer, not list predecessor)."""
+    if li.kind == P.CONV:
+        return np.transpose(w_q, (2, 3, 1, 0))
+    if li.kind == P.FC and prev is not None and len(prev.out_shape) == 4:
+        _n, c, h, w = prev.out_shape
+        k, n_out = w_q.shape
+        if k == c * h * w:
+            return (w_q.reshape(c, h, w, n_out)
+                    .transpose(1, 2, 0, 3)
+                    .reshape(k, n_out))
+    return w_q
+
+
+def _check_group(li: P.LayerInfo) -> None:
+    """Every grouped conv must be executable *as a grouped conv* — an
+    invalid group can never fall through to the dense kernel and produce
+    silently wrong numerics."""
+    g = li.group
+    if g < 1 or li.c_in % g or li.c_out % g:
+        raise NotImplementedError(
+            f"conv {li.name!r}: group={g} does not divide "
+            f"C_in={li.c_in}/C_out={li.c_out}; the executor cannot map "
+            "this onto the grouped kernel library")
+
+
+def _negative_alignment(stage: str, shifts: Tuple[int, ...],
+                        m_common: int) -> ValueError:
+    return ValueError(
+        f"QV202 {stage!r}: operand position below the common scale "
+        f"m={m_common} (shifts {shifts}) — shift-only alignment cannot "
+        "scale up")
+
+
+def build_quantized(model: P.ParsedModel,
+                    specs: Dict[str, QuantSpec],
+                    per_channel: Optional[bool] = None,
+                    device: _device.DeviceLike = None) -> QuantizedModel:
+    """Apply the user-given (N, m) pairs (the paper: CNN2Gate does not
+    *perform* quantization, it *applies* provided values) and stage all
+    weights on ``device`` (CUDA by default) in the kernel layouts.
+    Merge stages (add/concat) get per-operand alignment shifts derived
+    from :func:`thread_scales`; a spec for them is optional (default:
+    merge at the minimum operand position, no output requant).
+
+    ``per_channel`` selects the weight-scale mode:
+      * ``None`` (default) — honour each spec as given;
+      * ``True``  — every weighted layer runs per-channel: scalar
+        ``m_w`` specs are widened to uniform per-Cout vectors (bit-
+        identical numerics, shift-vector datapath);
+      * ``False`` — strict per-tensor: a tuple ``m_w`` raises.
+
+    A merge whose operand sits below the common position raises
+    ``ValueError`` (rule QV202: shift-only alignment cannot scale up)."""
+    dev = _device.resolve(device)
+    if per_channel is not None:
+        coerced = {}
+        for name, spec in specs.items():
+            li = next((l for l in model.layers if l.name == name
+                       or (l.merge is not None and l.merge.name == name)),
+                      None)
+            weighted = (li is not None and li.name == name
+                        and li.kind in (P.CONV, P.FC))
+            if not per_channel and spec.per_channel:
+                raise ValueError(
+                    f"QV206 {name!r}: spec is per-channel but "
+                    "per_channel=False was requested")
+            if per_channel and weighted and not spec.per_channel:
+                coerced[name] = dataclasses.replace(
+                    spec, m_w=(spec.m_w,) * li.c_out)
+        specs = dict(specs, **coerced)
+    tensor_m = thread_scales(model, specs)
+    layers: List[QuantizedLayer] = []
+    for li in model.layers:
+        # pool stages carry no weights: int8 passes through at the
+        # incoming fixed-point scale (no spec, no requant)
+        spec = specs.get(li.name) if li.kind in (P.POOL, P.ADD, P.CONCAT)\
+            else specs[li.name]
+        w = model.graph.initializers[li.weight] if li.weight else None
+        b = model.graph.initializers[li.bias] if li.bias else None
+        w_q, b_q = (None, None)
+        operand_shifts: Tuple[int, ...] = ()
+        merge_spec: Optional[QuantSpec] = None
+        if li.kind == P.CONV:
+            _check_group(li)
+        if li.kind == P.CONV and li.merge is not None:
+            # folded residual add: same shift-only alignment rules as a
+            # standalone merge, operands = (conv intermediate, skip)
+            m_ops = (tensor_m[li.merge_intermediate],
+                     tensor_m[li.skip_input])
+            merge_spec = specs.get(li.merge.name)
+            if merge_spec is None:
+                m_common = min(m_ops)
+                merge_spec = QuantSpec(m_w=0, m_x=m_common, m_y=m_common)
+            operand_shifts = tuple(m - merge_spec.m_x for m in m_ops)
+            if any(s < 0 for s in operand_shifts):
+                raise _negative_alignment(li.merge.name, operand_shifts,
+                                          merge_spec.m_x)
+        if li.kind in (P.ADD, P.CONCAT):
+            m_ops = [tensor_m[t] for t in li.inputs]
+            if spec is None:
+                m_common = min(m_ops)
+                spec = QuantSpec(m_w=0, m_x=m_common, m_y=m_common)
+            operand_shifts = tuple(m - spec.m_x for m in m_ops)
+            if any(s < 0 for s in operand_shifts):
+                raise _negative_alignment(li.name, operand_shifts, spec.m_x)
+        if w is not None:
+            w_np, b_np = quantize_weights(w, b, spec)
+            prev_info = model.stage_producing(li.inputs[0])
+            w_np = np.ascontiguousarray(_stage_weights(li, prev_info, w_np))
+            w_q = torch.from_numpy(w_np).to(dev)
+            b_q = torch.from_numpy(b_np).to(dev) if b_np is not None else None
+        layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
+                                     merge_spec))
+    return QuantizedModel(
+        name=model.name,
+        layers=layers,
+        input_m=tensor_m[model.input_name],
+        output_m=tensor_m[model.output_name],
+        parsed=model,
+        device=dev,
+    )
+
+
+def _concat_axis(axis: int, ndim: int) -> int:
+    """Map an NCHW concat axis onto the executor's NHWC layout."""
+    if ndim == 4:
+        return {0: 0, 1: 3, 2: 1, 3: 2}[axis % 4]
+    return axis
+
+
+def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
+                  block_h: Optional[int] = None
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build the whole-network executor: a closure that interprets the
+    DAG stage program over a tensor environment on ``qm.device``.  Its
+    argument is the NCHW float input (array or tensor); the result is
+    float32 logits (dequantized with the output tensor's m, softmax when
+    the last stage has one).
+
+    ``(n_i, n_l, block_h)`` is the DSE's design point (§4.2), kept on the
+    closure as ``design_point``.  The CUDA kernels' tiles are fixed in
+    this version, so the design point changes nothing that runs — as in
+    the JAX package, the result is identical for every option.
+
+    Conv stages with a folded residual add (``li.merge``) feed the skip
+    operand straight into the kernel epilogue.  Conv stages annotated
+    for concat fusion (``li.concat``) write their output into a
+    channel-offset slice of the merge's shared buffer: the buffer is
+    allocated at the first producer (kept in the environment under a
+    reserved ``"\\x00cbuf:"`` key that no graph tensor name can take),
+    each producer's kernel **updates it in place** with its own
+    ``out_off``/``concat_shift``/``concat_relu`` (and the merge's
+    absorbed pool, when present), and the annotated Concat stage itself
+    just takes the finished buffer as the merge tensor.  The buffer key
+    is released at the Concat stage, which by construction runs after
+    the last contributor.
+
+    Buffer release is liveness-based: the stage index of each tensor's
+    last consumer is precomputed, and the environment drops a tensor as
+    soon as the schedule passes it."""
+    stages = qm.layers
+    out_name = qm.parsed.output_name
+    in_name = qm.parsed.input_name
+    out_stage = qm.parsed.stage_producing(out_name)
+    dev = qm.device
+
+    last_use: Dict[str, int] = {}
+    for idx, ql in enumerate(stages):
+        for t in ql.info.inputs:
+            last_use[t] = idx
+    last_use[out_name] = len(stages)  # the egress reads it
+
+    # concat fusion: producers need their merge's alignment shifts and
+    # relu flag, which live on the (still-scheduled) Concat stage
+    concat_ql = {ql.info.name: ql for ql in stages
+                 if ql.info.kind == P.CONCAT}
+
+    def _cbuf_key(cc: P.LayerInfo) -> str:
+        return "\x00cbuf:" + cc.name
+
+    def _conv(ql: QuantizedLayer, env: Dict[str, torch.Tensor]):
+        li = ql.info
+        pool = None
+        if li.pool is not None:
+            pool = (li.pool.kernel_shape[0], li.pool.strides[0])
+        merge_kw = {}
+        if li.merge is not None:  # residual add in the epilogue
+            merge_kw = dict(skip=env[li.skip_input],
+                            skip_shifts=ql.operand_shifts,
+                            merge_shift=ql.merge_spec.requant_shift,
+                            merge_relu=li.merge.relu)
+        if li.concat is not None:  # concat merge in the epilogue
+            cc = li.concat
+            cq = concat_ql[cc.name]
+            if cc.pool is not None:  # pool absorbed by the merge
+                pool = (cc.pool.kernel_shape[0], cc.pool.strides[0])
+            buf = env.get(_cbuf_key(cc))
+            if buf is None:  # first contributor allocates
+                _nb, c_, h_, w_ = cc.out_shape
+                nb = env[li.inputs[0]].shape[0]
+                buf = torch.zeros((nb, h_, w_, c_), dtype=torch.int8,
+                                  device=dev)
+            merge_kw.update(out_buf=buf, out_off=li.concat_offset,
+                            concat_shift=cq.operand_shifts[
+                                cc.inputs.index(li.output)],
+                            concat_relu=cc.relu)
+        return ops.qconv2d_nhwc(
+            env[li.inputs[0]], ql.w_q, ql.b_q, strides=li.strides,
+            pads=li.pads, shift=ql.spec.requant_shift, relu=li.relu,
+            pool=pool, groups=li.group, **merge_kw)
+
+    def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor]):
+        li = ql.info
+        if li.kind == P.CONV:
+            return _conv(ql, env)
+        if li.kind == P.POOL:
+            pool_fn = (ops.avgpool2d_nhwc if li.pool_type == "avg"
+                       else ops.maxpool2d_nhwc)
+            return pool_fn(env[li.inputs[0]], li.kernel_shape[0],
+                           li.strides[0], li.pads)
+        if li.kind == P.FC:
+            h = env[li.inputs[0]]
+            if h.ndim > 2:
+                # NHWC flatten: rows were permuted at staging time
+                h = h.reshape(h.shape[0], -1)
+            return ops.qgemm(h, ql.w_q, ql.b_q, shift=ql.spec.requant_shift,
+                             relu=li.relu)
+        if li.kind == P.ADD:
+            return ops.qadd_nhwc([env[t] for t in li.inputs],
+                                 ql.operand_shifts,
+                                 shift=ql.spec.requant_shift, relu=li.relu)
+        if li.kind == P.CONCAT:
+            if li.concat_fused:
+                # the producers already wrote (aligned + relu'd +
+                # pooled) channel slices in place: the shared buffer IS
+                # the merge tensor
+                return env.pop(_cbuf_key(li))
+            xs = [env[t] for t in li.inputs]
+            return ops.qconcat_nhwc(xs, ql.operand_shifts,
+                                    axis=_concat_axis(li.axis, xs[0].ndim),
+                                    relu=li.relu)
+        raise ValueError(li.kind)  # the parser only emits the five kinds
+
+    @torch.no_grad()
+    def forward(x_float) -> torch.Tensor:
+        x = torch.as_tensor(x_float, dtype=torch.float32, device=dev)
+        h = torch.clamp(torch.round(x * (2.0 ** qm.input_m)), -128, 127)
+        h = h.to(torch.int8)
+        if h.ndim == 4:
+            h = h.permute(0, 2, 3, 1).contiguous()  # single ingress NCHW->NHWC
+        env: Dict[str, torch.Tensor] = {in_name: h}
+        for idx, ql in enumerate(stages):
+            li = ql.info
+            h = _stage(ql, env)
+            key = (_cbuf_key(li.concat) if li.kind == P.CONV
+                   and li.concat is not None else li.output)
+            env[key] = h
+            for t in li.inputs:     # liveness-based buffer release
+                if last_use.get(t) == idx:
+                    env.pop(t, None)  # pop: an operand may repeat (x + x)
+        h = env[out_name]
+        if h.ndim == 4:
+            h = h.permute(0, 3, 1, 2)              # single egress NHWC->NCHW
+        logits = h.to(torch.float32) * (2.0 ** -qm.output_m)
+        if out_stage is not None and out_stage.softmax:
+            logits = torch.softmax(logits, dim=-1)
+        return logits
+
+    forward.design_point = (n_i, n_l, block_h)
+    return forward
+
+
+def run_int8(qm: QuantizedModel, x_float) -> torch.Tensor:
+    """Full pipelined inference through the executor, which is built
+    once and cached on the model."""
+    if qm._executor is None:
+        qm._executor = make_executor(qm)
+    return qm._executor(x_float)
+
+
+def layer_bytes(li: P.LayerInfo) -> Tuple[int, int, int]:
+    """(input, weight, output) int8 bytes of a stage — feeds the latency
+    model and the memory-schedule report.  Merge stages read every
+    operand."""
+    if li.kind in (P.ADD, P.CONCAT):
+        if li.concat_fused:
+            # producer-fused concat: the producers wrote their channel
+            # slices straight into the shared buffer, so the merge stage
+            # itself moves nothing
+            return 0, 0, 0
+        if li.kind == P.ADD:
+            in_b = len(li.inputs) * int(np.prod(li.in_shape))
+        else:
+            in_b = int(np.prod(li.out_shape))
+        return in_b, 0, int(np.prod(li.out_shape))
+    in_b = int(np.prod(li.in_shape))
+    if li.kind == P.CONV and li.merge is not None:
+        # fused residual merge: the skip operand streams in once; the
+        # intermediate conv result never touches memory at all
+        in_b += int(np.prod(li.conv_out_shape))
+    w_b = li.weight_count()
+    out_b = int(np.prod(li.out_shape))
+    if li.kind == P.CONV and li.concat is not None\
+            and li.concat.pool is not None:
+        # concat producer with the merge's absorbed pool: the slice it
+        # writes is in pooled geometry
+        cc = li.concat
+        out_b = int(cc.out_shape[0] * li.c_out * np.prod(cc.out_shape[2:]))
+    return in_b, w_b, out_b

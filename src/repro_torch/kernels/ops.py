@@ -1,0 +1,174 @@
+"""Public entry points of the CNN kernels.
+
+Two families, as in the JAX package:
+
+  * ``*_nhwc`` — the kernels' layouts (NHWC activations, HWIO weights).
+    These are what the whole-network executor calls: activations stay
+    NHWC int8 from network ingress to egress.
+  * ``*_nchw`` — ONNX-layout wrappers (NCHW / OIHW) that permute around
+    the NHWC paths, for direct callers and layout-parity tests.
+
+Every op runs where its tensors lie.  On a CUDA tensor the dense conv
+and the GEMM launch their hand-written kernels (``qconv.qconv2d``,
+``qgemm.qgemm``); the depthwise and ragged-grouped convs raise until
+their kernels are ported; nothing falls back to a plain version.  On a
+CPU tensor every op runs its plain PyTorch version.  Merges and
+standalone pools are plain torch ops on either device, as they were
+plain array ops in the JAX package.
+
+Conv pads are zero (the symmetric quantization zero-point) and applied
+here; max-pool pads take INT8_MIN.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import qconv as _qconv
+from . import qgemm as _qgemm
+from . import ref as ref
+
+_COUNTERS = (_qgemm.launches, _qconv.launches)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches of each wrapper since the last reset: each
+    wrapper adds one where it launches its CUDA kernel, and nowhere
+    else."""
+    return {name: n for c in _COUNTERS for name, n in c.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for name in c:
+            c[name] = 0
+
+
+def qgemm(x, w, b=None, *, shift, relu: bool = False) -> torch.Tensor:
+    """``shift`` is an int (per-tensor) or a length-N tuple (per-output-
+    channel weight scales — the per-lane shift vector path)."""
+    return _qgemm.qgemm(x, w, b, shift=shift, relu=relu)
+
+
+# ------------------------------------------------------ NHWC-native paths
+
+def qconv2d_nhwc(
+    x: torch.Tensor,  # (N, H, W, Cin) int8, unpadded
+    w: torch.Tensor,  # (KH, KW, Cin/groups, Cout) int8 (HWIO)
+    b: Optional[torch.Tensor],
+    *,
+    strides: Tuple[int, int] = (1, 1),
+    pads: Tuple[int, int, int, int] = (0, 0, 0, 0),
+    shift=0,
+    relu: bool = True,
+    pool: Optional[Tuple[int, int]] = None,
+    groups: int = 1,
+    skip: Optional[torch.Tensor] = None,
+    skip_shifts: Tuple[int, int] = (0, 0),
+    merge_shift: int = 0,
+    merge_relu: bool = False,
+    out_buf: Optional[torch.Tensor] = None,
+    out_off: int = 0,
+    concat_shift: int = 0,
+    concat_relu: bool = False,
+) -> torch.Tensor:
+    """Fused conv+requant+ReLU(+skip/concat)+pool.  Returns NHWC int8
+    (post-pool when ``pool`` is given), or ``out_buf`` with this conv's
+    channel slice written in place.
+
+    Dispatch on ``groups`` (ONNX Conv semantics), as in the JAX package:
+      * 1 — the dense kernel (:func:`qconv.qconv2d`);
+      * Cin with an integer channel multiplier (Cout = m·Cin, 1×1
+        filter slice) — depthwise (:func:`qconv.qdwconv2d`);
+      * anything else (ragged groups) — :func:`qconv.qgconv2d`.
+
+    ``shift`` is an int (per-tensor requant) or a length-Cout tuple
+    (per-output-channel weight scales)."""
+    cin = x.shape[-1]
+    cout = w.shape[-1]
+    x = ref.pad_nhwc(x, pads).contiguous()
+    merge_kw = dict(skip=skip, skip_shifts=skip_shifts,
+                    merge_shift=merge_shift, merge_relu=merge_relu,
+                    out_buf=out_buf, out_off=out_off,
+                    concat_shift=concat_shift, concat_relu=concat_relu)
+    if groups == 1:
+        return _qconv.qconv2d(x, w, b, strides=strides, shift=shift,
+                              relu=relu, pool=pool, **merge_kw)
+    if groups == cin and cout % cin == 0 and w.shape[2] == 1:
+        return _qconv.qdwconv2d(x, w, b, strides=strides, shift=shift,
+                                relu=relu, pool=pool, **merge_kw)
+    if skip is not None or out_buf is not None:
+        raise ValueError("merge fusion requires the dense or depthwise "
+                         "conv")
+    return _qconv.qgconv2d(x, w, b, groups=groups, strides=strides,
+                           shift=shift, relu=relu, pool=pool)
+
+
+def qadd_nhwc(xs, align_shifts, *, shift=0,
+              relu: bool = False) -> torch.Tensor:
+    """Residual-merge stage: align int8 operands to a common fixed-point
+    position, add in int32, requantize back to int8."""
+    return ref.qadd_ref(xs, align_shifts, shift, relu)
+
+
+def qconcat_nhwc(xs, align_shifts, *, axis: int = -1,
+                 relu: bool = False) -> torch.Tensor:
+    """Channel-merge stage: align each int8 operand to the common scale,
+    then concatenate; ``relu`` is the merge's fused ReLU.  One definition
+    of the merge semantics, shared with the conv's concat epilogue."""
+    return ref.qconcat_ref(xs, align_shifts, axis=axis, relu=relu)
+
+
+def maxpool2d_nhwc(x: torch.Tensor, window: int, stride: int,
+                   pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
+                   ) -> torch.Tensor:
+    """Standalone int8 NHWC max-pool; pads take INT8_MIN."""
+    return ref.maxpool2d_ref(x, window, stride, pads)
+
+
+def avgpool2d_nhwc(x: torch.Tensor, window: int, stride: int,
+                   pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
+                   ) -> torch.Tensor:
+    """Standalone int8 NHWC average-pool (AveragePool /
+    GlobalAveragePool): int32 window sum, round-half-up divide by the
+    real window population."""
+    return ref.avgpool2d_ref(x, window, stride, pads)
+
+
+# -------------------------------------- ONNX-layout (NCHW) compatibility
+
+def qconv2d_nchw(
+    x: torch.Tensor,  # (N, Cin, H, W) int8
+    w: torch.Tensor,  # (Cout, Cin, KH, KW) int8 (OIHW, ONNX layout)
+    b: Optional[torch.Tensor],
+    *,
+    strides: Tuple[int, int] = (1, 1),
+    pads: Tuple[int, int, int, int] = (0, 0, 0, 0),
+    shift=0,
+    relu: bool = True,
+    pool: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """ONNX-layout wrapper around :func:`qconv2d_nhwc`.  Returns NCHW
+    int8 (post-pool when ``pool`` is given)."""
+    xh = x.permute(0, 2, 3, 1).contiguous()
+    wh = w.permute(2, 3, 1, 0).contiguous()
+    y = qconv2d_nhwc(xh, wh, b, strides=strides, pads=pads, shift=shift,
+                     relu=relu, pool=pool)
+    return y.permute(0, 3, 1, 2)
+
+
+def maxpool2d_nchw(x: torch.Tensor, window: int, stride: int,
+                   pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
+                   ) -> torch.Tensor:
+    """ONNX-layout wrapper around :func:`maxpool2d_nhwc`."""
+    return maxpool2d_nhwc(x.permute(0, 2, 3, 1), window, stride,
+                          pads).permute(0, 3, 1, 2)
+
+
+def avgpool2d_nchw(x: torch.Tensor, window: int, stride: int,
+                   pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
+                   ) -> torch.Tensor:
+    """ONNX-layout wrapper around :func:`avgpool2d_nhwc`."""
+    return avgpool2d_nhwc(x.permute(0, 2, 3, 1), window, stride,
+                          pads).permute(0, 3, 1, 2)

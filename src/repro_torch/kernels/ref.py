@@ -1,0 +1,212 @@
+"""Plain PyTorch versions of the CNN kernels' semantics.
+
+These define the *exact* integer semantics the CUDA kernels must
+reproduce, and they are what every op runs on a CPU tensor.  All
+integer arithmetic follows the paper's fixed-point rules: int8
+operands, int32 accumulation, round-half-up arithmetic right-shift
+requantization (shift = m_w + m_x - m_y), fused ReLU.
+
+Activations are NHWC and conv weights HWIO, as in the JAX package.
+The conv and GEMM cores are exact on both devices: on the CPU they run
+in int32 (``torch.mm`` and ``F.conv2d`` take int32 there); on CUDA,
+which has no integer conv or matrix product in PyTorch, they run in
+float64 and are rounded back to int32 — exact because every product of
+two int8 values and every partial sum is an integer far below 2**53
+(|acc| <= 128 * 128 * K + |bias|).  int32 additions wrap two's
+complement on both devices, as the JAX reference's do.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+INT8_MIN, INT8_MAX = -128, 127
+
+
+def _is_scalar_shift(shift) -> bool:
+    if torch.is_tensor(shift):
+        return shift.ndim == 0
+    return not isinstance(shift, (tuple, list))
+
+
+def round_shift(v: torch.Tensor, shift) -> torch.Tensor:
+    """Round-half-up arithmetic right shift (no clip/relu).  ``shift``
+    is an int (per-tensor) or an int32 vector (tuple or tensor)
+    broadcast against the **last axis** of ``v`` (per-output-channel
+    lanes) — the shared requant primitive of every plain version and
+    both epilogue modes."""
+    if _is_scalar_shift(shift):
+        s = int(shift)
+        if s > 0:
+            v = (v + (1 << (s - 1))) >> s
+        return v
+    s = torch.as_tensor(shift, dtype=torch.int32, device=v.device)
+    one = torch.ones_like(s)
+    half = torch.where(s > 0, one << (s - 1).clamp_min(0),
+                       torch.zeros_like(s))
+    return (v + half) >> s
+
+
+def requant(acc: torch.Tensor, shift, relu: bool) -> torch.Tensor:
+    """int32 accumulator -> int8: round-half-up shift, relu, clip.
+    ``shift`` may be a per-lane int32 vector (per-channel quantization);
+    lanes ride the last axis of ``acc``."""
+    acc = round_shift(acc, shift)
+    if relu:
+        acc = acc.clamp_min(0)
+    return acc.clamp(INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def align_shift(v: torch.Tensor, shift: int) -> torch.Tensor:
+    """Round-half-up arithmetic right shift (no clip) — the operand
+    alignment step of a residual merge: an int8 operand at fixed-point
+    position m is moved to position m - shift."""
+    if shift > 0:
+        v = (v + (1 << (shift - 1))) >> shift
+    return v
+
+
+def _exact_int32(f64: torch.Tensor) -> torch.Tensor:
+    # the float64 core holds integers exactly; rounding first guards
+    # against any convolution algorithm whose transforms leave a
+    # residue far below 0.5
+    return torch.round(f64).to(torch.int32)
+
+
+def int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 (M, K) x (K, N) product of int8 operands."""
+    if x.device.type == "cpu":
+        return torch.mm(x.to(torch.int32), w.to(torch.int32))
+    return _exact_int32(torch.mm(x.to(torch.float64), w.to(torch.float64)))
+
+
+def int_conv_nhwc(x: torch.Tensor, w: torch.Tensor,
+                  strides: Tuple[int, int], groups: int = 1
+                  ) -> torch.Tensor:
+    """Exact int32 VALID conv: NHWC int8 input, HWIO int8 weight,
+    NHWC int32 result."""
+    xc = x.permute(0, 3, 1, 2)          # NCHW
+    wc = w.permute(3, 2, 0, 1)          # OIHW
+    if x.device.type == "cpu":
+        acc = F.conv2d(xc.to(torch.int32), wc.to(torch.int32),
+                       stride=tuple(strides), groups=groups)
+    else:
+        acc = _exact_int32(F.conv2d(xc.to(torch.float64),
+                                    wc.to(torch.float64),
+                                    stride=tuple(strides), groups=groups))
+    return acc.permute(0, 2, 3, 1).contiguous()
+
+
+def qgemm_ref(
+    x: torch.Tensor,  # (M, K) int8
+    w: torch.Tensor,  # (K, N) int8
+    b: Optional[torch.Tensor],  # (N,) int32
+    shift,
+    relu: bool = False,
+) -> torch.Tensor:
+    acc = int_matmul(x, w)
+    if b is not None:
+        acc = acc + b.to(torch.int32)[None, :]
+    return requant(acc, shift, relu)
+
+
+def qconv2d_ref(
+    x: torch.Tensor,  # (N, H, W, Cin) int8, already zero-padded
+    w: torch.Tensor,  # (KH, KW, Cin/groups, Cout) int8
+    b: Optional[torch.Tensor],  # (Cout,) int32
+    strides: Tuple[int, int],
+    shift,
+    relu: bool = True,
+    pool: Optional[Tuple[int, int]] = None,  # (window, stride)
+    groups: int = 1,
+) -> torch.Tensor:
+    """Fused conv+ReLU+maxpool, NHWC/HWIO, VALID padding (pad upstream).
+    ``groups`` follows ONNX Conv semantics (groups == Cin == Cout is
+    depthwise)."""
+    acc = int_conv_nhwc(x, w, strides, groups)
+    if b is not None:
+        acc = acc + b.to(torch.int32)[None, None, None, :]
+    y = requant(acc, shift, relu)
+    if pool is not None:
+        y = maxpool2d_ref(y, pool[0], pool[1])
+    return y
+
+
+def qadd_ref(xs: Sequence[torch.Tensor], align_shifts, shift,
+             relu: bool = False) -> torch.Tensor:
+    """Residual-merge semantics: align each int8 operand to the common
+    fixed-point position (round-half-up right shift in int32), add, then
+    requantize to the output scale."""
+    acc = None
+    for x, s in zip(xs, align_shifts):
+        v = align_shift(x.to(torch.int32), s)
+        acc = v if acc is None else acc + v
+    return requant(acc, shift, relu)
+
+
+def qconcat_ref(xs: Sequence[torch.Tensor], align_shifts, axis: int = -1,
+                relu: bool = False) -> torch.Tensor:
+    """Channel-merge semantics: align each int8 operand to the common
+    fixed-point position (round-half-up shift in int32, clipped back to
+    int8 — a zero shift is the identity), concatenate, then apply the
+    optional fused post-merge ReLU."""
+    aligned = [
+        align_shift(x.to(torch.int32), s).clamp(INT8_MIN, INT8_MAX)
+        .to(torch.int8) if s else x
+        for x, s in zip(xs, align_shifts)
+    ]
+    y = torch.cat(aligned, dim=axis)
+    if relu:
+        y = y.clamp_min(0)
+    return y
+
+
+def _windows(x: torch.Tensor, window: int, stride: int):
+    """The window*window strided NHWC slices whose elementwise reduction
+    is a VALID pool."""
+    oh = (x.shape[1] - window) // stride + 1
+    ow = (x.shape[2] - window) // stride + 1
+    for i in range(window):
+        for j in range(window):
+            yield x[:, i:i + (oh - 1) * stride + 1:stride,
+                    j:j + (ow - 1) * stride + 1:stride, :]
+
+
+def pad_nhwc(x: torch.Tensor, pads, value: int = 0) -> torch.Tensor:
+    """ONNX pads (top, left, bottom, right) on an NHWC tensor."""
+    if not any(pads):
+        return x
+    return F.pad(x, (0, 0, pads[1], pads[3], pads[0], pads[2]), value=value)
+
+
+def maxpool2d_ref(x: torch.Tensor, window: int, stride: int,
+                  pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
+                  ) -> torch.Tensor:
+    """Standalone int8 NHWC max-pool; pads take INT8_MIN, the identity
+    of max."""
+    y = None
+    for win in _windows(pad_nhwc(x, pads, INT8_MIN), window, stride):
+        y = win.clone() if y is None else torch.maximum(y, win)
+    return y
+
+
+def avgpool2d_ref(x: torch.Tensor, window: int, stride: int,
+                  pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
+                  ) -> torch.Tensor:
+    """Standalone int8 NHWC average-pool: int32 sum, round-half-up
+    divide (fixed-point semantics — the scale is unchanged).  Padded
+    windows divide by the real window population (the ONNX
+    ``count_include_pad=0`` default), counted by pooling an all-ones
+    plane with zero padding."""
+    summed = sum(_windows(pad_nhwc(x.to(torch.int32), pads, 0),
+                          window, stride))
+    if any(pads):
+        ones = torch.ones((1,) + tuple(x.shape[1:3]) + (1,),
+                          dtype=torch.int32, device=x.device)
+        counts = sum(_windows(pad_nhwc(ones, pads, 0), window, stride))
+    else:
+        counts = window * window
+    q = torch.div(summed + counts // 2, counts, rounding_mode="floor")
+    return q.clamp(INT8_MIN, INT8_MAX).to(torch.int8)

@@ -1,0 +1,170 @@
+"""The port's int8 executor end to end against the JAX package's.
+
+The JAX package's int8 executor does not run under jax >= 0.9 (its
+Pallas conv kernels use APIs that release removed), so the reference is
+run through a shim scoped to each test with ``monkeypatch``: the renamed
+``pltpu.TPUCompilerParams`` is restored, which brings the reference
+``qgemm`` kernel back, and ``ops.qconv2d_nhwc`` becomes "pad, then the
+``ref.qconv2d_ref`` oracle".  The reference program is the **unfused**
+one (``fuse_skip=False, fuse_concat=False``), since the oracle has no
+fused epilogues; its own contract is fused == unfused bit for bit.
+
+Tolerance ``atol=1e-6, rtol=0``: the int8 egress is exact and the only
+float step after it is the softmax, which one int8 step would move by
+far more than 1e-6.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import onnx_lite as r_onnx
+from repro.core.synthesis import CNN2Gate as RGate
+from repro.kernels import ops as r_ops
+from repro.kernels import ref as r_ref
+from repro.models import cnn as r_cnn
+from repro_torch import convert
+from repro_torch.core import pipeline as t_pipe
+from repro_torch.core.quantize import QuantSpec
+from repro_torch.core.synthesis import CNN2Gate as TGate
+from repro_torch.models import cnn as t_cnn
+
+NETS = ["tiny_cnn", "tiny_cnn_gap", "resnet_tiny", "googlenet_tiny",
+        "squeezenet_tiny", "mobilenet_tiny"]
+
+
+def _oracle_conv(x, w, b, *, strides=(1, 1), pads=(0, 0, 0, 0), shift=0,
+                 relu=True, pool=None, groups=1, **merge):
+    assert merge.get("skip") is None and merge.get("out_buf") is None
+    if any(pads):
+        x = jnp.pad(x, ((0, 0), (pads[0], pads[2]), (pads[1], pads[3]),
+                        (0, 0)))
+    s = jnp.asarray(shift, jnp.int32) if isinstance(shift, tuple) else shift
+    return r_ref.qconv2d_ref(x, w, b, strides, s, relu, pool, groups)
+
+
+@pytest.fixture
+def shimmed_reference(monkeypatch):
+    from jax.experimental.pallas import tpu as pltpu
+    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                        raising=False)
+    monkeypatch.setattr(r_ops, "qconv2d_nhwc", _oracle_conv)
+
+
+def _spec_tuples(specs):
+    return {k: (s.m_w, s.m_x, s.m_y) for k, s in specs.items()}
+
+
+def _reference_run(graph, x, per_channel):
+    gate = RGate.from_graph(graph, fuse_skip=False, fuse_concat=False)
+    specs = gate.calibrate_quantization(x, per_channel=per_channel)
+    return np.asarray(gate.build("emulation")(x)), _spec_tuples(specs)
+
+
+def _port_gate(graph, specs, **parse_kw):
+    tg = convert.graph_from_model_dict(r_onnx.to_model_dict(graph),
+                                       graph.initializers)
+    gate = TGate.from_graph(tg, device="cpu", **parse_kw)
+    gate.apply_quantization(convert.specs_from_tuples(specs))
+    return gate
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("name", NETS)
+def test_fused_port_matches_unfused_reference(shimmed_reference, name,
+                                              per_channel):
+    graph = getattr(r_cnn, name)(batch=2)
+    x = np.random.default_rng(7).standard_normal(
+        graph.inputs[0].shape).astype(np.float32)
+    want, specs = _reference_run(graph, x, per_channel)
+    fused = _port_gate(graph, specs)
+    got = fused.build("emulation")(x)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    unfused = _port_gate(graph, specs, fuse_skip=False, fuse_concat=False)
+    assert torch.equal(unfused.build()(x), got)
+    assert torch.equal(t_pipe.run_int8(fused.quantized, x), got)
+    assert fused.per_channel == per_channel
+
+
+def test_logits_without_softmax_are_bit_exact(shimmed_reference):
+    """A head without softmax: the dequantized int8 logits themselves
+    must be equal, through a residual block, a concat and a padded
+    standalone max-pool."""
+    def build(mod):
+        b = mod.GraphBuilder("custom", (2, 3, 16, 16), seed=9)
+        b.conv(8, 3, pad=1).maxpool(3, 2, pad=1)
+        skip = b.tap()
+        b.conv(8, 3, pad=1).conv(8, 3, pad=1, relu=False).add_from(skip)
+        left = b.tap()
+        b.conv(6, 1)
+        right = b.tap()
+        b.from_tap(left).conv(4, 3, pad=1).concat_from(right)
+        b.maxpool(2, 2).fc(12).fc(5, relu=False, softmax=False)
+        return b.build()
+    graph = build(r_cnn)
+    x = np.random.default_rng(2).standard_normal(
+        graph.inputs[0].shape).astype(np.float32)
+    for per_channel in (False, True):
+        want, specs = _reference_run(graph, x, per_channel)
+        gate = _port_gate(graph, specs)
+        assert any(l.merge is not None for l in gate.parsed.layers)
+        assert any(l.concat_fused for l in gate.parsed.layers)
+        np.testing.assert_array_equal(gate.build()(x).numpy(), want)
+        own = TGate.from_graph(build(t_cnn), device="cpu")
+        assert _spec_tuples(own.calibrate_quantization(
+            x, per_channel=per_channel)) == specs
+
+
+def test_fullflow_runs_once_and_matches_emulation():
+    g = t_cnn.resnet_tiny()
+    x = np.random.default_rng(0).standard_normal(
+        g.inputs[0].shape).astype(np.float32)
+    gate = TGate.from_graph(g, device="cpu")
+    gate.calibrate_quantization(x)
+    full = gate.build("fullflow", n_i=8, n_l=16, block_h=4)
+    assert gate.synthesis_time_s > 0
+    assert full.design_point == (8, 16, 4)
+    assert torch.equal(full(x), gate.build("emulation")(x))
+    with pytest.raises(ValueError, match="unknown mode"):
+        gate.build("bitstream")
+    assert "resnet_tiny" in gate.summary()
+
+
+def test_build_quantized_rejects_what_the_reference_rejects():
+    g = t_cnn.resnet_tiny()
+    gate = TGate.from_graph(g, device="cpu")
+    x = np.random.default_rng(0).standard_normal(
+        g.inputs[0].shape).astype(np.float32)
+    specs = gate.calibrate_quantization(x, per_channel=True)
+    with pytest.raises(ValueError, match="QV206"):
+        t_pipe.build_quantized(gate.parsed, specs, per_channel=False,
+                               device="cpu")
+    # a merge spec whose common position lies above an operand's
+    add = next(l.merge for l in gate.parsed.layers if l.merge is not None)
+    bad = dict(specs)
+    bad[add.name] = QuantSpec(0, specs[add.name].m_x + 3,
+                              specs[add.name].m_y)
+    with pytest.raises(ValueError, match="QV202"):
+        t_pipe.build_quantized(gate.parsed, bad, device="cpu")
+    unfused = TGate.from_graph(g, fuse_skip=False, device="cpu")
+    add = next(l for l in unfused.parsed.layers if l.kind == "add")
+    bad = dict(specs)
+    bad[add.name] = QuantSpec(0, specs[add.name].m_x + 3,
+                              specs[add.name].m_y)
+    with pytest.raises(ValueError, match="QV202"):
+        t_pipe.build_quantized(unfused.parsed, bad, device="cpu")
+    with pytest.raises(RuntimeError, match="first"):
+        TGate.from_graph(g, device="cpu").build()
+
+
+def test_layer_bytes_match_reference():
+    from repro.core import pipeline as r_pipe
+    from repro.core.parser import parse as r_parse
+    from repro_torch.core.parser import parse as t_parse
+    for name in ("googlenet_tiny", "resnet_tiny", "squeezenet_tiny"):
+        rp = r_parse(getattr(r_cnn, name)())
+        tp = t_parse(getattr(t_cnn, name)())
+        assert [r_pipe.layer_bytes(l) for l in rp.layers] == \
+            [t_pipe.layer_bytes(l) for l in tp.layers]

@@ -1,0 +1,118 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package,
+and no silent CPU fallback."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as tdevice
+from repro_torch.core import pipeline as tpipe
+from repro_torch.core.parser import parse
+from repro_torch.core.quantize import QuantSpec
+from repro_torch.core.synthesis import CNN2Gate
+from repro_torch.kernels import _build, ops, qconv, qgemm
+from repro_torch.models import cnn
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import sys, pkgutil, importlib
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+               for k, v in sys.modules.items() if v is not None)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 14
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\.|\s|$|,)|from\s+(jax|repro)(\.|\s))",
+    re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_in_source(path):
+    assert not _FORBIDDEN.findall(path.read_text()), path
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = cnn.tiny_cnn()
+    x = np.zeros(g.inputs[0].shape, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.resolve()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CNN2Gate.from_graph(g)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cnn.run_float(g, x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cnn.collect_activations(g, x)
+    pm = parse(g)
+    specs = {li.name: QuantSpec(6, 4, 3) for li in pm.layers}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpipe.build_quantized(pm, specs)
+    assert tdevice.resolve("cpu").type == "cpu"
+
+
+def _meta(shape, dtype=torch.int8):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_no_plain_fallback_off_the_cpu():
+    """A tensor that is not on the CPU never reaches a plain version:
+    the dense wrappers insist on CUDA, and the depthwise/grouped convs
+    raise until their kernels are ported."""
+    x, w = _meta((1, 6, 6, 8)), _meta((3, 3, 8, 8))
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        qconv.qconv2d(x, w, None)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        qgemm.qgemm(_meta((2, 8)), _meta((8, 4)), shift=0)
+    with pytest.raises(NotImplementedError, match="port slice 2"):
+        ops.qconv2d_nhwc(x, _meta((3, 3, 1, 8)), None, groups=8)
+    with pytest.raises(NotImplementedError, match="port slice 2"):
+        ops.qconv2d_nhwc(x, _meta((3, 3, 4, 8)), None, groups=2)
+
+
+def test_launch_counters_count_kernel_launches_only():
+    """Plain versions (every CPU call) leave the counters alone."""
+    ops.reset_launch_counts()
+    g = cnn.googlenet_tiny()
+    gate = CNN2Gate.from_graph(g, device="cpu")
+    x = np.random.default_rng(0).standard_normal(g.inputs[0].shape)
+    gate.calibrate_quantization(x.astype(np.float32))
+    gate.build()(x)
+    assert ops.launch_counts() == {"qgemm": 0, "qconv2d": 0,
+                                   "qconv2d_into": 0}
+
+
+def test_kernel_sources_and_build_key():
+    srcs = _build.sources()
+    assert set(srcs) == {"qgemm", "qconv"}
+    for name in srcs:
+        lib = _build._lib_path(name)
+        assert lib.parent == _build.BUILD_DIR
+        assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        _build.check(7, "qgemm")
