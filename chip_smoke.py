@@ -360,9 +360,10 @@ def serve(torch, gate, xs, expect, phase, name):
     return run, outs, ms
 
 
-def kernel_records(torch, run, x, launches, dev):
-    """Time every kernel call one forward makes against its plain
-    version; return per-kernel sums and bounds.  ``library_ms`` stays
+def kernel_records(torch, run, x, launches, dev, phase):
+    """Hold every kernel call one forward makes equal to its plain
+    version at that call's shapes and time both; return per-kernel sums
+    and bounds.  ``library_ms`` stays
     None: PyTorch has no int8 conv, and ``torch._int_mm`` takes no
     M <= 16 (see :func:`library_yardstick`)."""
     from repro_torch.kernels import qconv, qgemm
@@ -405,7 +406,10 @@ def kernel_records(torch, run, x, launches, dev):
                            for t in a],
                          **{k: (v.clone() if torch.is_tensor(v) else v)
                             for k, v in kw.items()})
-        r["err"] = max(r["err"], (y.int() - yp.int()).abs().max().item())
+        err = (y.int() - yp.int()).abs().max().item()
+        check(phase, f"{name}_call{r['calls']}_equals_plain", err == 0,
+              max_abs_err=err)
+        r["err"] = max(r["err"], err)
         ms = time_ms(torch, lambda: kernel[name](*a, **kw), flush=flush)
         plain_ms = time_ms(torch, lambda: plain[name](*a, **kw), flush=flush)
         emit(phase="timing", kernel=name, call=r["calls"],
@@ -442,13 +446,16 @@ def device_time(torch, fn, wall_ms: float) -> dict:
             torch.cuda.synchronize()
     except RuntimeError as e:   # no CUPTI on this host: say so
         return dict(device_ms="not measured", profiler_error=str(e))
-    per_kernel = {}
+    from torch.autograd import DeviceType
+    # Only the device's own rows (kernels, copies, sets), as the
+    # profiler's table sums them: a CPU op's row repeats the device time
+    # of the kernels it launched.
+    per_kernel: dict = {}
     for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us:
-            per_kernel[ev.key[:60]] = us / 1e3
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        per_kernel[ev.key] = (per_kernel.get(ev.key, 0.0)
+                              + ev.self_device_time_total / 1e3)
     device_ms = sum(per_kernel.values())
     if not device_ms:
         return dict(device_ms="not measured",
@@ -509,7 +516,8 @@ def phase_vgg(torch, dev, records):
     ops.reset_launch_counts()
     run(reqs[0])
     launches = ops.launch_counts()
-    records.update(kernel_records(torch, run, reqs[0], launches, dev))
+    records.update(kernel_records(torch, run, reqs[0], launches, dev,
+                                  "vgg16"))
     library_yardstick(torch, dev)
 
 
@@ -585,7 +593,8 @@ def phase_paths(torch, dev, records):
                 if not per_channel:
                     records.update(
                         {k: v for k, v in kernel_records(
-                            torch, run_f, xs[0], launches, dev).items()
+                            torch, run_f, xs[0], launches, dev,
+                            name).items()
                          if k == "qconv2d_into"})
             if name == "resnet18":
                 # per-inference time at batch 1, after a warm run
@@ -632,12 +641,9 @@ def main() -> int:
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
-    only = set(sys.argv[1:])  # phase names; all when none are given
     records: dict = {}
     for phase, fn in (("kernels", phase_kernels), ("vgg16", phase_vgg),
                       ("paths", phase_paths)):
-        if only and phase not in only:
-            continue
         t0 = time.perf_counter()
         with guarded(phase):
             if phase == "kernels":
@@ -645,11 +651,10 @@ def main() -> int:
             else:
                 fn(torch, dev, records)
         emit(phase=phase, seconds=round(time.perf_counter() - t0, 3))
-    if not only:
-        missing = [k for k in SOURCES if k not in records
-                   or records[k]["launches"] == 0]
-        check("record", "every_kernel_launched_on_its_path", not missing,
-              missing=missing)
+    missing = [k for k in SOURCES if k not in records
+               or records[k]["launches"] == 0]
+    check("record", "every_kernel_launched_on_its_path", not missing,
+          missing=missing)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = records.get(name)

@@ -165,15 +165,19 @@ void launch_main(dim3 grid, cudaStream_t st, const int8_t* x, const int8_t* w,
 }  // namespace
 
 // y = requant(x @ w + bias).  bias and shift_vec may be null (no bias; the
-// scalar shift).  With splits > 1, partial is an (M, N) int32 scratch the
-// caller has zeroed; k_chunk is the K length of each split.  vec says
-// that N % 4 == 0 and w is 4-byte aligned.  Returns cudaGetLastError().
+// scalar shift).  bm is the rows of y a block owns (1, 2, 4 or 8), chosen
+// by the caller, which sizes the split-K grid with it.  With splits > 1,
+// partial is an (M, N) int32 scratch the caller has zeroed; k_chunk is the
+// K length of each split.  vec says that N % 4 == 0 and w is 4-byte
+// aligned.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// another bm.
 extern "C" int qgemm_s8(const void* x, const void* w, const void* bias,
                         const void* shift_vec, void* y, void* partial, int m,
-                        int n, int k, int k_chunk, int splits, int shift,
-                        int relu, int vec, void* stream) {
+                        int n, int k, int bm, int k_chunk, int splits,
+                        int shift, int relu, int vec, void* stream) {
+  if (bm != 1 && bm != 2 && bm != 4 && bm != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bm = m >= 5 ? 8 : m >= 3 ? 4 : m == 2 ? 2 : 1;
   const dim3 grid((n + kBlockN - 1) / kBlockN, (m + bm - 1) / bm, splits);
   int32_t* part = splits > 1 ? static_cast<int32_t*>(partial) : nullptr;
   const auto* xp = static_cast<const int8_t*>(x);
@@ -185,7 +189,7 @@ extern "C" int qgemm_s8(const void* x, const void* w, const void* bias,
     case 1: launch_main<1>(grid, st, xp, wp, bp, sp, yp, part, m, n, k, k_chunk, shift, relu, vec); break;
     case 2: launch_main<2>(grid, st, xp, wp, bp, sp, yp, part, m, n, k, k_chunk, shift, relu, vec); break;
     case 4: launch_main<4>(grid, st, xp, wp, bp, sp, yp, part, m, n, k, k_chunk, shift, relu, vec); break;
-    default: launch_main<8>(grid, st, xp, wp, bp, sp, yp, part, m, n, k, k_chunk, shift, relu, vec); break;
+    case 8: launch_main<8>(grid, st, xp, wp, bp, sp, yp, part, m, n, k, k_chunk, shift, relu, vec); break;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);

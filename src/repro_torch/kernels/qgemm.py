@@ -26,7 +26,7 @@ _BLOCK_N = 1024
 #: Launches of the kernel (plain-version calls are not counted).
 launches = {"qgemm": 0}
 
-_SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                + [ctypes.c_void_p]}
 
 
@@ -54,9 +54,13 @@ def shift_args(shift, n: int, device) -> Tuple[int, Optional[torch.Tensor]]:
     return s, None
 
 
-def _splits(m: int, n: int, k: int, device) -> tuple:
+def _block_m(m: int) -> int:
+    """Rows of y one block owns: one of the kernel's instances 1, 2, 4, 8."""
+    return 8 if m >= 5 else 4 if m >= 3 else m
+
+
+def _splits(m: int, n: int, k: int, bm: int, device) -> tuple:
     """(splits, k_chunk): enough K slices that the grid fills the card."""
-    bm = 8 if m >= 5 else 4 if m >= 3 else m
     tiles = math.ceil(n / _BLOCK_N) * math.ceil(m / bm)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = max(1, min(math.ceil(BLOCKS_PER_SM * sms / tiles),
@@ -95,14 +99,15 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     y = torch.empty((m, n), dtype=torch.int8, device=x.device)
     if m == 0 or n == 0:
         return y
-    splits, chunk = _splits(m, n, k, x.device)
+    bm = _block_m(m)
+    splits, chunk = _splits(m, n, k, bm, x.device)
     partial = (torch.zeros((m, n), dtype=torch.int32, device=x.device)
                if splits > 1 else None)
     vec = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
     lib = _build.load("qgemm", _SIGNATURES)
     p = _build.ptr
     err = lib.qgemm_s8(p(x), p(w), p(b), p(svec), p(y), p(partial), m, n, k,
-                       chunk, splits, s, int(relu), vec,
+                       bm, chunk, splits, s, int(relu), vec,
                        _build.stream(x.device))
     _build.check(err, "qgemm")
     launches["qgemm"] += 1
