@@ -2,20 +2,25 @@
 // max-pool epilogue: the conv stage of the int8 CNN path.
 //
 // Replaces the Pallas kernels src/repro/kernels/qconv.py:qconv2d
-// (_qconv_band_kernel + _band_epilogue) and its concat-buffer variant
-// _qconv2d_into (qconv2d(out_buf=...)).
+// (_qconv_band_kernel + _band_epilogue), its concat-buffer variant
+// _qconv2d_into (qconv2d(out_buf=...)) and the ragged grouped conv
+// qgconv2d, which runs the same band body once per group.
 //
 // Semantics, per output channel c of a VALID conv over the pre-padded NHWC
-// input (strides sh, sw; HWIO weights):
-//   v = clip(relu(round_shift(acc + b[c], s[c])))                 conv
-//   v = clip(merge_relu(round_shift(round_shift(v, a_conv)
-//            + round_shift(skip, a_skip), merge_shift)))           skip
-//   v = clip(round_shift(v, concat_shift)); v = concat_relu(v)     concat
-//   y = max over the pool window of v                              pool
-// and y lands in channels [out_off, out_off + Cout) of an output whose
-// channel stride is c_tot (the shared concat buffer, updated in place; its
-// other channels are never touched), or of a plain (N, OH, OW, Cout)
-// tensor when c_tot == Cout and out_off == 0.
+// input (strides sh, sw; HWIO weights): v = epilogue(acc, c) (requant.cuh:
+// bias, requant, ReLU, clip, then the skip and concat steps), then
+// y = max over the pool window of v, and y lands in channels
+// [out_off, out_off + Cout) of an output whose channel stride is c_tot (the
+// shared concat buffer, updated in place; its other channels are never
+// touched), or of a plain (N, OH, OW, Cout) tensor when c_tot == Cout and
+// out_off == 0.
+//
+// Groups (1 when dense): group g reads input channels
+// [g*Cin/G, (g+1)*Cin/G) of each pixel and owns output channels
+// [g*Cout/G, (g+1)*Cout/G); its contraction is K = KH*KW*Cin/G against
+// those weight columns (HWIO (KH, KW, Cin/G, Cout)).  The group rides
+// gridDim.z and each block's channel tiles are masked at the group's edge,
+// so no tile mixes two groups.
 //
 // What bounds it on the H100: the conv layers of VGG-16 and AlexNet reuse
 // every input byte KH*KW*Cout times and every weight byte once per output
@@ -51,19 +56,15 @@ constexpr int kQuads = kTileK / 4;
 
 struct ConvArgs {
   const int8_t* x;          // (N, Hp, Wp, Cin)
-  const int8_t* w;          // (KH, KW, Cin, Cout) == (K, Cout)
-  const int32_t* bias;      // (Cout,) or null
-  const int32_t* shift_vec; // (Cout,) or null: the scalar shift
-  const int8_t* skip;       // (N, Ho, Wo, Cout) or null
+  const int8_t* w;          // (KH, KW, Cin/G, Cout) == (K, Cout)
   int8_t* y;                // (N, OH, OW, c_tot)
+  Epilogue ep;
   int n, hp, wp, cin, kh, kw, cout, sh, sw;
+  int cin_g, cout_g;         // channels of one group
   int ho, wo, oh, ow;       // conv and output (pooled) geometry
   int pw, ps;               // pool window and stride; 1, 1 without a pool
-  int shift, relu;
-  int a_conv, a_skip, merge_shift, merge_relu;
-  int concat_shift, concat_relu;
   int c_tot, out_off;
-  int vec;                  // Cin % 4 == 0 and x is 4-byte aligned
+  int vec;                  // Cin/G % 4 == 0 and x is 4-byte aligned
 };
 
 // The conv pixel that GEMM row `row` of block `blk` computes, or false when
@@ -84,10 +85,12 @@ __device__ __forceinline__ bool row_pixel(const ConvArgs& a, int blk, int row,
   return true;
 }
 
+// Input byte k of the contraction (k runs over (kh, kw, ci) within the
+// group) for the window whose group slice starts at `base`.
 __device__ __forceinline__ uint8_t x_at(const ConvArgs& a, long long base,
                                         int k) {
-  const int ci = k % a.cin;
-  const int t = k / a.cin;
+  const int ci = k % a.cin_g;
+  const int t = k / a.cin_g;
   const int j = t % a.kw;
   const int i = t / a.kw;
   return static_cast<uint8_t>(
@@ -103,19 +106,21 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
   const int tx = tid % 16;  // channels tx*4 .. tx*4+3
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3
   const int blk = blockIdx.x;
-  const int c0 = blockIdx.y * kTileN;
-  const int k_total = a.kh * a.kw * a.cin;
+  const int c0 = blockIdx.y * kTileN;             // within the group
+  const int cg0 = blockIdx.z * a.cout_g + c0;     // weight / output column
+  const int k_total = a.kh * a.kw * a.cin_g;
 
   // the A row this thread stages, and its input window's base offset
+  // (the group's first channel of the window's first pixel)
   const int a_row = tid % kTileM;
   int img, ch, cw;
   const bool a_valid = row_pixel(a, blk, a_row, &img, &ch, &cw);
   const long long a_base =
       a_valid ? ((static_cast<long long>(img) * a.hp + ch * a.sh) * a.wp +
-                 cw * a.sw) * a.cin
+                 cw * a.sw) * a.cin + blockIdx.z * a.cin_g
               : 0;
   const int b_col = tid % kTileN;
-  const bool b_valid = c0 + b_col < a.cout;
+  const bool b_valid = c0 + b_col < a.cout_g;
 
   int32_t acc[4][4];
 #pragma unroll
@@ -131,8 +136,8 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
       uint32_t word = 0;
       if (a_valid) {
         if (a.vec && k + 3 < k_total) {
-          const int ci = k % a.cin;
-          const int t = k / a.cin;
+          const int ci = k % a.cin_g;
+          const int t = k / a.cin_g;
           const long long off =
               a_base + (static_cast<long long>(t / a.kw) * a.wp + t % a.kw) *
                            a.cin + ci;
@@ -152,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
         for (int i = 0; i < 4; ++i)
           if (k + i < k_total)
             wword |= static_cast<uint32_t>(static_cast<uint8_t>(
-                         a.w[static_cast<long long>(k + i) * a.cout + c0 +
+                         a.w[static_cast<long long>(k + i) * a.cout + cg0 +
                              b_col]))
                      << (8 * i);
       }
@@ -181,25 +186,15 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
     const int row = ty * 4 + i;
     int r_img, r_h, r_w;
     if (!row_pixel(a, blk, row, &r_img, &r_h, &r_w)) continue;
+    const long long s_at =
+        ((static_cast<long long>(r_img) * a.ho + r_h) * a.wo + r_w) * a.cout;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = tx * 4 + j;
-      const int c = c0 + col;
-      if (c >= a.cout) continue;
-      int32_t v = requant(acc[i][j], a.bias ? a.bias[c] : 0,
-                          a.shift_vec ? a.shift_vec[c] : a.shift, a.relu != 0);
-      if (a.skip != nullptr) {
-        const long long s_at =
-            ((static_cast<long long>(r_img) * a.ho + r_h) * a.wo + r_w) *
-                a.cout + c;
-        v = round_shift(v, a.a_conv) + round_shift(a.skip[s_at], a.a_skip);
-        v = round_shift(v, a.merge_shift);
-        if (a.merge_relu) v = max(v, 0);
-        v = clip_s8(v);
-      }
-      if (a.concat_shift) v = clip_s8(round_shift(v, a.concat_shift));
-      if (a.concat_relu) v = max(v, 0);
-      ys[row][col] = static_cast<int8_t>(v);
+      if (c0 + col >= a.cout_g) continue;
+      const int c = cg0 + col;
+      ys[row][col] =
+          static_cast<int8_t>(epilogue(a.ep, acc[i][j], c, s_at + c));
     }
   }
   __syncthreads();
@@ -212,48 +207,50 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
     const int p = idx / kTileN;
     const int col = idx % kTileN;
     const long long pooled = static_cast<long long>(blk) * per_block + p;
-    const int c = c0 + col;
-    if (pooled >= n_pooled || c >= a.cout) continue;
+    if (pooled >= n_pooled || c0 + col >= a.cout_g) continue;
     int m = ys[p * taps][col];
     for (int t = 1; t < taps; ++t) m = max(m, static_cast<int>(ys[p * taps + t][col]));
-    a.y[pooled * a.c_tot + a.out_off + c] = static_cast<int8_t>(m);
+    a.y[pooled * a.c_tot + a.out_off + cg0 + col] = static_cast<int8_t>(m);
   }
 }
 
 }  // namespace
 
-// Launch the conv.  Pointers may be null where ConvArgs says so.  The
-// wrapper checks every shape, type and range.  Returns cudaGetLastError().
+// Launch the conv.  Pointers may be null where ConvArgs and Epilogue say
+// so.  The wrapper checks every shape, type and range (groups divides Cin
+// and Cout).  Returns cudaGetLastError().
 extern "C" int qconv_s8(const void* x, const void* w, const void* bias,
                         const void* shift_vec, const void* skip, void* y,
                         int n, int hp, int wp, int cin, int kh, int kw,
                         int cout, int sh, int sw, int pw, int ps, int shift,
                         int relu, int a_conv, int a_skip, int merge_shift,
                         int merge_relu, int concat_shift, int concat_relu,
-                        int c_tot, int out_off, int vec, void* stream) {
+                        int c_tot, int out_off, int vec, int groups,
+                        void* stream) {
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
-  a.bias = static_cast<const int32_t*>(bias);
-  a.shift_vec = static_cast<const int32_t*>(shift_vec);
-  a.skip = static_cast<const int8_t*>(skip);
   a.y = static_cast<int8_t*>(y);
+  a.ep.bias = static_cast<const int32_t*>(bias);
+  a.ep.shift_vec = static_cast<const int32_t*>(shift_vec);
+  a.ep.skip = static_cast<const int8_t*>(skip);
+  a.ep.shift = shift; a.ep.relu = relu;
+  a.ep.a_conv = a_conv; a.ep.a_skip = a_skip;
+  a.ep.merge_shift = merge_shift; a.ep.merge_relu = merge_relu;
+  a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;
   a.n = n; a.hp = hp; a.wp = wp; a.cin = cin; a.kh = kh; a.kw = kw;
   a.cout = cout; a.sh = sh; a.sw = sw;
+  a.cin_g = cin / groups; a.cout_g = cout / groups;
   a.ho = (hp - kh) / sh + 1;
   a.wo = (wp - kw) / sw + 1;
   a.pw = pw; a.ps = ps;
   a.oh = (a.ho - pw) / ps + 1;
   a.ow = (a.wo - pw) / ps + 1;
-  a.shift = shift; a.relu = relu;
-  a.a_conv = a_conv; a.a_skip = a_skip;
-  a.merge_shift = merge_shift; a.merge_relu = merge_relu;
-  a.concat_shift = concat_shift; a.concat_relu = concat_relu;
   a.c_tot = c_tot; a.out_off = out_off; a.vec = vec;
   const long long n_pooled = static_cast<long long>(n) * a.oh * a.ow;
   const int per_block = kTileM / (pw * pw);
   const dim3 grid(static_cast<unsigned>((n_pooled + per_block - 1) / per_block),
-                  (cout + kTileN - 1) / kTileN);
+                  (a.cout_g + kTileN - 1) / kTileN, groups);
   qconv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,3 +33,36 @@ __device__ __forceinline__ int32_t requant(int32_t acc, int32_t bias, int s,
   if (relu) v = max(v, 0);
   return clip_s8(v);
 }
+
+// The per-value epilogue of the conv kernels (qconv.cu, qdwconv.cu).
+struct Epilogue {
+  const int32_t* bias;       // (Cout,) or null
+  const int32_t* shift_vec;  // (Cout,) per-lane shifts, or null: `shift`
+  const int8_t* skip;        // (N, Ho, Wo, Cout) residual operand, or null
+  int shift, relu;
+  int a_conv, a_skip, merge_shift, merge_relu;
+  int concat_shift, concat_relu;
+};
+
+// The int8 value of output channel c from its int32 conv sum, in the JAX
+// package's _band_epilogue order (src/repro/kernels/qconv.py):
+//   v = clip(relu(round_shift(acc + b[c], s[c])))                 conv
+//   v = clip(merge_relu(round_shift(round_shift(v, a_conv)
+//            + round_shift(skip, a_skip), merge_shift)))           skip
+//   v = clip(round_shift(v, concat_shift)); v = concat_relu(v)     concat
+// `skip_at` indexes the same conv pixel and channel in the skip operand
+// (unused without one).  A fused max-pool reduces these values after.
+__device__ __forceinline__ int32_t epilogue(const Epilogue& e, int32_t acc,
+                                            int c, long long skip_at) {
+  int32_t v = requant(acc, e.bias ? e.bias[c] : 0,
+                      e.shift_vec ? e.shift_vec[c] : e.shift, e.relu != 0);
+  if (e.skip != nullptr) {
+    v = round_shift(v, e.a_conv) + round_shift(e.skip[skip_at], e.a_skip);
+    v = round_shift(v, e.merge_shift);
+    if (e.merge_relu) v = max(v, 0);
+    v = clip_s8(v);
+  }
+  if (e.concat_shift) v = clip_s8(round_shift(v, e.concat_shift));
+  if (e.concat_relu) v = max(v, 0);
+  return v;
+}

@@ -8,13 +8,13 @@ Two families, as in the JAX package:
   * ``*_nchw`` — ONNX-layout wrappers (NCHW / OIHW) that permute around
     the NHWC paths, for direct callers and layout-parity tests.
 
-Every op runs where its tensors lie.  On a CUDA tensor the dense conv
-and the GEMM launch their hand-written kernels (``qconv.qconv2d``,
-``qgemm.qgemm``); the depthwise and ragged-grouped convs raise until
-their kernels are ported; nothing falls back to a plain version.  On a
-CPU tensor every op runs its plain PyTorch version.  Merges and
-standalone pools are plain torch ops on either device, as they were
-plain array ops in the JAX package.
+Every op runs where its tensors lie.  On a CUDA tensor the convs
+(dense, depthwise, ragged grouped) and the GEMM launch their
+hand-written kernels (``qconv.qconv2d``, ``qconv.qdwconv2d``,
+``qconv.qgconv2d``, ``qgemm.qgemm``); nothing falls back to a plain
+version.  On a CPU tensor every op runs its plain PyTorch version.
+Merges and standalone pools are plain torch ops on either device, as
+they were plain array ops in the JAX package.
 
 Conv pads are zero (the symmetric quantization zero-point) and applied
 here; max-pool pads take INT8_MIN.

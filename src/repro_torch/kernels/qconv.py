@@ -1,18 +1,24 @@
 """Fused int8 conv + requant + ReLU (+ skip, concat, max-pool) kernels.
 
-``qconv2d`` launches the hand-written CUDA kernel ``csrc/qconv.cu`` on a
-CUDA tensor and runs the plain version :func:`qconv2d_plain` on a CPU
-tensor.  It replaces the Pallas kernel
-``src/repro/kernels/qconv.py:qconv2d`` (``_qconv_band_kernel`` +
-``_band_epilogue``); with ``out_buf`` it is :func:`qconv2d_into`, which
-replaces ``_qconv2d_into``.  On the H100 the dense convs of the main path
-are bound by operations: the kernel is an implicit GEMM on ``__dp4a``,
-with the fused max-pool computed on whole windows per block (see the
-note at the top of the source).
+Each wrapper launches its hand-written CUDA kernel on a CUDA tensor and
+runs the plain version :func:`qconv2d_plain` on a CPU tensor:
 
-The depthwise and ragged-grouped convs (``qdwconv2d``/``qgconv2d`` in
-the JAX package) run their plain version on the CPU; on CUDA they raise
-until their kernels are ported.
+* :func:`qconv2d` — dense conv, ``csrc/qconv.cu``; replaces the Pallas
+  kernel ``src/repro/kernels/qconv.py:qconv2d`` (``_qconv_band_kernel`` +
+  ``_band_epilogue``).  With ``out_buf`` it is :func:`qconv2d_into`,
+  which replaces ``_qconv2d_into``.  Bound by operations on the H100: an
+  implicit GEMM on ``__dp4a`` with the fused max-pool computed on whole
+  windows per block (see the note at the top of the source).
+* :func:`qdwconv2d` — depthwise conv with channel multiplier m,
+  ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
+  Bound by bytes, and at the main path's sizes by launch overhead: a
+  direct conv, one thread per (output pixel, output channel).
+* :func:`qgconv2d` — ragged grouped conv, the dense kernel of
+  ``csrc/qconv.cu`` with the group on ``gridDim.z``; replaces
+  ``qgconv2d``.
+
+All of them share one epilogue (``csrc/requant.cuh``), in the order
+:func:`qconv2d_plain` spells out.
 """
 from __future__ import annotations
 
@@ -29,10 +35,15 @@ INT8_MIN, INT8_MAX = ref.INT8_MIN, ref.INT8_MAX
 MAX_POOL_TAPS = 64
 
 #: Launches of each wrapper's kernel (plain-version calls are not counted).
-launches = {"qconv2d": 0, "qconv2d_into": 0}
+launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
+            "qdwconv2d_into": 0, "qgconv2d": 0}
 
-_SIGNATURES = {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 22
-               + [ctypes.c_void_p]}
+_SIGNATURES = {
+    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 23
+              + [ctypes.c_void_p]},
+    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
+                + [ctypes.c_void_p]},
+}
 
 
 def qconv2d_plain(
@@ -89,20 +100,34 @@ def qconv2d_plain(
     return out_buf
 
 
-def _launch(x, w, b, out, *, strides, shift, relu, pool, skip, skip_shifts,
-            merge_shift, merge_relu, out_off, concat_shift, concat_relu,
-            what: str) -> None:
-    """Check the operands of a CUDA launch and run the kernel into
-    ``out`` (NHWC, channel stride ``out.shape[-1]``)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
+def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
+    """:func:`qdwconv2d`'s semantics in plain PyTorch: the grouped conv
+    with one group per input channel."""
+    return qconv2d_plain(x, w, b, groups=x.shape[-1], **kw)
+
+
+def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
+            skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
+            concat_relu, what: str) -> None:
+    """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
+    dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
+    ``out.shape[-1]``).  Every check comes before the device's, so a
+    tensor on any device reports a bad operand first."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
-    if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
-        raise ValueError(f"{what}: dense conv shapes {tuple(x.shape)} and "
-                         f"HWIO {tuple(w.shape)}")
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"{what}: NHWC input and HWIO weight, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
     n, hp, wp, cin = x.shape
-    kh, kw, _, cout = w.shape
+    kh, kw, cin_g, cout = w.shape
+    if kernel == "qdwconv":
+        if cin_g != 1 or cin == 0 or cout % cin:
+            raise ValueError(f"{what}: depthwise weight must be HWIO "
+                             f"(KH, KW, 1, m*{cin}), got {tuple(w.shape)}")
+    elif groups < 1 or cin % groups or cout % groups \
+            or cin_g * groups != cin:
+        raise ValueError(f"{what}: {groups} groups over input "
+                         f"{tuple(x.shape)} and HWIO {tuple(w.shape)}")
     sh, sw = strides
     if hp < kh or wp < kw or sh < 1 or sw < 1:
         raise ValueError(f"{what}: window {kh}x{kw} stride {strides} over "
@@ -126,38 +151,62 @@ def _launch(x, w, b, out, *, strides, shift, relu, pool, skip, skip_shifts,
                              or tuple(skip.shape) != (n, ho, wo, cout)):
         raise ValueError(f"{what}: skip must be int8 {(n, ho, wo, cout)}, "
                          f"got {skip.dtype} {tuple(skip.shape)}")
-    for t in (w, b, skip, out):
+    for t in (x, w, b, skip, out):
         if t is not None and t.device != x.device:
             raise ValueError(f"{what}: operands on {t.device} and {x.device}")
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors")
-    if not x.is_contiguous():
-        raise ValueError(f"{what} takes contiguous tensors")
-    s, svec = shift_args(shift, cout, x.device)
     a_conv, a_skip = (int(v) for v in skip_shifts)
     for name, v in (("skip_shifts", a_conv), ("skip_shifts", a_skip),
                     ("merge_shift", merge_shift),
                     ("concat_shift", concat_shift)):
         if not 0 <= int(v) <= 31:
             raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
-    vec = int(cin % 4 == 0 and x.data_ptr() % 4 == 0)
-    lib = _build.load("qconv", _SIGNATURES)
+    s, svec = shift_args(shift, cout, x.device)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
+    args = [n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps, s, int(relu),
+            a_conv, a_skip, int(merge_shift), int(merge_relu),
+            int(concat_shift), int(concat_relu), c_tot, int(out_off)]
+    lib = _build.load(kernel, _SIGNATURES[kernel])
     p = _build.ptr
-    err = lib.qconv_s8(
-        p(x), p(w), p(b), p(svec), p(skip), p(out),
-        n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps, s, int(relu),
-        a_conv, a_skip, int(merge_shift), int(merge_relu),
-        int(concat_shift), int(concat_relu), c_tot, int(out_off), vec,
-        _build.stream(x.device))
+    ptrs = (p(x), p(w), p(b), p(svec), p(skip), p(out))
+    if kernel == "qdwconv":
+        err = lib.qdwconv_s8(*ptrs, *args, _build.stream(x.device))
+    else:
+        # 4-byte input loads need whole words inside each group's slice
+        vec = int(cin_g % 4 == 0 and x.data_ptr() % 4 == 0)
+        err = lib.qconv_s8(*ptrs, *args, vec, int(groups),
+                           _build.stream(x.device))
     _build.check(err, what)
 
 
 def _out_hw(x, w, strides, pool):
+    """Output (pooled) height and width; 0 where the window does not fit,
+    which :func:`_launch` then rejects."""
     ho = (x.shape[1] - w.shape[0]) // strides[0] + 1
     wo = (x.shape[2] - w.shape[1]) // strides[1] + 1
-    if pool is None:
-        return ho, wo
-    return (ho - pool[0]) // pool[1] + 1, (wo - pool[0]) // pool[1] + 1
+    if pool is not None:
+        ho, wo = (ho - pool[0]) // pool[1] + 1, (wo - pool[0]) // pool[1] + 1
+    return max(ho, 0), max(wo, 0)
+
+
+def _run(kernel: str, what: str, x, w, b, *, groups: int,
+         out_buf: Optional[torch.Tensor] = None, out_off: int = 0,
+         **kw) -> torch.Tensor:
+    """Launch ``kernel`` on a CUDA tensor into a new (N, OH, OW, Cout)
+    output, or into channels ``[out_off, out_off + Cout)`` of ``out_buf``
+    in place; count the launch under ``what``."""
+    if out_buf is None:
+        oh, ow = _out_hw(x, w, kw["strides"], kw["pool"])
+        out = torch.empty((x.shape[0], oh, ow, w.shape[-1]),
+                          dtype=torch.int8, device=x.device)
+    else:
+        out = out_buf
+    _launch(kernel, x, w, b, out, groups=groups, out_off=out_off, what=what,
+            **kw)
+    launches[what] += 1
+    return out
 
 
 def qconv2d(
@@ -193,12 +242,7 @@ def qconv2d(
         return qconv2d_into(x, w, b, out_buf, out_off=out_off, **kw_)
     if x.device.type == "cpu":
         return qconv2d_plain(x, w, b, **kw_)
-    oh, ow = _out_hw(x, w, strides, pool)
-    y = torch.empty((x.shape[0], oh, ow, w.shape[-1]), dtype=torch.int8,
-                    device=x.device)
-    _launch(x, w, b, y, out_off=0, what="qconv2d", **kw_)
-    launches["qconv2d"] += 1
-    return y
+    return _run("qconv", "qconv2d", x, w, b, groups=1, **kw_)
 
 
 def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
@@ -211,30 +255,54 @@ def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
     touched."""
     if x.device.type == "cpu":
         return qconv2d_plain(x, w, b, out_buf=out_buf, out_off=out_off, **kw)
-    _launch(x, w, b, out_buf, out_off=out_off, what="qconv2d_into", **kw)
-    launches["qconv2d_into"] += 1
-    return out_buf
+    return _run("qconv", "qconv2d_into", x, w, b, groups=1, out_buf=out_buf,
+                out_off=out_off, **kw)
 
 
-def qdwconv2d(x, w, b, *, strides=(1, 1), shift=0, relu=True, pool=None,
-              **kw) -> torch.Tensor:
-    """Depthwise conv (groups == Cin, Cout = m·Cin; ``w`` is HWIO with
-    one input channel per group).  CPU: the plain version.  CUDA: its
-    kernel is not ported yet, so it raises."""
+def qdwconv2d(
+    x: torch.Tensor,  # (N, Hp, Wp, Cin) int8, pre-padded (VALID conv)
+    w: torch.Tensor,  # (KH, KW, 1, Cout = m·Cin) int8
+    b: Optional[torch.Tensor],  # (Cout,) int32
+    *,
+    strides: Tuple[int, int] = (1, 1),
+    shift=0,         # int | length-Cout tuple (per-channel shift vector)
+    relu: bool = True,
+    pool: Optional[Tuple[int, int]] = None,
+    skip: Optional[torch.Tensor] = None,  # (N, Ho, Wo, Cout) int8 residual
+    skip_shifts: Tuple[int, int] = (0, 0),
+    merge_shift: int = 0,
+    merge_relu: bool = False,
+    out_buf: Optional[torch.Tensor] = None,  # shared concat merge buffer
+    out_off: int = 0,
+    concat_shift: int = 0,
+    concat_relu: bool = False,
+) -> torch.Tensor:
+    """Depthwise fused int8 conv (group == Cin, Cout = m·Cin; output
+    channel c convolves input channel c // m) with the same epilogues as
+    :func:`qconv2d`.  With ``out_buf`` its result lands in that buffer's
+    channels ``[out_off, out_off + Cout)`` in place (counted as
+    ``qdwconv2d_into``).  On a CPU tensor this is the plain version; on a
+    CUDA tensor it launches the kernel or raises."""
+    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool, skip=skip,
+               skip_shifts=skip_shifts, merge_shift=merge_shift,
+               merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
+               concat_shift=concat_shift, concat_relu=concat_relu)
     if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, strides=strides, shift=shift,
-                             relu=relu, pool=pool, groups=x.shape[-1], **kw)
-    raise NotImplementedError(
-        "depthwise conv on CUDA: its kernel (qdwconv2d) comes with port "
-        "slice 2")
+        return qdwconv2d_plain(x, w, b, **kw_)
+    what = "qdwconv2d" if out_buf is None else "qdwconv2d_into"
+    return _run("qdwconv", what, x, w, b, groups=x.shape[-1], **kw_)
 
 
 def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), shift=0, relu=True,
              pool=None) -> torch.Tensor:
-    """Ragged grouped conv (1 < groups < Cin).  CPU: the plain version.
-    CUDA: its kernel is not ported yet, so it raises."""
+    """Ragged grouped int8 conv (1 < groups < Cin; HWIO weight
+    (KH, KW, Cin/groups, Cout)) with requant, ReLU and the fused
+    max-pool; it never takes a skip or a concat buffer.  On a CPU tensor
+    this is the plain version; on a CUDA tensor it launches the dense
+    kernel once per group or raises."""
+    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
     if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, strides=strides, shift=shift,
-                             relu=relu, pool=pool, groups=groups)
-    raise NotImplementedError(
-        "grouped conv on CUDA: its kernel (qgconv2d) comes with port slice 2")
+        return qconv2d_plain(x, w, b, groups=groups, **kw_)
+    return _run("qconv", "qgconv2d", x, w, b, groups=groups, skip=None,
+                skip_shifts=(0, 0), merge_shift=0, merge_relu=False,
+                concat_shift=0, concat_relu=False, **kw_)

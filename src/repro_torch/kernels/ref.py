@@ -12,7 +12,8 @@ in int32 (``torch.mm`` and ``F.conv2d`` take int32 there); on CUDA,
 which has no integer conv or matrix product in PyTorch, they run in
 float64 and are rounded back to int32 — exact because every product of
 two int8 values and every partial sum is an integer far below 2**53
-(|acc| <= 128 * 128 * K + |bias|).  int32 additions wrap two's
+(|acc| <= 128 * 128 * K + |bias|).  The pools reduce a view of all their
+windows in one integer reduction.  int32 additions wrap two's
 complement on both devices, as the JAX reference's do.
 """
 from __future__ import annotations
@@ -163,17 +164,6 @@ def qconcat_ref(xs: Sequence[torch.Tensor], align_shifts, axis: int = -1,
     return y
 
 
-def _windows(x: torch.Tensor, window: int, stride: int):
-    """The window*window strided NHWC slices whose elementwise reduction
-    is a VALID pool."""
-    oh = (x.shape[1] - window) // stride + 1
-    ow = (x.shape[2] - window) // stride + 1
-    for i in range(window):
-        for j in range(window):
-            yield x[:, i:i + (oh - 1) * stride + 1:stride,
-                    j:j + (ow - 1) * stride + 1:stride, :]
-
-
 def pad_nhwc(x: torch.Tensor, pads, value: int = 0) -> torch.Tensor:
     """ONNX pads (top, left, bottom, right) on an NHWC tensor."""
     if not any(pads):
@@ -181,15 +171,20 @@ def pad_nhwc(x: torch.Tensor, pads, value: int = 0) -> torch.Tensor:
     return F.pad(x, (0, 0, pads[1], pads[3], pads[0], pads[2]), value=value)
 
 
+def _windows(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """The (N, OH, OW, C, window, window) view of every VALID pooling
+    window of an NHWC tensor; one reduction over its last two axes is
+    the pool."""
+    return x.unfold(1, window, stride).unfold(2, window, stride)
+
+
 def maxpool2d_ref(x: torch.Tensor, window: int, stride: int,
                   pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
                   ) -> torch.Tensor:
     """Standalone int8 NHWC max-pool; pads take INT8_MIN, the identity
     of max."""
-    y = None
-    for win in _windows(pad_nhwc(x, pads, INT8_MIN), window, stride):
-        y = win.clone() if y is None else torch.maximum(y, win)
-    return y
+    return _windows(pad_nhwc(x, pads, INT8_MIN), window,
+                    stride).amax((-2, -1))
 
 
 def avgpool2d_ref(x: torch.Tensor, window: int, stride: int,
@@ -200,12 +195,13 @@ def avgpool2d_ref(x: torch.Tensor, window: int, stride: int,
     windows divide by the real window population (the ONNX
     ``count_include_pad=0`` default), counted by pooling an all-ones
     plane with zero padding."""
-    summed = sum(_windows(pad_nhwc(x.to(torch.int32), pads, 0),
-                          window, stride))
+    def window_sums(v):
+        return _windows(pad_nhwc(v.to(torch.int32), pads, 0), window,
+                        stride).sum((-2, -1), dtype=torch.int32)
+    summed = window_sums(x)
     if any(pads):
-        ones = torch.ones((1,) + tuple(x.shape[1:3]) + (1,),
-                          dtype=torch.int32, device=x.device)
-        counts = sum(_windows(pad_nhwc(ones, pads, 0), window, stride))
+        counts = window_sums(torch.ones((1,) + tuple(x.shape[1:3]) + (1,),
+                                        dtype=torch.int32, device=x.device))
     else:
         counts = window * window
     q = torch.div(summed + counts // 2, counts, rounding_mode="floor")

@@ -88,6 +88,76 @@ def test_fused_port_matches_unfused_reference(shimmed_reference, name,
     assert fused.per_channel == per_channel
 
 
+def _dw_skip(mod):
+    """``tests/test_skip_fusion.py``'s ``dwadd`` graph: the Add folds
+    onto a depthwise producer."""
+    b = mod.GraphBuilder("dwadd", (2, 3, 12, 12), 4)
+    b.conv(16, 3, pad=1)
+    split = b.tap()
+    b.dwconv(3, pad=1, relu=False)
+    left = b.tap()
+    b.from_tap(split).dwconv(3, pad=1, relu=False)
+    b.add_from(left, relu=True)
+    b.global_avgpool()
+    b.fc(3, relu=False, softmax=True)
+    return b.build()
+
+
+def _dw_concat(mod):
+    """A depthwise branch (multiplier 2) and a dense branch into one
+    Concat, its max-pool absorbed by the merge."""
+    b = mod.GraphBuilder("dwcat", (2, 3, 12, 12), 6)
+    b.conv(8, 3, pad=1)
+    split = b.tap()
+    b.conv(16, 3, pad=1, group=8, relu=False)
+    dw = b.tap()
+    b.from_tap(split).conv(6, 3, pad=1)
+    b.concat_from(dw).maxpool(2, 2)
+    b.fc(5, relu=False, softmax=True)
+    return b.build()
+
+
+def _grouped(mod):
+    """``tests/test_dag_executor.py``'s group=2 graph."""
+    b = mod.GraphBuilder("grouped", (2, 3, 10, 10), 5)
+    b.conv(8, 3, pad=1)
+    b.conv(8, 3, pad=1, group=2)
+    b.global_avgpool()
+    b.fc(4, relu=False, softmax=True)
+    return b.build()
+
+
+GRAPHS = {"dw_skip": (_dw_skip, lambda l: l.is_dw_kernel
+                      and l.merge is not None),
+          "dw_concat": (_dw_concat, lambda l: l.is_dw_kernel
+                        and l.concat is not None),
+          "grouped": (_grouped, lambda l: l.kind == "conv" and l.group > 1
+                      and not l.is_dw_kernel)}
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("name", GRAPHS)
+def test_depthwise_and_grouped_graphs_match_unfused_reference(
+        shimmed_reference, name, per_channel):
+    """The fused skip and concat on depthwise producers, and a ragged
+    grouped conv, end to end against the shimmed unfused reference."""
+    build, stage = GRAPHS[name]
+    graph = build(r_cnn)
+    x = np.random.default_rng(5).standard_normal(
+        graph.inputs[0].shape).astype(np.float32)
+    want, specs = _reference_run(graph, x, per_channel)
+    fused = _port_gate(graph, specs)
+    assert any(stage(l) for l in fused.parsed.layers)
+    got = fused.build("emulation")(x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    unfused = _port_gate(graph, specs, fuse_skip=False, fuse_concat=False)
+    assert torch.equal(unfused.build()(x), got)
+    own = TGate.from_graph(build(t_cnn), device="cpu")
+    assert _spec_tuples(own.calibrate_quantization(
+        x, per_channel=per_channel)) == specs
+
+
 def test_logits_without_softmax_are_bit_exact(shimmed_reference):
     """A head without softmax: the dequantized int8 logits themselves
     must be equal, through a residual block, a concat and a padded

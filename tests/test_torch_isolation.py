@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package,
 and no silent CPU fallback."""
+import ctypes
 import re
 import subprocess
 import sys
@@ -81,16 +82,15 @@ def _meta(shape, dtype=torch.int8):
 
 def test_no_plain_fallback_off_the_cpu():
     """A tensor that is not on the CPU never reaches a plain version:
-    the dense wrappers insist on CUDA, and the depthwise/grouped convs
-    raise until their kernels are ported."""
+    every wrapper, dense, depthwise and grouped, insists on CUDA."""
     x, w = _meta((1, 6, 6, 8)), _meta((3, 3, 8, 8))
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         qconv.qconv2d(x, w, None)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         qgemm.qgemm(_meta((2, 8)), _meta((8, 4)), shift=0)
-    with pytest.raises(NotImplementedError, match="port slice 2"):
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.qconv2d_nhwc(x, _meta((3, 3, 1, 8)), None, groups=8)
-    with pytest.raises(NotImplementedError, match="port slice 2"):
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.qconv2d_nhwc(x, _meta((3, 3, 4, 8)), None, groups=2)
 
 
@@ -103,12 +103,13 @@ def test_launch_counters_count_kernel_launches_only():
     gate.calibrate_quantization(x.astype(np.float32))
     gate.build()(x)
     assert ops.launch_counts() == {"qgemm": 0, "qconv2d": 0,
-                                   "qconv2d_into": 0}
+                                   "qconv2d_into": 0, "qdwconv2d": 0,
+                                   "qdwconv2d_into": 0, "qgconv2d": 0}
 
 
 def test_kernel_sources_and_build_key():
     srcs = _build.sources()
-    assert set(srcs) == {"qgemm", "qconv"}
+    assert set(srcs) == {"qgemm", "qconv", "qdwconv"}
     for name in srcs:
         lib = _build._lib_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -116,3 +117,19 @@ def test_kernel_sources_and_build_key():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     with pytest.raises(RuntimeError, match="CUDA error 7"):
         _build.check(7, "qgemm")
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each wrapper's ``argtypes`` has one entry per parameter of its C
+    entry point: ``c_void_p`` for a pointer, ``c_int`` for an int."""
+    sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES)
+    assert set(sigs) == set(_build.sources())
+    for name, entries in sigs.items():
+        src = _build.sources()[name].read_text()
+        for fn, argtypes in entries.items():
+            m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src,
+                          re.S)
+            assert m is not None, (name, fn)
+            params = [p.strip() for p in m.group(1).split(",")]
+            assert [ctypes.c_void_p if "*" in p else ctypes.c_int
+                    for p in params] == argtypes, (name, fn)

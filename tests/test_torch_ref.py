@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.kernels import ops as r_ops
 from repro.kernels import qgemm as r_qgemm
@@ -248,6 +249,63 @@ def test_pools_match_oracles(window, stride, pads):
     if not any(pads):
         _eq(t_ref.maxpool2d_ref(_t(x), window, stride),
             r_ref.maxpool2d_ref(xj, window, stride))
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("hw,window,stride,pads", [
+    (56, 56, 1, (0, 0, 0, 0)),           # mobilenet_tiny@224's GAP
+    (7, 7, 1, (0, 0, 0, 0)),             # ResNet-18's GAP
+    (20, 9, 2, (2, 3, 1, 4)),            # wide, padded, asymmetric
+    (112, 3, 2, (1, 1, 1, 1))])          # ResNet-18's stem max-pool
+def test_pools_reduce_a_window_in_a_few_ops(hw, window, stride, pads):
+    """Each pool reduces its windows in one torch call, so the ops it
+    issues do not grow with the window: a 56x56 global average pool
+    issued 3,136 adds when it summed strided slices one by one, 95 % of
+    a mobilenet_tiny@224 forward on the card."""
+    x = _i8(np.random.default_rng(hw + window), (2, hw, hw, 6))
+    xj = jnp.asarray(x)
+    for t_pool, r_pool in ((t_ops.avgpool2d_nhwc, r_ref.avgpool2d_ref),
+                           (t_ops.maxpool2d_nhwc, r_ops.maxpool2d_nhwc)):
+        count = _CountOps()
+        with count:
+            got = t_pool(_t(x), window, stride, pads)
+        assert count.n <= 32, count.n
+        assert got.is_contiguous()
+        _eq(got, r_pool(xj, window, stride, pads))
+
+
+@pytest.mark.parametrize("c,hw,window,stride", [(1, 5, 3, 3), (33, 9, 3, 2),
+                                                (130, 13, 2, 2)])
+def test_pools_stay_in_integers_off_torch_pooling_kernels(monkeypatch, c, hw,
+                                                         window, stride):
+    """PyTorch's float64 CUDA max-pool faults with a misaligned address
+    at some shapes (seen on the H100, one-channel inputs among them), so
+    the plain pools reduce int8/int32 window views and call no torch
+    pooling kernel."""
+    def refuse(*a, **kw):
+        raise AssertionError("a torch pooling kernel was called")
+    for name in ("max_pool2d", "avg_pool2d"):
+        monkeypatch.setattr(t_ref.F, name, refuse)
+    x = _i8(np.random.default_rng(c), (3, hw, hw, c))
+    w = _i8(np.random.default_rng(c + 1), (1, 1, c, 4))
+    xj = jnp.asarray(x)
+    _eq(t_ops.maxpool2d_nhwc(_t(x), window, stride),
+        r_ops.maxpool2d_nhwc(xj, window, stride))
+    _eq(t_ops.avgpool2d_nhwc(_t(x), window, stride, (1, 0, 1, 2)),
+        r_ref.avgpool2d_ref(xj, window, stride, (1, 0, 1, 2)))
+    _eq(t_qconv.qconv2d_plain(_t(x), _t(w), None, shift=3,
+                              pool=(window, stride)),
+        r_ref.qconv2d_ref(xj, jnp.asarray(w), None, (1, 1), 3, True,
+                          (window, stride)))
 
 
 def test_shift_arguments_are_range_checked():
