@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases, each printing one JSON line per check:
+Five phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -25,7 +25,22 @@ Four phases, each printing one JSON line per check:
    fused skip (dw-skip), a depthwise and a dense producer of one concat
    (dw-concat), and the two-tower AlexNet (group 2 on convs 2, 4 and 5,
    224x224), each fused and unfused, per-tensor and per-channel: fused
-   == unfused and kernel == plain.
+   == unfused and kernel == plain;
+5. lm, the dense-LM serving path in bf16 with random weights from a
+   seed: the flash-attention kernel held against its plain version
+   (float32 within 2e-5, bf16 within one bf16 ulp plus 2e-6) at
+   qwen2-1.5b's and h2o-danube-3-4b's prefill shapes, on rows that see
+   no key, and over a seeded sweep; qwen2-1.5b at full width (28 layers,
+   d_model 1536, GQA 12:2, 1.54 B parameters): ``Model.prefill`` of
+   2 x 4096 tokens, each run launching the kernel 28 times, every call
+   agreeing with the plain version and the logits with the plain path's;
+   16 greedy ``decode_step``s; ``Server`` (4 slots, 64-token cache)
+   answering 8 requests; then h2o-danube-3-4b at full width and 2 of its
+   24 layers: a 6144-token prefill under its 4096 window and 8 decode
+   steps.  It prints prefill ms and tokens/s, ms per decode step, the
+   server's tokens/s and p50 latency, and the kernel's time per launch
+   beside the plain version's, ``scaled_dot_product_attention``'s and
+   the bound.
 
 Before the last line it prints the kernels' record (launches, error,
 times, bounds) as one JSON object, then the card's name and power limit
@@ -37,6 +52,7 @@ or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -51,6 +67,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, same source
+BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
+#: Float kernel tolerances against the plain version.  float32: both sum
+#: in float32 in other orders.  bfloat16: both compute in float32 and
+#: round once, so a result may land one bf16 ulp away where the float32
+#: values straddle a rounding boundary; plus BF16_ATOL where the output
+#: cancels to near 0 (|o| ~ 1e-6) and float32's absolute rounding
+#: (measured up to 6e-8 at 6144 keys) exceeds the ulp of so small a value.
+F32_TOL = 2e-5
+BF16_ATOL = 2e-6
 SEED = 0
 TIME_REPS = 20
 
@@ -122,13 +147,15 @@ def time_ms(torch, fn, reps: int = TIME_REPS, flush=None) -> float:
 
 
 def wrappers():
-    """The kernel wrappers the executor calls, by name: {name: (module,
-    wrapper, plain version)}."""
-    from repro_torch.kernels import qconv, qgemm
+    """The kernel wrappers the executor and the LM layers call, by name:
+    {name: (module, wrapper, plain version)}."""
+    from repro_torch.kernels import flash_attention as fa, qconv, qgemm
     return {"qconv2d": (qconv, qconv.qconv2d, qconv.qconv2d_plain),
             "qdwconv2d": (qconv, qconv.qdwconv2d, qconv.qdwconv2d_plain),
             "qgconv2d": (qconv, qconv.qgconv2d, qconv.qconv2d_plain),
-            "qgemm": (qgemm, qgemm.qgemm, qgemm.qgemm_plain)}
+            "qgemm": (qgemm, qgemm.qgemm, qgemm.qgemm_plain),
+            "flash_attention": (fa, fa.flash_attention,
+                                fa.flash_attention_plain)}
 
 
 @contextlib.contextmanager
@@ -843,6 +870,405 @@ def phase_paths(torch, dev, records):
                     torch, lambda: run_f(x1), statistics.median(times)))
 
 
+# ---------------------------------------------- phase 5: the dense-LM path
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values at |x|."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def float_agreement(torch, y, yp) -> tuple:
+    """(ok, max_abs_err, max_share) of a float kernel's output ``y``
+    against its plain version's ``yp``; ``max_share`` is the largest
+    error as a share of its element's allowance (F32_TOL, or one bf16
+    ulp plus BF16_ATOL): at most 1 passes."""
+    d = (y.float() - yp.float()).abs()
+    if y.dtype == torch.bfloat16:
+        allowance = bf16_ulp(torch, yp) + BF16_ATOL
+    else:
+        allowance = F32_TOL + F32_TOL * yp.float().abs()
+    share = (d / allowance).max().item()
+    return (share <= 1 and bool(torch.isfinite(y).all()), d.max().item(),
+            share)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset: int):
+    """(query, key) pairs the masks leave visible, per (batch, head)."""
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bound_ms(q, k, causal: bool, window, q_offset: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one flash call: 4 B H D
+    FLOP per visible pair at the bf16 tensor-core peak against q, k, v
+    and o read or written once at the HBM rate."""
+    b, h, sq, d = q.shape
+    flops = 4 * b * h * d * visible_pairs(sq, k.shape[2], causal, window,
+                                          q_offset)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_cases(rng):
+    """Kernel-check cases: (name, B, H, HKV, Sq, Skv, D, dtype, causal,
+    window, q_offset).  The slice's two shapes, rows that see no key,
+    and a seeded sweep over dtypes, group sizes 1/2/4/6/8, ragged Skv,
+    q_offset > 0, non-causal and windowed masks."""
+    cases = [
+        ("qwen2_1_5b_prefill", 2, 12, 2, 4096, 4096, 128, "bf16", True,
+         None, 0),
+        ("h2o_danube3_4b_prefill_w4096", 1, 32, 8, 6144, 6144, 120, "bf16",
+         True, 4096, 0),
+        ("blind_rows_probe_f32", 1, 1, 1, 8, 20, 16, "f32", True, 4, 30),
+        ("blind_rows_probe_bf16", 1, 1, 1, 8, 20, 16, "bf16", True, 4, 30),
+        ("blind_and_seeing_rows_one_block", 1, 4, 2, 128, 200, 64, "f32",
+         True, 50, 200),
+        ("blind_rows_noncausal_window", 2, 6, 1, 100, 70, 120, "bf16", False,
+         9, 40),
+    ]
+    for i in range(40):
+        group = (1, 2, 4, 6, 8)[i % 5]
+        hkv = int(rng.integers(1, 3))
+        skv = int(rng.integers(1, 700))
+        skv += skv % 64 == 0                       # never a whole tile
+        causal = bool(rng.random() < 0.7)
+        window = int(rng.integers(1, 300)) if rng.random() < 0.5 else None
+        cases.append((f"sweep{i}", int(rng.integers(1, 3)), group * hkv,
+                      hkv, int(rng.integers(1, 300)), skv,
+                      int(rng.choice([16, 64, 80, 120, 128,
+                                      int(rng.integers(1, 129))])),
+                      ("f32", "bf16")[i % 2], causal, window,
+                      int(rng.integers(0, 500)) if rng.random() < 0.6
+                      else 0))
+    return cases
+
+
+def flash_kernel_checks(torch, dev) -> None:
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    bad, blind_rows = [], 0
+    for (name, b, h, hkv, sq, skv, d, dt, causal, window,
+         q_offset) in flash_cases(rng):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        y = fa.flash_attention(q, k, v, **kw)
+        yp = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ok, err, share = float_agreement(torch, y, yp)
+        blind = (int(np.sum(q_offset + np.arange(sq) - window >= skv - 1))
+                 if window else 0)
+        blind_rows += blind
+        if name.startswith("sweep"):
+            if not ok:
+                bad.append(dict(case=name, shape=[b, h, hkv, sq, skv, d],
+                                dtype=dt, err=err, share=share, **kw))
+            continue
+        check("lm", f"flash_attention_{name}", ok, dtype=dt,
+              shape=[b, h, hkv, sq, skv, d], max_abs_err=err,
+              max_share_of_tolerance=share, blind_rows=blind, **kw)
+    check("lm", "flash_attention_random_sweep_40", not bad, failures=bad[:5])
+    check("lm", "flash_attention_cases_include_blind_rows", blind_rows > 0,
+          blind_rows=blind_rows)
+
+
+@contextlib.contextmanager
+def checked_flash(torch, calls: list):
+    """Run every flash call of the block through the kernel, hold it
+    against the plain version on the same inputs, and keep (inputs,
+    keywords, agreement) in ``calls``."""
+    def make(name, fn, plain):
+        if name != "flash_attention":
+            return fn
+
+        def run(q, k, v, **kw):
+            y = fn(q, k, v, **kw)
+            calls.append(((q, k, v), kw, float_agreement(
+                torch, y, plain(q, k, v, **kw))))
+            return y
+        return run
+    with patched_wrappers(make):
+        yield
+
+
+def timed(torch, fn) -> tuple:
+    """(result, host ms) of one synchronized call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rel_l2(a, b) -> float:
+    """Relative L2 distance of ``a`` from ``b``."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def logits_agreement(torch, got, plain, ref32) -> dict:
+    """The kernel path's bf16 logits against the plain path's, with the
+    same weights run in float32 on the plain attention (``ref32``) as the
+    yardstick.  Both bf16 paths compute attention in float32 and differ
+    in the last bf16 bit of a few elements per layer, which the later
+    bf16 products carry on; bf16 rounding itself moves the plain path
+    from float32.  The kernel path must stay as close to the float32
+    model as the plain path, within a factor of 1.5, and pick the same
+    greedy token unless the plain path's top two logits lie closer than
+    the largest difference."""
+    d_kernel, d_plain = rel_l2(got, ref32), rel_l2(plain, ref32)
+    err = (got.float() - plain.float()).abs().max().item()
+    top2 = plain[:, -1].float().topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).tolist()
+    same = (got[:, -1].argmax(-1) == plain[:, -1].argmax(-1)).tolist()
+    ok = d_kernel <= 1.5 * d_plain and all(s or gp <= 2 * err
+                                           for s, gp in zip(same, gap))
+    return dict(ok=ok and bool(torch.isfinite(got).all()),
+                rel_l2_kernel_vs_float32=d_kernel,
+                rel_l2_plain_vs_float32=d_plain,
+                rel_l2_kernel_vs_plain=rel_l2(got, plain), max_abs_err=err,
+                argmax_equal=same, plain_top2_gap=gap)
+
+
+def float32_logits(torch, model, params, batch, cache_len):
+    """Prefill logits of the same weights in float32 (TF32 off) on the
+    plain attention."""
+    import copy
+    from repro_torch.models.model import Model
+    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                device=model.device)
+    p32 = copy.deepcopy(params).float()
+    with plain_ops():
+        logits, _ = m32.prefill(p32, batch, cache_len)
+    del p32
+    torch.cuda.empty_cache()
+    return logits
+
+
+def prefill_path(torch, dev, cfg, batch, cache_len, runs: int):
+    """Prefill through ``Model.prefill``: one run with every kernel call
+    held against the plain version, ``runs`` timed runs that must each
+    launch the kernel once per layer, and one run on the plain version.
+    Returns (model, params, logits, cache, kernel calls, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    tag = cfg.name
+    model = Model(cfg, device=dev)
+    params, init_ms = timed(torch, lambda: model.init(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    emit(phase="lm", model=tag, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=sum(p.numel() for p in params.parameters()),
+         dtype=cfg.dtype, init_ms=init_ms)
+    calls: list = []
+    with checked_flash(torch, calls):
+        model.prefill(params, batch, cache_len)
+    torch.cuda.synchronize()
+    agree = [c[2] for c in calls]
+    check("lm", f"{tag}_every_prefill_call_agrees_with_plain",
+          len(calls) == cfg.n_layers and all(a[0] for a in agree),
+          calls=len(calls), max_abs_err=max(a[1] for a in agree),
+          max_share_of_tolerance=max(a[2] for a in agree))
+    times, launches = [], 0
+    for i in range(runs):
+        ops.reset_launch_counts()
+        (logits, cache), ms = timed(
+            torch, lambda: model.prefill(params, batch, cache_len))
+        launches = ops.launch_counts()["flash_attention"]
+        check("lm", f"{tag}_prefill{i}_launches_{cfg.n_layers}",
+              launches == cfg.n_layers, launches=launches)
+        times.append(ms)
+    with plain_ops():
+        (plain_logits, _), plain_ms = timed(
+            torch, lambda: model.prefill(params, batch, cache_len))
+    agreement = logits_agreement(torch, logits, plain_logits, float32_logits(
+        torch, model, params, batch, cache_len))
+    check("lm", f"{tag}_prefill_logits_match_plain_path", agreement.pop("ok"),
+          shape=list(logits.shape), **agreement)
+    tokens = batch["tokens"].numel()
+    emit(phase="lm", model=tag, prefill_tokens=tokens, cache_len=cache_len,
+         prefill_ms_median=statistics.median(times), prefill_ms_all=times,
+         prefill_tokens_per_s=tokens / statistics.median(times) * 1e3,
+         plain_path_prefill_ms=plain_ms)
+    emit(phase="lm", model=tag, what="prefill", **device_time(
+        torch, lambda: model.prefill(params, batch, cache_len),
+        statistics.median(times)))
+    return model, params, logits, cache, calls, launches
+
+
+def decode_path(torch, model, params, logits, cache, start: int,
+                steps: int) -> None:
+    """Greedy ``decode_step``s from a prefilled cache: no flash launch,
+    finite logits; records the host ms of each synchronized step."""
+    from repro_torch.kernels import ops
+    tag = model.cfg.name
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    times, finite = [], True
+    ops.reset_launch_counts()
+    for i in range(steps):
+        (logits, cache), ms = timed(torch, lambda: model.decode_step(
+            params, {"tokens": tok, "lengths": start + i}, cache))
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        times.append(ms)
+    check("lm", f"{tag}_{steps}_decode_steps", finite and tuple(
+        logits.shape) == (tok.shape[0], 1, model.cfg.vocab_size)
+        and ops.launch_counts()["flash_attention"] == 0,
+        launches=ops.launch_counts())
+    emit(phase="lm", model=tag, decode_batch=tok.shape[0],
+         decode_cache_fill=start, decode_ms_median=statistics.median(times),
+         decode_ms_all=times)
+    emit(phase="lm", model=tag, what="decode_step", **device_time(
+        torch, lambda: model.decode_step(
+            params, {"tokens": tok, "lengths": start + steps}, cache),
+        statistics.median(times)))
+
+
+def serve_path(torch, model, params) -> None:
+    """``Server`` with 4 slots and a 64-token cache answers 8 requests of
+    a 16-token prompt and 16 new tokens each."""
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    tracer = telemetry.Tracer()
+    server = serve.Server(model, params, 4, 64,
+                          registry=telemetry.MetricsRegistry(), tracer=tracer)
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [serve.Request(i, rng.integers(0, model.cfg.vocab_size, 16), 16)
+            for i in range(8)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    steps = 0
+    while server.busy and steps < 200:
+        server.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    stats = server.stats()
+    lat = sorted(e["dur"] / 1e6 for e in tracer.events()
+                 if e["name"].startswith("serve.request:"))
+    check("lm", f"{model.cfg.name}_server_answers_8_requests",
+          all(r.done and len(r.output) == 16 for r in reqs)
+          and ops.launch_counts()["flash_attention"] == 0,
+          tokens=stats["tokens"], engine_steps=steps,
+          launches=ops.launch_counts())
+    emit(phase="lm", model=model.cfg.name, server_slots=4, server_cache=64,
+         requests=8, wall_s=wall, tokens_per_s=stats["tokens_per_s"],
+         p50_latency_s_histogram=stats["latency_s"]["p50"],
+         p50_latency_s=statistics.median(lat) if lat else None,
+         latencies_s=lat)
+
+
+def flash_record(torch, dev, calls, launches) -> dict:
+    """Time each recorded kernel call of one prefill, its plain version
+    and PyTorch's ``scaled_dot_product_attention`` on the same inputs
+    (L2 flushed between calls); sum them and the bounds."""
+    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
+    fa = wrappers()["flash_attention"]
+    r = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by=set(),
+             err=0.0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_note = "enable_gqa"
+    for (q, k, v), kw, (_ok, err, _share) in calls:
+        ms = time_ms(torch, lambda: fa[1](q, k, v, **kw), reps=3,
+                     flush=flush)
+        plain_ms = time_ms(torch, lambda: fa[2](q, k, v, **kw), reps=2,
+                           flush=flush)
+        # the same function in one call: causal, or a band mask built
+        # outside the timed call for a window
+        lib_kw = dict(is_causal=True)
+        if kw["window"] is not None:
+            qpos = kw["q_offset"] + torch.arange(q.shape[2], device=dev)
+            kpos = torch.arange(k.shape[2], device=dev)
+            lib_kw = dict(attn_mask=(kpos[None] <= qpos[:, None])
+                          & (kpos[None] > qpos[:, None] - kw["window"]))
+            library_note = "enable_gqa, band mask"
+        try:
+            lib_ms = time_ms(torch, lambda: sdpa(q, k, v, enable_gqa=True,
+                                                 **lib_kw),
+                             reps=3, flush=flush)
+        except TypeError:      # a PyTorch without enable_gqa
+            g = q.shape[1] // k.shape[1]
+            kr, vr = (t.repeat_interleave(g, 1) for t in (k, v))
+            lib_ms = time_ms(torch, lambda: sdpa(q, kr, vr, **lib_kw),
+                             reps=3, flush=flush)
+            library_note = "K/V repeated"
+        bound, by = flash_bound_ms(q, k, kw["causal"], kw["window"],
+                                   kw["q_offset"])
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] += lib_ms
+        r["bound_ms"] += bound
+        r["by"].add(by)
+        r["err"] = max(r["err"], err)
+    n = len(calls)
+    emit(phase="timing", kernel="flash_attention", calls=n,
+         shapes=[list(t.shape) for t in calls[0][0]],
+         ms_per_launch=r["ms"] / n, plain_ms_per_launch=r["plain_ms"] / n,
+         library_ms_per_launch=r["library_ms"] / n,
+         bound_ms_per_launch=r["bound_ms"] / n, library=library_note)
+    return dict(launches=launches, calls_timed=n, max_abs_err=r["err"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by="operations" if "operations" in r["by"] else "bytes",
+                library_ms=r["library_ms"])
+
+
+def phase_lm(torch, dev, records):
+    """The dense-LM serving path, bf16, random weights from the seed:
+    qwen2-1.5b at full width (prefill 2 x 4096, 16 decode steps, Server),
+    then h2o-danube-3-4b at full width and 2 of its 24 layers (prefill
+    1 x 6144 under its 4096 window, 8 decode steps)."""
+    from repro_torch import configs
+    from repro_torch import device as tdevice
+
+    rng = np.random.default_rng(SEED)
+    with tdevice.full_float32():
+        flash_kernel_checks(torch, dev)
+        cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                                  attention_impl="flash")
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 4096)), device=dev)}
+        model, params, logits, cache, calls, launches = prefill_path(
+            torch, dev, cfg, batch, 4608, runs=3)
+        decode_path(torch, model, params, logits, cache, 4096, 16)
+        del cache
+        serve_path(torch, model, params)
+        records["flash_attention"] = flash_record(torch, dev, calls,
+                                                  launches)
+        del model, params, calls
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(configs.get("h2o-danube-3-4b"), n_layers=2,
+                                  attention_impl="flash")
+        emit(phase="lm", model=cfg.name, reduced="n_layers 24 -> 2")
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, 6144)), device=dev)}
+        model, params, logits, cache, calls, _ = prefill_path(
+            torch, dev, cfg, batch, 6160, runs=2)
+        seq = batch["tokens"].shape[1]
+        check("lm", f"{cfg.name}_prefill_masks_its_window",
+              seq > cfg.sliding_window
+              and all(c[1]["window"] == cfg.sliding_window for c in calls)
+              and cache["k"].shape[3] == 6160, window=cfg.sliding_window,
+              visible_pairs=visible_pairs(seq, seq, True,
+                                          cfg.sliding_window, 0),
+              causal_pairs=visible_pairs(seq, seq, True, None, 0))
+        decode_path(torch, model, params, logits, cache, 6144, 8)
+        h2o = flash_record(torch, dev, calls, len(calls))
+        emit(phase="lm", model=cfg.name, flash_ms_per_launch=h2o["ms"] / 2,
+             plain_ms_per_launch=h2o["plain_ms"] / 2,
+             library_ms_per_launch=h2o["library_ms"] / 2,
+             bound_ms_per_launch=h2o["bound_ms"] / 2)
+
+
 SOURCES = {
     "qgemm": ("src/repro_torch/csrc/qgemm.cu",
               "src/repro/kernels/qgemm.py:60"),
@@ -856,6 +1282,8 @@ SOURCES = {
                        "src/repro/kernels/qconv.py:770"),
     "qgconv2d": ("src/repro_torch/csrc/qconv.cu",
                  "src/repro/kernels/qconv.py:877"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:24"),
 }
 
 
@@ -879,7 +1307,8 @@ def main() -> int:
          count=torch.cuda.device_count())
     records: dict = {}
     for phase, fn in (("kernels", phase_kernels), ("vgg16", phase_vgg),
-                      ("mobilenet", phase_mobilenet), ("paths", phase_paths)):
+                      ("mobilenet", phase_mobilenet), ("paths", phase_paths),
+                      ("lm", phase_lm)):
         t0 = time.perf_counter()
         with guarded(phase):
             if phase == "kernels":

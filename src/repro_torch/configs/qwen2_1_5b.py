@@ -1,0 +1,20 @@
+"""qwen2-1.5b [dense] — GQA kv=2, QKV bias [arXiv:2407.10671; hf]."""
+import dataclasses
+from .base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-1.5b", family="dense",
+        n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2, head_dim=128,
+        d_ff=8960, vocab_size=151936,
+        qkv_bias=True, rope_theta=1e6, tie_embeddings=True,
+        attention_impl="chunked",
+    )
+
+
+def smoke() -> ModelConfig:
+    return dataclasses.replace(
+        config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=128, vocab_size=256, dtype="float32",
+        attention_impl="naive")

@@ -1,4 +1,4 @@
-"""Public entry points of the CNN kernels.
+"""Public entry points of the kernels.
 
 Two families, as in the JAX package:
 
@@ -14,7 +14,9 @@ hand-written kernels (``qconv.qconv2d``, ``qconv.qdwconv2d``,
 ``qconv.qgconv2d``, ``qgemm.qgemm``); nothing falls back to a plain
 version.  On a CPU tensor every op runs its plain PyTorch version.
 Merges and standalone pools are plain torch ops on either device, as
-they were plain array ops in the JAX package.
+they were plain array ops in the JAX package.  :func:`flash_attention`,
+the LM layers' ``flash`` attention, launches ``csrc/flash_attention.cu``
+on a CUDA tensor the same way.
 
 Conv pads are zero (the symmetric quantization zero-point) and applied
 here; max-pool pads take INT8_MIN.
@@ -25,11 +27,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import flash_attention as _flash
 from . import qconv as _qconv
 from . import qgemm as _qgemm
 from . import ref as ref
 
-_COUNTERS = (_qgemm.launches, _qconv.launches)
+_COUNTERS = (_qgemm.launches, _qconv.launches, _flash.launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -49,6 +52,16 @@ def qgemm(x, w, b=None, *, shift, relu: bool = False) -> torch.Tensor:
     """``shift`` is an int (per-tensor) or a length-N tuple (per-output-
     channel weight scales — the per-lane shift vector path)."""
     return _qgemm.qgemm(x, w, b, shift=shift, relu=relu)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """GQA flash attention: q (B, H, Sq, D), k/v (B, HKV, Skv, D).  A
+    CUDA tensor launches the kernel, a CPU tensor runs the plain
+    version (:mod:`.flash_attention`)."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
 
 
 # ------------------------------------------------------ NHWC-native paths

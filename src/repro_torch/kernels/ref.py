@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CNN kernels' semantics.
+"""Plain PyTorch versions of the kernels' semantics, and the oracles.
 
 These define the *exact* integer semantics the CUDA kernels must
 reproduce, and they are what every op runs on a CPU tensor.  All
@@ -15,6 +15,9 @@ two int8 values and every partial sum is an integer far below 2**53
 (|acc| <= 128 * 128 * K + |bias|).  The pools reduce a view of all their
 windows in one integer reduction.  int32 additions wrap two's
 complement on both devices, as the JAX reference's do.
+
+:func:`attention_ref` is the float grouped-query attention oracle that
+the LM layers' ``naive`` attention calls.
 """
 from __future__ import annotations
 
@@ -206,3 +209,35 @@ def avgpool2d_ref(x: torch.Tensor, window: int, stride: int,
         counts = window * window
     q = torch.div(summed + counts // 2, counts, rounding_mode="floor")
     return q.clamp(INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def attention_ref(q: torch.Tensor,  # (B, H, Sq, D)
+                  k: torch.Tensor,  # (B, HKV, Skv, D)
+                  v: torch.Tensor,  # (B, HKV, Skv, D)
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention oracle.  ``q_offset`` is the absolute
+    position of q[0] (for decode/prefill continuation).  ``window`` is a
+    sliding-attention span: key j visible to query i iff
+    i - window < j <= i.  Scores and softmax in float32; a row that sees
+    no key gets the mean of v (every score is the same ``-1e30``)."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    if h % hkv:
+        raise ValueError(f"{h} query heads over {hkv} KV heads")
+    g = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    kr = torch.repeat_interleave(k, g, dim=1).float()
+    vr = torch.repeat_interleave(v, g, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)

@@ -1,1 +1,2 @@
-"""CNN model zoo and the float32 oracle."""
+"""CNN model zoo and the float32 oracle; the dense LM layers, stacks and
+Model."""

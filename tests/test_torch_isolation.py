@@ -10,13 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs as tconfigs
 from repro_torch import device as tdevice
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core.parser import parse
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.core.synthesis import CNN2Gate
-from repro_torch.kernels import _build, ops, qconv, qgemm
+from repro_torch.kernels import _build, flash_attention, ops, qconv, qgemm
 from repro_torch.models import cnn
+from repro_torch.models.model import Model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -73,6 +75,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     specs = {li.name: QuantSpec(6, 4, 3) for li in pm.layers}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tpipe.build_quantized(pm, specs)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(tconfigs.get_smoke("qwen2-1.5b"))
     assert tdevice.resolve("cpu").type == "cpu"
 
 
@@ -82,7 +86,8 @@ def _meta(shape, dtype=torch.int8):
 
 def test_no_plain_fallback_off_the_cpu():
     """A tensor that is not on the CPU never reaches a plain version:
-    every wrapper, dense, depthwise and grouped, insists on CUDA."""
+    every wrapper, dense, depthwise, grouped and attention, insists on
+    CUDA."""
     x, w = _meta((1, 6, 6, 8)), _meta((3, 3, 8, 8))
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         qconv.qconv2d(x, w, None)
@@ -92,6 +97,12 @@ def test_no_plain_fallback_off_the_cpu():
         ops.qconv2d_nhwc(x, _meta((3, 3, 1, 8)), None, groups=8)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.qconv2d_nhwc(x, _meta((3, 3, 4, 8)), None, groups=2)
+    q, kv = _meta((1, 4, 8, 16), torch.bfloat16), _meta((1, 2, 8, 16),
+                                                       torch.bfloat16)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        flash_attention.flash_attention(q, kv, kv, window=4, q_offset=3)
 
 
 def test_launch_counters_count_kernel_launches_only():
@@ -104,12 +115,13 @@ def test_launch_counters_count_kernel_launches_only():
     gate.build()(x)
     assert ops.launch_counts() == {"qgemm": 0, "qconv2d": 0,
                                    "qconv2d_into": 0, "qdwconv2d": 0,
-                                   "qdwconv2d_into": 0, "qgconv2d": 0}
+                                   "qdwconv2d_into": 0, "qgconv2d": 0,
+                                   "flash_attention": 0}
 
 
 def test_kernel_sources_and_build_key():
     srcs = _build.sources()
-    assert set(srcs) == {"qgemm", "qconv", "qdwconv"}
+    assert set(srcs) == {"qgemm", "qconv", "qdwconv", "flash_attention"}
     for name in srcs:
         lib = _build._lib_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -121,8 +133,10 @@ def test_kernel_sources_and_build_key():
 
 def test_ctypes_signatures_match_the_c_entry_points():
     """Each wrapper's ``argtypes`` has one entry per parameter of its C
-    entry point: ``c_void_p`` for a pointer, ``c_int`` for an int."""
-    sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES)
+    entry point: ``c_void_p`` for a pointer, ``c_float`` for a float,
+    ``c_int`` for an int."""
+    sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES,
+                flash_attention=flash_attention._SIGNATURES)
     assert set(sigs) == set(_build.sources())
     for name, entries in sigs.items():
         src = _build.sources()[name].read_text()
@@ -131,5 +145,6 @@ def test_ctypes_signatures_match_the_c_entry_points():
                           re.S)
             assert m is not None, (name, fn)
             params = [p.strip() for p in m.group(1).split(",")]
-            assert [ctypes.c_void_p if "*" in p else ctypes.c_int
-                    for p in params] == argtypes, (name, fn)
+            assert [ctypes.c_void_p if "*" in p else
+                    ctypes.c_float if p.startswith("float ") else
+                    ctypes.c_int for p in params] == argtypes, (name, fn)
