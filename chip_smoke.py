@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases, each printing one JSON line per check:
+Six phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -40,7 +40,26 @@ Five phases, each printing one JSON line per check:
    steps.  It prints prefill ms and tokens/s, ms per decode step, the
    server's tokens/s and p50 latency, and the kernel's time per launch
    beside the plain version's, ``scaled_dot_product_attention``'s and
-   the bound.
+   the bound;
+6. ssm, the Mamba-2 SSM and hybrid serving paths in bf16 with random
+   weights from a seed, ``conv_b``/``conv_c`` drawn from it too (with the
+   reference's zeros there the SSD term is 0 whatever the kernel
+   computes): the SSD-scan kernel held against its plain version (y and
+   the final state; float32 within atol 1e-4 + rtol 1e-3, bf16 y within
+   one bf16 ulp more) at mamba2-2.7b's prefill shape with and
+   without ``d``, with an initial state, at the decode shape, at a ragged
+   L, with G = 2, in float32 and over a 24-case seeded sweep, and no
+   farther than 1.5x the plain version from a float64 run;
+   mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80
+   heads of 64, N 128, 2.7 B parameters): ``Model.prefill`` of 2 x 4096
+   tokens launching the kernel 64 times, every call agreeing with the
+   plain version and the logits with the plain path's (float32-distance
+   criterion of phase 5); 16 greedy ``decode_step``s of 64 launches
+   each; ``Server`` (4 slots) answering 8 requests of 16 + 16 tokens;
+   then zamba2-2.7b at full width and 12 of its 54 layers (two
+   applications of its shared attention block): a 4096-token prefill
+   and 8 decode steps.  It prints the same times as phase 5 and the
+   kernel's time per launch beside the plain version's and the bound.
 
 Before the last line it prints the kernels' record (launches, error,
 times, bounds) as one JSON object, then the card's name and power limit
@@ -150,12 +169,14 @@ def wrappers():
     """The kernel wrappers the executor and the LM layers call, by name:
     {name: (module, wrapper, plain version)}."""
     from repro_torch.kernels import flash_attention as fa, qconv, qgemm
+    from repro_torch.kernels import ssd_scan as ssd
     return {"qconv2d": (qconv, qconv.qconv2d, qconv.qconv2d_plain),
             "qdwconv2d": (qconv, qconv.qdwconv2d, qconv.qdwconv2d_plain),
             "qgconv2d": (qconv, qconv.qgconv2d, qconv.qconv2d_plain),
             "qgemm": (qgemm, qgemm.qgemm, qgemm.qgemm_plain),
             "flash_attention": (fa, fa.flash_attention,
-                                fa.flash_attention_plain)}
+                                fa.flash_attention_plain),
+            "ssd_scan": (ssd, ssd.ssd_scan, ssd.ssd_scan_plain)}
 
 
 @contextlib.contextmanager
@@ -982,19 +1003,21 @@ def flash_kernel_checks(torch, dev) -> None:
 
 
 @contextlib.contextmanager
-def checked_flash(torch, calls: list):
-    """Run every flash call of the block through the kernel, hold it
-    against the plain version on the same inputs, and keep (inputs,
+def checked_kernel(torch, calls: list, kernel: str):
+    """Run every call of ``kernel`` in the block through the kernel, hold
+    it against the plain version on the same inputs, and keep (inputs,
     keywords, agreement) in ``calls``."""
+    agree = {"flash_attention": float_agreement,
+             "ssd_scan": checked_ssd_call}[kernel]
+
     def make(name, fn, plain):
-        if name != "flash_attention":
+        if name != kernel:
             return fn
 
-        def run(q, k, v, **kw):
-            y = fn(q, k, v, **kw)
-            calls.append(((q, k, v), kw, float_agreement(
-                torch, y, plain(q, k, v, **kw))))
-            return y
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((a, kw, agree(torch, out, plain(*a, **kw))))
+            return out
         return run
     with patched_wrappers(make):
         yield
@@ -1053,10 +1076,13 @@ def float32_logits(torch, model, params, batch, cache_len):
     return logits
 
 
-def prefill_path(torch, dev, cfg, batch, cache_len, runs: int):
-    """Prefill through ``Model.prefill``: one run with every kernel call
-    held against the plain version, ``runs`` timed runs that must each
-    launch the kernel once per layer, and one run on the plain version.
+def prefill_path(torch, dev, cfg, batch, cache_len, runs: int,
+                 kernel: str = "flash_attention", phase: str = "lm",
+                 prepare=None):
+    """Prefill through ``Model.prefill``: one run with every call of
+    ``kernel`` held against the plain version, ``runs`` timed runs that
+    must each launch the kernel once per layer, and one run on the plain
+    version.  ``prepare(params)`` edits the random weights first.
     Returns (model, params, logits, cache, kernel calls, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
@@ -1064,15 +1090,17 @@ def prefill_path(torch, dev, cfg, batch, cache_len, runs: int):
     model = Model(cfg, device=dev)
     params, init_ms = timed(torch, lambda: model.init(
         torch.Generator(device=dev).manual_seed(SEED)))
-    emit(phase="lm", model=tag, layers=cfg.n_layers, d_model=cfg.d_model,
+    if prepare is not None:
+        prepare(params)
+    emit(phase=phase, model=tag, layers=cfg.n_layers, d_model=cfg.d_model,
          params=sum(p.numel() for p in params.parameters()),
          dtype=cfg.dtype, init_ms=init_ms)
     calls: list = []
-    with checked_flash(torch, calls):
+    with checked_kernel(torch, calls, kernel):
         model.prefill(params, batch, cache_len)
     torch.cuda.synchronize()
     agree = [c[2] for c in calls]
-    check("lm", f"{tag}_every_prefill_call_agrees_with_plain",
+    check(phase, f"{tag}_every_prefill_call_agrees_with_plain",
           len(calls) == cfg.n_layers and all(a[0] for a in agree),
           calls=len(calls), max_abs_err=max(a[1] for a in agree),
           max_share_of_tolerance=max(a[2] for a in agree))
@@ -1081,8 +1109,8 @@ def prefill_path(torch, dev, cfg, batch, cache_len, runs: int):
         ops.reset_launch_counts()
         (logits, cache), ms = timed(
             torch, lambda: model.prefill(params, batch, cache_len))
-        launches = ops.launch_counts()["flash_attention"]
-        check("lm", f"{tag}_prefill{i}_launches_{cfg.n_layers}",
+        launches = ops.launch_counts()[kernel]
+        check(phase, f"{tag}_prefill{i}_launches_{cfg.n_layers}",
               launches == cfg.n_layers, launches=launches)
         times.append(ms)
     with plain_ops():
@@ -1090,24 +1118,26 @@ def prefill_path(torch, dev, cfg, batch, cache_len, runs: int):
             torch, lambda: model.prefill(params, batch, cache_len))
     agreement = logits_agreement(torch, logits, plain_logits, float32_logits(
         torch, model, params, batch, cache_len))
-    check("lm", f"{tag}_prefill_logits_match_plain_path", agreement.pop("ok"),
-          shape=list(logits.shape), **agreement)
+    check(phase, f"{tag}_prefill_logits_match_plain_path",
+          agreement.pop("ok"), shape=list(logits.shape), **agreement)
     tokens = batch["tokens"].numel()
-    emit(phase="lm", model=tag, prefill_tokens=tokens, cache_len=cache_len,
+    emit(phase=phase, model=tag, prefill_tokens=tokens, cache_len=cache_len,
          prefill_ms_median=statistics.median(times), prefill_ms_all=times,
          prefill_tokens_per_s=tokens / statistics.median(times) * 1e3,
          plain_path_prefill_ms=plain_ms)
-    emit(phase="lm", model=tag, what="prefill", **device_time(
+    emit(phase=phase, model=tag, what="prefill", **device_time(
         torch, lambda: model.prefill(params, batch, cache_len),
         statistics.median(times)))
     return model, params, logits, cache, calls, launches
 
 
 def decode_path(torch, model, params, logits, cache, start: int,
-                steps: int) -> None:
-    """Greedy ``decode_step``s from a prefilled cache: no flash launch,
-    finite logits; records the host ms of each synchronized step."""
+                steps: int, per_step=None, phase: str = "lm") -> None:
+    """Greedy ``decode_step``s from a prefilled cache, finite logits,
+    launching each kernel ``per_step[kernel]`` times a step (default: no
+    flash launch); records the host ms of each synchronized step."""
     from repro_torch.kernels import ops
+    per_step = per_step or {"flash_attention": 0}
     tag = model.cfg.name
     tok = logits[:, -1].argmax(-1, keepdim=True)
     times, finite = [], True
@@ -1118,28 +1148,39 @@ def decode_path(torch, model, params, logits, cache, start: int,
         finite &= bool(torch.isfinite(logits).all())
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times.append(ms)
-    check("lm", f"{tag}_{steps}_decode_steps", finite and tuple(
+    counts = ops.launch_counts()
+    check(phase, f"{tag}_{steps}_decode_steps", finite and tuple(
         logits.shape) == (tok.shape[0], 1, model.cfg.vocab_size)
-        and ops.launch_counts()["flash_attention"] == 0,
-        launches=ops.launch_counts())
-    emit(phase="lm", model=tag, decode_batch=tok.shape[0],
+        and all(counts[k] == n * steps for k, n in per_step.items()),
+        launches=counts, expected_per_step=per_step)
+    emit(phase=phase, model=tag, decode_batch=tok.shape[0],
          decode_cache_fill=start, decode_ms_median=statistics.median(times),
          decode_ms_all=times)
-    emit(phase="lm", model=tag, what="decode_step", **device_time(
+    emit(phase=phase, model=tag, what="decode_step", **device_time(
         torch, lambda: model.decode_step(
             params, {"tokens": tok, "lengths": start + steps}, cache),
         statistics.median(times)))
 
 
-def serve_path(torch, model, params) -> None:
+def serve_path(torch, model, params, per_call=None, phase: str = "lm") -> None:
     """``Server`` with 4 slots and a 64-token cache answers 8 requests of
-    a 16-token prompt and 16 new tokens each."""
+    a 16-token prompt and 16 new tokens each; each of its decode calls
+    launches each kernel ``per_call[kernel]`` times (default: no flash
+    launch)."""
     from repro_torch.core import telemetry
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    per_call = per_call or {"flash_attention": 0}
     tracer = telemetry.Tracer()
     server = serve.Server(model, params, 4, 64,
                           registry=telemetry.MetricsRegistry(), tracer=tracer)
+    decodes = [0]
+    decode = server._decode
+
+    def counted(tokens):
+        decodes[0] += 1
+        return decode(tokens)
+    server._decode = counted
     rng = np.random.default_rng(SEED + 3)
     reqs = [serve.Request(i, rng.integers(0, model.cfg.vocab_size, 16), 16)
             for i in range(8)]
@@ -1155,12 +1196,13 @@ def serve_path(torch, model, params) -> None:
     stats = server.stats()
     lat = sorted(e["dur"] / 1e6 for e in tracer.events()
                  if e["name"].startswith("serve.request:"))
-    check("lm", f"{model.cfg.name}_server_answers_8_requests",
+    counts = ops.launch_counts()
+    check(phase, f"{model.cfg.name}_server_answers_8_requests",
           all(r.done and len(r.output) == 16 for r in reqs)
-          and ops.launch_counts()["flash_attention"] == 0,
+          and all(counts[k] == n * decodes[0] for k, n in per_call.items()),
           tokens=stats["tokens"], engine_steps=steps,
-          launches=ops.launch_counts())
-    emit(phase="lm", model=model.cfg.name, server_slots=4, server_cache=64,
+          decode_calls=decodes[0], launches=counts)
+    emit(phase=phase, model=model.cfg.name, server_slots=4, server_cache=64,
          requests=8, wall_s=wall, tokens_per_s=stats["tokens_per_s"],
          p50_latency_s_histogram=stats["latency_s"]["p50"],
          p50_latency_s=statistics.median(lat) if lat else None,
@@ -1269,6 +1311,275 @@ def phase_lm(torch, dev, records):
              bound_ms_per_launch=h2o["bound_ms"] / 2)
 
 
+# ------------------------------------------ phase 6: the SSM serving paths
+
+#: The SSD kernel's float32 tolerance against its plain version (y and
+#: the state): the JAX package's own for the chunked decomposition
+#: against the sequential oracle (atol 1e-4, rtol 1e-3,
+#: tests/test_kernels.py).  The kernel walks 64-position tiles whatever
+#: the chunk, the plain version the caller's chunk: the two group their
+#: float32 sums differently, as two chunk lengths do.  Both lose float32
+#: digits to the decay exponents, differences of cumulative sums that
+#: reach hundreds within a chunk: against a float64 run at mamba2-2.7b's
+#: prefill shape (dt up to 1, a down to -16) both are off by about 1e-4
+#: absolute (:func:`ssd_float64_distance`).  So a bf16 y, the rounding of
+#: such a float32 value, takes one bf16 ulp plus this float32 allowance,
+#: not BF16_ATOL.
+SSD_F32_TOL = (1e-4, 1e-3)
+
+
+def ssd_agreement(torch, y, yp) -> tuple:
+    """(ok, max_abs_err, max_share) of an SSD output against its plain
+    version's: within ``atol + rtol |yp|`` of SSD_F32_TOL, plus one bf16
+    ulp for a bf16 output; at most 1 passes."""
+    d = (y.float() - yp.float()).abs()
+    allowance = SSD_F32_TOL[0] + SSD_F32_TOL[1] * yp.float().abs()
+    if y.dtype == torch.bfloat16:
+        allowance = allowance + bf16_ulp(torch, yp)
+    share = (d / allowance).max().item()
+    return (share <= 1 and bool(torch.isfinite(y).all()), d.max().item(),
+            share)
+
+
+def checked_ssd_call(torch, out, ref) -> tuple:
+    """(ok, max_abs_err, max_share) of one SSD call, y or (y, final
+    state), against its plain version's."""
+    if not isinstance(out, tuple):
+        return ssd_agreement(torch, out, ref)
+    parts = [ssd_agreement(torch, o, r) for o, r in zip(out, ref)]
+    return (all(p[0] for p in parts), max(p[1] for p in parts),
+            max(p[2] for p in parts))
+
+
+def ssd_bound_ms(x, b, chunk: int, with_d: bool, init: bool,
+                 final: bool) -> tuple:
+    """(bound ms, "bytes" or "operations") of one SSD call.  Bytes: x and
+    y, dt, a (and d), b and c, and the float32 state read and written,
+    once each.  Operations: the chunked algorithm at the call's chunk
+    with the least work it needs: C B^T once per B/C group over the
+    causal pairs of each chunk (2 N FLOP a pair), and per head the masked
+    product with x over the same pairs (2 P), C S_prev^T and the state
+    update (2 N P a position each), at the bf16 tensor-core peak."""
+    bsz, length, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    q = min(chunk, length)
+    rows = [q] * (length // q) + ([length % q] if length % q else [])
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    flops = (bsz * g * 2 * pairs * n
+             + bsz * h * (2 * pairs * p + 4 * length * n * p))
+    es = x.element_size()
+    nbytes = (2 * x.numel() * es + 4 * bsz * length * h
+              + 4 * h * (2 if with_d else 1) + 2 * b.numel() * es
+              + 4 * bsz * h * p * n * (int(init) + int(final)))
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def ssd_cases(rng):
+    """Kernel-check cases: (name, B, L, H, P, G, N, dtype, chunk, with d,
+    with an initial state, returning the state).  The slice's shapes
+    (mamba2-2.7b's prefill as the path calls it, with d, from a state;
+    its decode step; zamba2-2.7b's N = 64), a ragged L, G = 2, float32,
+    and a seeded sweep over all of them."""
+    cases = [
+        ("mamba2_prefill", 2, 4096, 80, 64, 1, 128, "bf16", 256, False,
+         False, True),
+        ("mamba2_prefill_with_d", 2, 4096, 80, 64, 1, 128, "bf16", 256, True,
+         False, False),
+        ("mamba2_prefill_from_state", 2, 4096, 80, 64, 1, 128, "bf16", 256,
+         False, True, True),
+        ("mamba2_decode", 2, 1, 80, 64, 1, 128, "bf16", 256, False, True,
+         True),
+        ("zamba2_prefill", 1, 4096, 80, 64, 1, 64, "bf16", 256, False, False,
+         True),
+        ("ragged_L", 1, 1000, 16, 64, 1, 128, "bf16", 256, True, True, True),
+        ("groups_2", 2, 300, 8, 64, 2, 64, "f32", 64, True, True, True),
+        ("float32_prefill", 1, 4096, 16, 64, 1, 128, "f32", 256, True, True,
+         True),
+    ]
+    for i in range(24):
+        g = int(rng.integers(1, 4))
+        h = g * int(rng.integers(1, 5))
+        p = int(rng.choice([16, 32, 64, 80, 100, int(rng.integers(1, 130))]))
+        cases.append((
+            f"sweep{i}", int(rng.integers(1, 4)), int(rng.integers(1, 700)),
+            h, p, g, int(rng.integers(1, 129)), ("f32", "bf16")[i % 2],
+            int(rng.choice([16, 64, 128, 256])), bool(rng.random() < 0.5),
+            bool(rng.random() < 0.5), bool(rng.random() < 0.5)))
+    return cases
+
+
+def ssd_inputs(torch, dev, gen, b, length, h, p, g, n, dtype, with_d, init):
+    """x, dt, a, b, c, d, init_state: x normal * 0.5, dt uniform in
+    (0.001, 1), a in (-16, -0.5), b and c normal * 0.3."""
+    def randn(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    return (randn((b, length, h, p), 0.5).to(dtype),
+            uniform((b, length, h), 0.001, 1.0), -uniform((h,), 0.5, 16.0),
+            randn((b, length, g, n), 0.3).to(dtype),
+            randn((b, length, g, n), 0.3).to(dtype),
+            randn((h,), 1.0) if with_d else None,
+            randn((b, h, p, n), 1.0) if init else None)
+
+
+def ssd_kernel_checks(torch, dev) -> None:
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    bad = []
+    for (name, b, length, h, p, g, n, dt, chunk, with_d, init,
+         ret) in ssd_cases(rng):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x, dtv, a, bm, cm, d, s0 = ssd_inputs(torch, dev, gen, b, length, h,
+                                              p, g, n, dtype, with_d, init)
+        kw = dict(chunk=chunk, init_state=s0, return_state=ret)
+        out = ssd.ssd_scan(x, dtv, a, bm, cm, d, **kw)
+        ref = ssd.ssd_scan_plain(x, dtv, a, bm, cm, d, **kw)
+        torch.cuda.synchronize()
+        ok, err, share = checked_ssd_call(torch, out, ref)
+        shape = [b, length, h, p, g, n]
+        if name.startswith("sweep"):
+            if not ok:
+                bad.append(dict(case=name, shape=shape, dtype=dt, err=err,
+                                share=share, chunk=chunk, d=with_d,
+                                init=init, ret=ret))
+            continue
+        check("ssm", f"ssd_scan_{name}", ok, dtype=dt, shape=shape,
+              chunk=chunk, d=with_d, init_state=init, return_state=ret,
+              max_abs_err=err, max_share_of_tolerance=share)
+    check("ssm", "ssd_scan_random_sweep_24", not bad, failures=bad[:5])
+    ssd_float64_distance(torch, dev, gen)
+
+
+def ssd_float64_distance(torch, dev, gen) -> None:
+    """The kernel's and the plain version's float32 y and state against
+    the plain version run in float64, at mamba2-2.7b's prefill shape with
+    float32 inputs: the kernel must be no farther from float64 than 1.5x
+    the plain version (the criterion of the logits in phase 5)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dtv, a, bm, cm, _, _ = ssd_inputs(torch, dev, gen, 2, 4096, 80, 64, 1,
+                                         128, torch.float32, False, False)
+    kw = dict(chunk=256, return_state=True)
+    yk, sk = ssd.ssd_scan(x, dtv, a, bm, cm, **kw)
+    yp, sp = ssd.ssd_scan_plain(x, dtv, a, bm, cm, **kw)
+    y64, s64 = ssd.ssd_scan_plain(*(t.double() for t in (x, dtv, a, bm, cm)),
+                                  **kw)
+    torch.cuda.synchronize()
+
+    def dist(u, v):
+        return (u.double() - v).abs().max().item()
+    d = dict(y_kernel=dist(yk, y64), y_plain=dist(yp, y64),
+             state_kernel=dist(sk, s64), state_plain=dist(sp, s64))
+    check("ssm", "ssd_scan_float64_distance",
+          d["y_kernel"] <= 1.5 * d["y_plain"]
+          and d["state_kernel"] <= 1.5 * d["state_plain"],
+          y_abs_max=y64.abs().max().item(), **d)
+
+
+def fill_conv_bc(torch, params) -> None:
+    """Draw every mamba layer's ``conv_b`` and ``conv_c`` from the seed
+    (normal * 0.1, ``conv_x``'s distribution).  The reference's init
+    makes them 0, and with them B = C = 0 and the SSD term 0."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.mamba2 import Mamba2
+    gen = torch.Generator(device=params.embed.device)
+    gen.manual_seed(SEED + 7)
+    for m in params.modules():
+        if isinstance(m, Mamba2):
+            L.fill_normal_(m.conv_b, 0.1, gen)
+            L.fill_normal_(m.conv_c, 0.1, gen)
+
+
+def ssd_record(torch, dev, calls, launches, phase: str = "ssm") -> dict:
+    """Time each recorded SSD call of one prefill and its plain version
+    (L2 flushed between calls); sum them and the bounds.  No PyTorch call
+    computes this function, so ``library_ms`` is None."""
+    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
+    _mod, fn, plain = wrappers()["ssd_scan"]
+    r = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, by=set(), err=0.0)
+    for a, kw, (_ok, err, _share) in calls:
+        r["ms"] += time_ms(torch, lambda: fn(*a, **kw), reps=3, flush=flush)
+        r["plain_ms"] += time_ms(torch, lambda: plain(*a, **kw), reps=2,
+                                 flush=flush)
+        x, bm, d = a[0], a[3], a[5]
+        bound, by = ssd_bound_ms(x, bm, kw["chunk"], d is not None,
+                                 kw["init_state"] is not None,
+                                 kw["return_state"])
+        r["bound_ms"] += bound
+        r["by"].add(by)
+        r["err"] = max(r["err"], err)
+    n = len(calls)
+    emit(phase=phase, what="ssd_scan_timing", calls=n,
+         shapes=[list(t.shape) for t in calls[0][0] if torch.is_tensor(t)],
+         ms_per_launch=r["ms"] / n, plain_ms_per_launch=r["plain_ms"] / n,
+         bound_ms_per_launch=r["bound_ms"] / n, library="none")
+    return dict(launches=launches, calls_timed=n, max_abs_err=r["err"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by="operations" if "operations" in r["by"] else "bytes",
+                library_ms=None)
+
+
+def ssd_term_check(torch, calls, tag: str) -> None:
+    """The SSD output of the first layer is not 0 (it would be with the
+    reference's zero ``conv_b``/``conv_c``)."""
+    _mod, _fn, plain = wrappers()["ssd_scan"]
+    a, kw, _ = calls[0]
+    y = plain(*a, **kw)[0]
+    check("ssm", f"{tag}_ssd_term_is_not_zero",
+          bool(y.float().abs().max() > 0), y_abs_max=y.float().abs().max()
+          .item(), y_rms=y.float().pow(2).mean().sqrt().item())
+
+
+def phase_ssm(torch, dev, records):
+    """The Mamba-2 SSM and hybrid serving paths, bf16, random weights from
+    the seed: mamba2-2.7b at full width and depth (prefill 2 x 4096, 16
+    decode steps, Server), then zamba2-2.7b at full width and 12 of its
+    54 layers (prefill 1 x 4096, 8 decode steps)."""
+    from repro_torch import configs
+    from repro_torch import device as tdevice
+
+    rng = np.random.default_rng(SEED + 6)
+    with tdevice.full_float32():
+        ssd_kernel_checks(torch, dev)
+        cfg = configs.get("mamba2-2.7b")
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 4096)), device=dev)}
+        model, params, logits, cache, calls, launches = prefill_path(
+            torch, dev, cfg, batch, 4096, runs=3, kernel="ssd_scan",
+            phase="ssm", prepare=lambda p: fill_conv_bc(torch, p))
+        ssd_term_check(torch, calls, cfg.name)
+        decode_path(torch, model, params, logits, cache, 4096, 16,
+                    per_step={"ssd_scan": cfg.n_layers}, phase="ssm")
+        del cache
+        serve_path(torch, model, params, per_call={"ssd_scan": cfg.n_layers},
+                   phase="ssm")
+        records["ssd_scan"] = ssd_record(torch, dev, calls, launches)
+        del model, params, calls
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(configs.get("zamba2-2.7b"), n_layers=12)
+        emit(phase="ssm", model=cfg.name, reduced="n_layers 54 -> 12 (two "
+             "applications of the shared attention block, every 6)")
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, 4096)), device=dev)}
+        model, params, logits, cache, calls, _ = prefill_path(
+            torch, dev, cfg, batch, 4112, runs=2, kernel="ssd_scan",
+            phase="ssm", prepare=lambda p: fill_conv_bc(torch, p))
+        ssd_term_check(torch, calls, cfg.name)
+        decode_path(torch, model, params, logits, cache, 4096, 8,
+                    per_step={"ssd_scan": cfg.n_layers}, phase="ssm")
+        z = ssd_record(torch, dev, calls, len(calls))
+        n = len(calls)
+        emit(phase="ssm", model=cfg.name, ssd_ms_per_launch=z["ms"] / n,
+             plain_ms_per_launch=z["plain_ms"] / n,
+             bound_ms_per_launch=z["bound_ms"] / n)
+
+
 SOURCES = {
     "qgemm": ("src/repro_torch/csrc/qgemm.cu",
               "src/repro/kernels/qgemm.py:60"),
@@ -1284,6 +1595,8 @@ SOURCES = {
                  "src/repro/kernels/qconv.py:877"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:24"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:72"),
 }
 
 
@@ -1308,7 +1621,7 @@ def main() -> int:
     records: dict = {}
     for phase, fn in (("kernels", phase_kernels), ("vgg16", phase_vgg),
                       ("mobilenet", phase_mobilenet), ("paths", phase_paths),
-                      ("lm", phase_lm)):
+                      ("lm", phase_lm), ("ssm", phase_ssm)):
         t0 = time.perf_counter()
         with guarded(phase):
             if phase == "kernels":

@@ -6,7 +6,8 @@ quantization specs as ``{layer: (m_w, m_x, m_y)}`` with ints or int
 tuples — so any exporter that writes that format, the JAX package's
 included, hands the port the same weights and the same specs.  A dense
 LM's parameters come across as the JAX package's parameter tree with
-numpy leaves (:func:`lm_params_from_numpy`).
+numpy leaves (:func:`lm_params_from_numpy`), for the dense, ``ssm`` and
+``hybrid`` families.
 """
 from __future__ import annotations
 
@@ -72,10 +73,12 @@ def _fill(module: torch.nn.Module, tree: Mapping, layer=None) -> None:
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping,
                          device: tdevice.DeviceLike = None):
-    """The port's parameters of a dense LM from the JAX package's
+    """The port's parameters of an LM from the JAX package's
     ``Model.init`` tree with numpy leaves: ``embed``, ``final_norm``,
     ``lm_head`` when the head is untied, and ``stack``, whose leaves are
-    stacked over layers as (L, ...)."""
+    stacked over layers as (L, ...) (dense and ``ssm``), or for a
+    ``hybrid`` model ``stack.mamba_stack`` stacked so and
+    ``stack.shared_attn`` unstacked."""
     from repro_torch.models.model import Model
     params = Model(cfg, device).empty_params()
     _fill(params, tree)

@@ -16,7 +16,8 @@ version.  On a CPU tensor every op runs its plain PyTorch version.
 Merges and standalone pools are plain torch ops on either device, as
 they were plain array ops in the JAX package.  :func:`flash_attention`,
 the LM layers' ``flash`` attention, launches ``csrc/flash_attention.cu``
-on a CUDA tensor the same way.
+on a CUDA tensor the same way, and :func:`ssd_scan`, every Mamba-2
+layer's scan, launches ``csrc/ssd_scan.cu``.
 
 Conv pads are zero (the symmetric quantization zero-point) and applied
 here; max-pool pads take INT8_MIN.
@@ -31,8 +32,10 @@ from . import flash_attention as _flash
 from . import qconv as _qconv
 from . import qgemm as _qgemm
 from . import ref as ref
+from . import ssd_scan as _ssd
 
-_COUNTERS = (_qgemm.launches, _qconv.launches, _flash.launches)
+_COUNTERS = (_qgemm.launches, _qconv.launches, _flash.launches,
+             _ssd.launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -62,6 +65,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     version (:mod:`.flash_attention`)."""
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
+
+
+def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
+             init_state: Optional[torch.Tensor] = None,
+             return_state: bool = False):
+    """Mamba-2 chunked SSD scan: x (B, L, H, P), dt (B, L, H), a (H,),
+    b/c (B, L, G, N); y, and the final state with ``return_state``.  A
+    CUDA tensor launches the kernel, a CPU tensor runs the plain version
+    (:mod:`.ssd_scan`)."""
+    return _ssd.ssd_scan(x, dt, a, b, c, d, chunk=chunk,
+                         init_state=init_state, return_state=return_state)
 
 
 # ------------------------------------------------------ NHWC-native paths

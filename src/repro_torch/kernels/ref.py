@@ -17,7 +17,8 @@ windows in one integer reduction.  int32 additions wrap two's
 complement on both devices, as the JAX reference's do.
 
 :func:`attention_ref` is the float grouped-query attention oracle that
-the LM layers' ``naive`` attention calls.
+the LM layers' ``naive`` attention calls; :func:`ssd_ref` is the
+sequential oracle of the Mamba-2 SSD scan.
 """
 from __future__ import annotations
 
@@ -241,3 +242,37 @@ def attention_ref(q: torch.Tensor,  # (B, H, Sq, D)
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor,    # (B, L, H, P)
+            dt: torch.Tensor,   # (B, L, H), positive (post-softplus)
+            a: torch.Tensor,    # (H,), negative
+            b: torch.Tensor,    # (B, L, G, N)
+            c: torch.Tensor,    # (B, L, G, N)
+            d: Optional[torch.Tensor] = None,           # (H,) skip
+            init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential state-space-duality oracle (Mamba-2 SSD), one step a
+    position, in float32:
+        S_t = exp(dt_t a) S_{t-1} + dt_t x_t B_t^T ;  y_t = S_t C_t + D x_t
+    Returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N) in
+    float32)."""
+    bsz, length, h, p = x.shape
+    g = h // b.shape[2]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf = torch.repeat_interleave(b.float(), g, dim=2)   # (B, L, H, N)
+    cf = torch.repeat_interleave(c.float(), g, dim=2)
+    s = (init_state.float().clone() if init_state is not None else
+         torch.zeros((bsz, h, p, b.shape[3]), dtype=torch.float32,
+                     device=x.device))
+    ys = []
+    for t in range(length):
+        decay = torch.exp(dtf[:, t] * af[None, :])       # (B, H)
+        contrib = torch.einsum("bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t],
+                               bf[:, t])
+        s = decay[..., None, None] * s + contrib
+        ys.append(torch.einsum("bhpn,bhn->bhp", s, cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    if d is not None:
+        y = y + d.float()[None, None, :, None] * xf
+    return y.to(x.dtype), s

@@ -4,11 +4,18 @@ The counterpart of ``repro.launch.serve``.  A fixed pool of sequence
 slots; finished sequences release their slot and queued requests claim
 it (their prompt is fed into the slot's cache region token by token).
 Per-slot lengths drive the masked decode attention, so heterogeneous
-sequence lengths coexist in one batch.  One card, no sharding policy;
-each decode step is an eager call of ``Model.decode_step``.
+sequence lengths coexist in one batch.  For the ``ssm`` and ``hybrid``
+families the cache also holds each slot's conv and SSM states; as in the
+JAX package, a reused slot keeps the previous request's states (only its
+length is reset) and idle slots advance on token 0.  One card, no
+sharding policy; each decode step is an eager call of
+``Model.decode_step``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --preset smoke --slots 4 --requests 8 --max-new 16 [--device cpu]
+
+``--arch`` takes any dense, ssm or hybrid config (mamba2-2.7b,
+zamba2-2.7b).
 """
 from __future__ import annotations
 

@@ -1,2 +1,2 @@
-"""CNN model zoo and the float32 oracle; the dense LM layers, stacks and
-Model."""
+"""CNN model zoo and the float32 oracle; the LM layers (dense and
+Mamba-2), stacks and Model."""

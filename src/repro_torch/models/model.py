@@ -1,4 +1,4 @@
-"""The Model API over the dense LMs, in PyTorch.
+"""The Model API over the dense, SSM and hybrid LMs, in PyTorch.
 
     model = Model(cfg)                         # on CUDA; device="cpu" asks for the CPU
     params = model.init(torch.Generator(model.device).manual_seed(0))
@@ -6,12 +6,13 @@
     logits, cache = model.prefill(params, batch, cache_len)
     logits, cache = model.decode_step(params, batch, cache)
 
-The counterpart of ``repro.models.model.Model`` for the ``dense`` family.
-Batches are dicts: ``tokens`` (B, S) (``positions`` optional) for
-forward and prefill, ``tokens`` (B, 1) and ``lengths`` (B,) or a scalar
-(the current cache fill) for decode.  ``decode_step`` writes into the
-cache it is given (see :mod:`.transformer`).  The training loss and the
-dry-run input specs are not ported yet.
+The counterpart of ``repro.models.model.Model`` for the ``dense``,
+``ssm`` (mamba2) and ``hybrid`` (zamba2) families.  Batches are dicts:
+``tokens`` (B, S) (``positions`` optional) for forward and prefill,
+``tokens`` (B, 1) and ``lengths`` (B,) or a scalar (the current cache
+fill) for decode.  ``decode_step`` writes into the cache it is given
+(see :mod:`.transformer`).  The training loss and the dry-run input
+specs are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from torch import nn
 from repro_torch import device as tdevice
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
+from . import mamba2 as M
 from . import transformer as T
 
 #: Families the port does not run yet, and the ROADMAP item that brings
@@ -30,8 +32,6 @@ from . import transformer as T
 UNPORTED_FAMILIES = {
     "moe": "Queue 1 item 9a (MoE layers)",
     "vlm": "Queue 1 item 9b (VLM embeddings input and M-RoPE positions)",
-    "ssm": "Queue 1 item 9c (Mamba-2 SSM and hybrid stacks)",
-    "hybrid": "Queue 1 item 9c (Mamba-2 SSM and hybrid stacks)",
     "encdec": "Queue 1 item 9d (encoder-decoder stacks)",
 }
 
@@ -42,11 +42,13 @@ def _vocab_pad(v: int, mult: int = 256) -> int:
 
 
 class LMParams(nn.Module):
-    """A dense LM's parameters: ``embed`` (padded vocab, d), ``stack``
-    (one :class:`~.transformer.DecoderLayer` per layer), ``final_norm``,
-    and ``lm_head`` (d, padded vocab) unless the embeddings are tied."""
+    """An LM's parameters: ``embed`` (padded vocab, d), ``stack`` (one
+    :class:`~.transformer.DecoderLayer` or
+    :class:`~.transformer.MambaLayer` per layer, or a hybrid's
+    :class:`~.transformer.HybridStack`), ``final_norm``, and ``lm_head``
+    (d, padded vocab) unless the embeddings are tied."""
 
-    def __init__(self, embed: torch.Tensor, stack: nn.ModuleList,
+    def __init__(self, embed: torch.Tensor, stack: nn.Module,
                  final_norm: L.Norm, lm_head: Optional[torch.Tensor]):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
@@ -62,7 +64,7 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported to "
                 f"PyTorch yet (ROADMAP {UNPORTED_FAMILIES[cfg.family]})")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         self.device = tdevice.resolve(device)
@@ -76,6 +78,7 @@ class Model:
         shape = (self.padded_vocab, cfg.d_model)
         return LMParams(
             torch.empty(shape, dtype=self.dtype, device=dev),
+            T.empty_hybrid(cfg, dev) if cfg.family == "hybrid" else
             T.empty_stack(cfg, cfg.n_layers, dev),
             L.Norm(cfg, cfg.d_model, dev),
             None if cfg.tie_embeddings else
@@ -86,12 +89,14 @@ class Model:
         """Random parameters from ``gen`` (a generator on the model's
         device), with the JAX package's distributions and scales: normal
         embeddings * 0.02, projections * fan_in ** -0.5, zero biases,
-        unit norms."""
+        unit norms; a mamba layer's as :func:`.mamba2.init_mamba2`
+        draws them (its B and C conv taps are zeros)."""
         cfg, dev = self.cfg, self.device
         embed = torch.empty((self.padded_vocab, cfg.d_model),
                             dtype=self.dtype, device=dev)
         L.fill_normal_(embed, 0.02, gen)
-        stack = T.init_stack(cfg, gen, cfg.n_layers, dev)
+        stack = (T.init_hybrid(cfg, gen, dev) if cfg.family == "hybrid"
+                 else T.init_stack(cfg, gen, cfg.n_layers, dev))
         lm_head = None
         if not cfg.tie_embeddings:
             lm_head = torch.empty((cfg.d_model, self.padded_vocab),
@@ -125,14 +130,32 @@ class Model:
     def forward(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], x.shape[0])
-        x = T.stack_forward(self.cfg, params.stack, x, positions)
+        if self.cfg.family == "hybrid":
+            x = T.hybrid_forward(self.cfg, params.stack, x, positions)
+        else:
+            x = T.stack_forward(self.cfg, params.stack, x, positions)
         return self._logits(params, x)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int) -> T.Cache:
         """An empty cache; a sliding-window model gets a ring buffer of
-        the window's size when ``cache_len`` exceeds it."""
+        the window's size when ``cache_len`` exceeds it.  An ``ssm``
+        model's is its layers' zero states (``cache_len`` unused); a
+        ``hybrid`` model's nests the states of its mamba layers, grouped
+        (groups, every, ...), and the shared block's k/v per group."""
         cfg = self.cfg
+        dev = self.device
+        if cfg.family in T.MAMBA_FAMILIES:
+            st = M.init_mamba_state(cfg, batch, self.dtype, dev)
+            if cfg.family == "ssm":
+                return {k: v.new_zeros((cfg.n_layers,) + v.shape)
+                        for k, v in st.items()}
+            groups, every = T.hybrid_groups(cfg)
+            shape = (groups, batch, cfg.n_kv_heads, cache_len, cfg.hd)
+            return {"mamba": {k: v.new_zeros((groups, every) + v.shape)
+                              for k, v in st.items()},
+                    "attn": {k: torch.zeros(shape, dtype=self.dtype,
+                                            device=dev) for k in ("k", "v")}}
         window = cfg.sliding_window
         eff = min(cache_len, window) if window else cache_len
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, eff, cfg.hd)
@@ -143,11 +166,16 @@ class Model:
     def prefill(self, params: LMParams, batch: Dict[str, Any],
                 cache_len: int) -> Tuple[torch.Tensor, T.Cache]:
         """Logits of the last position (B, 1, vocab) and the cache,
-        padded to ``cache_len``."""
+        padded to ``cache_len`` (an ``ssm`` model's cache is its layers'
+        final states, whatever ``cache_len`` is)."""
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], x.shape[0])
-        x, cache = T.stack_prefill(self.cfg, params.stack, x, positions,
-                                   cache_len)
+        if self.cfg.family == "hybrid":
+            x, cache = T.hybrid_prefill(self.cfg, params.stack, x, positions,
+                                        cache_len)
+        else:
+            x, cache = T.stack_prefill(self.cfg, params.stack, x, positions,
+                                       cache_len)
         return self._logits(params, x[:, -1:]), cache
 
     @torch.no_grad()
@@ -156,7 +184,12 @@ class Model:
         """One new token per sequence: tokens (B, 1); lengths (B,) or a
         scalar, the current cache fill.  Writes the cache in place."""
         x = self._embed(params, batch)
-        lengths = torch.as_tensor(batch["lengths"], device=self.device)
-        x, cache = T.stack_decode(self.cfg, params.stack, x, cache,
-                                  lengths.to(torch.int32))
+        lengths = torch.as_tensor(batch["lengths"],
+                                  device=self.device).to(torch.int32)
+        if self.cfg.family == "hybrid":
+            x, cache = T.hybrid_decode(self.cfg, params.stack, x, cache,
+                                       lengths)
+        else:
+            x, cache = T.stack_decode(self.cfg, params.stack, x, cache,
+                                      lengths)
         return self._logits(params, x), cache

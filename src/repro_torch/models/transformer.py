@@ -1,11 +1,15 @@
-"""Dense decoder stacks over the layer library, in PyTorch.
+"""Decoder stacks over the layer library, in PyTorch.
 
-The counterpart of ``repro.models.transformer`` for the dense family: the
-JAX package scans stacked per-layer parameters with ``lax.scan``; here
-the layers are an ``nn.ModuleList`` and the stacks loop over it.
+The counterpart of ``repro.models.transformer`` for the dense, ``ssm``
+and ``hybrid`` families: the JAX package scans stacked per-layer
+parameters with ``lax.scan``; here the layers are an ``nn.ModuleList``
+and the stacks loop over it.
 
 Cache convention, as in the JAX package: every attention layer owns
-``k``/``v`` of shape (L, B, HKV, S, hd); ``lengths`` (B,) or a scalar
+``k``/``v`` of shape (L, B, HKV, S, hd); mamba layers own ``conv_x``,
+``conv_b``, ``conv_c`` (L, B, K-1, C) and ``ssm`` (L, B, H, P, N);
+a hybrid cache is ``{"mamba": <mamba cache, (groups, every, ...)>,
+"attn": <k/v cache, (groups, ...)>}``.  ``lengths`` (B,) or a scalar
 tracks the valid entries, and a decode step writes at position
 ``lengths``.  Unlike the JAX package, which returns a new cache, a decode
 step writes into the cache it is given and returns that same cache: a
@@ -14,15 +18,18 @@ traffic.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
+from . import mamba2 as M
 
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, Any]
+MAMBA_FAMILIES = ("ssm", "hybrid")
 
 
 # ------------------------------------------------------------ cache utils
@@ -57,7 +64,19 @@ class DecoderLayer(nn.Module):
         self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp
 
 
-def empty_decoder_layer(cfg: ModelConfig, device=None) -> DecoderLayer:
+class MambaLayer(nn.Module):
+    """``norm1``, ``mamba``: one layer of the ``ssm`` and ``hybrid``
+    families."""
+
+    def __init__(self, norm1: L.Norm, mamba: M.Mamba2):
+        super().__init__()
+        self.norm1, self.mamba = norm1, mamba
+
+
+def empty_decoder_layer(cfg: ModelConfig, device=None) -> nn.Module:
+    if cfg.family in MAMBA_FAMILIES:
+        return MambaLayer(L.Norm(cfg, cfg.d_model, device),
+                          M.Mamba2(cfg, device))
     return DecoderLayer(L.Norm(cfg, cfg.d_model, device),
                         L.Attention(cfg, device),
                         L.Norm(cfg, cfg.d_model, device),
@@ -65,7 +84,10 @@ def empty_decoder_layer(cfg: ModelConfig, device=None) -> DecoderLayer:
 
 
 def init_decoder_layer(cfg: ModelConfig, gen: torch.Generator,
-                       device=None) -> DecoderLayer:
+                       device=None) -> nn.Module:
+    if cfg.family in MAMBA_FAMILIES:
+        return MambaLayer(L.init_norm(cfg, cfg.d_model, device),
+                          M.init_mamba2(cfg, gen, device))
     return DecoderLayer(L.init_norm(cfg, cfg.d_model, device),
                         L.init_attention(cfg, gen, device),
                         L.init_norm(cfg, cfg.d_model, device),
@@ -119,15 +141,34 @@ def mlp_block(cfg: ModelConfig, p: DecoderLayer,
     return x + L.mlp(cfg, p.mlp, L.apply_norm(cfg, p.norm2, x))
 
 
-def decoder_layer_full(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
+def decoder_layer_full(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
                        positions: torch.Tensor, q_offset: int = 0):
-    """Full-sequence pass of one layer.  Returns (x, (k, v))."""
+    """Full-sequence pass of one layer.  Returns (x, (k, v)), or (x,
+    None) for a mamba layer."""
+    if cfg.family in MAMBA_FAMILIES:
+        h = L.apply_norm(cfg, p.norm1, x)
+        return x + M.mamba2_forward(cfg, p.mamba, h), None
     x, kv = attn_block_full(cfg, p, x, positions, q_offset)
     return mlp_block(cfg, p, x), kv
 
 
-def decoder_layer_decode(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
+def decoder_layer_full_with_state(cfg: ModelConfig, p: MambaLayer,
+                                  x: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, Cache]:
+    """Mamba layer full pass that also returns the final SSM/conv state
+    (the prefill path of ``ssm`` and ``hybrid``)."""
+    h = L.apply_norm(cfg, p.norm1, x)
+    y, state = M.mamba2_forward(cfg, p.mamba, h, return_state=True)
+    return x + y, state
+
+
+def decoder_layer_decode(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
                          cache: Cache, lengths: torch.Tensor):
+    """One-token step of one layer against its cache, written in place."""
+    if cfg.family in MAMBA_FAMILIES:
+        h = L.apply_norm(cfg, p.norm1, x)
+        y, state = M.mamba2_decode_step(cfg, p.mamba, h, cache)
+        return x + y, state
     x, (kc, vc) = attn_block_decode(cfg, p, x, cache["k"], cache["v"],
                                     lengths)
     return mlp_block(cfg, p, x), {"k": kc, "v": vc}
@@ -160,7 +201,15 @@ def stack_prefill(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
                   positions: torch.Tensor, cache_len: int
                   ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence pass returning the populated cache, padded with zeros
-    to ``cache_len`` (which must hold the sequence)."""
+    to ``cache_len`` (which must hold the sequence).  A mamba stack's
+    cache is its layers' final states, whatever ``cache_len`` is."""
+    if cfg.family in MAMBA_FAMILIES:
+        states = []
+        for p in stack:
+            x, st = decoder_layer_full_with_state(cfg, p, x)
+            states.append(st)
+        return x, {k: torch.stack([st[k] for st in states])
+                   for k in states[0]}
     b, s, _ = x.shape
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
@@ -179,5 +228,98 @@ def stack_decode(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Cache]:
     for i, p in enumerate(stack):
         x, _ = decoder_layer_decode(
-            cfg, p, x, {"k": cache["k"][i], "v": cache["v"][i]}, lengths)
+            cfg, p, x, {k: v[i] for k, v in cache.items()}, lengths)
+    return x, cache
+
+
+# ------------------------------------------------------- hybrid (zamba2)
+
+class HybridStack(nn.Module):
+    """``mamba_stack`` (one :class:`MambaLayer` a layer) and
+    ``shared_attn``, ONE dense attention + MLP layer applied after every
+    ``hybrid_attn_every`` mamba layers with its weights shared (zamba2's
+    shared block, acting on the running hidden state as in the JAX
+    package)."""
+
+    def __init__(self, mamba_stack: nn.ModuleList, shared_attn: DecoderLayer):
+        super().__init__()
+        self.mamba_stack, self.shared_attn = mamba_stack, shared_attn
+
+
+def _as_dense(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, family="dense")
+
+
+def init_hybrid(cfg: ModelConfig, gen: torch.Generator,
+                device=None) -> HybridStack:
+    return HybridStack(init_stack(cfg, gen, cfg.n_layers, device),
+                       init_decoder_layer(_as_dense(cfg), gen, device))
+
+
+def empty_hybrid(cfg: ModelConfig, device=None) -> HybridStack:
+    return HybridStack(empty_stack(cfg, cfg.n_layers, device),
+                       empty_decoder_layer(_as_dense(cfg), device))
+
+
+def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, every): the mamba layers between two applications of the
+    shared block, and how many such groups there are."""
+    every = cfg.hybrid_attn_every or cfg.n_layers
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group "
+                         f"by hybrid_attn_every {every}")
+    return cfg.n_layers // every, every
+
+
+def _group(cfg: ModelConfig, p: HybridStack, gi: int) -> nn.ModuleList:
+    _, every = hybrid_groups(cfg)
+    return p.mamba_stack[gi * every:(gi + 1) * every]
+
+
+def hybrid_forward(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    dense_cfg = _as_dense(cfg)
+    for gi in range(hybrid_groups(cfg)[0]):
+        x = stack_forward(cfg, _group(cfg, p, gi), x, positions)
+        x, _kv = decoder_layer_full(dense_cfg, p.shared_attn, x, positions)
+    return x
+
+
+def hybrid_prefill(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
+                   positions: torch.Tensor, cache_len: int
+                   ) -> Tuple[torch.Tensor, Cache]:
+    """Full pass returning ``{"mamba": states (groups, every, ...),
+    "attn": k/v (groups, B, HKV, cache_len, hd)}``."""
+    b, s, _ = x.shape
+    if cache_len < s:
+        raise ValueError(f"cache_len {cache_len} is shorter than the "
+                         f"{s}-token sequence")
+    dense_cfg = _as_dense(cfg)
+    groups, _ = hybrid_groups(cfg)
+    shape = (groups, b, cfg.n_kv_heads, cache_len, cfg.hd)
+    attn = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
+    states = []
+    for gi in range(groups):
+        x, st = stack_prefill(cfg, _group(cfg, p, gi), x, positions,
+                              cache_len)
+        states.append(st)
+        x, (k, v) = decoder_layer_full(dense_cfg, p.shared_attn, x,
+                                       positions)
+        attn["k"][gi, :, :, :s] = k
+        attn["v"][gi, :, :, :s] = v
+    mamba = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    return x, {"mamba": mamba, "attn": attn}
+
+
+def hybrid_decode(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
+                  cache: Cache, lengths: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Cache]:
+    dense_cfg = _as_dense(cfg)
+    for gi in range(hybrid_groups(cfg)[0]):
+        x, _ = stack_decode(cfg, _group(cfg, p, gi), x,
+                            {k: v[gi] for k, v in cache["mamba"].items()},
+                            lengths)
+        x, _ = decoder_layer_decode(
+            dense_cfg, p.shared_attn, x,
+            {k: v[gi] for k, v in cache["attn"].items()}, lengths)
     return x, cache

@@ -16,7 +16,8 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.core.parser import parse
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.core.synthesis import CNN2Gate
-from repro_torch.kernels import _build, flash_attention, ops, qconv, qgemm
+from repro_torch.kernels import (_build, flash_attention, ops, qconv, qgemm,
+                                 ssd_scan)
 from repro_torch.models import cnn
 from repro_torch.models.model import Model
 
@@ -34,7 +35,7 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -44,7 +45,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    names = out.stdout.split()
+    assert len(names) >= 16
+    assert {"repro_torch.kernels.ssd_scan",
+            "repro_torch.models.mamba2"} <= set(names)
 
 
 _FORBIDDEN = re.compile(
@@ -86,8 +90,8 @@ def _meta(shape, dtype=torch.int8):
 
 def test_no_plain_fallback_off_the_cpu():
     """A tensor that is not on the CPU never reaches a plain version:
-    every wrapper, dense, depthwise, grouped and attention, insists on
-    CUDA."""
+    every wrapper, dense, depthwise, grouped, attention and SSD scan,
+    insists on CUDA."""
     x, w = _meta((1, 6, 6, 8)), _meta((3, 3, 8, 8))
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         qconv.qconv2d(x, w, None)
@@ -103,6 +107,13 @@ def test_no_plain_fallback_off_the_cpu():
         ops.flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         flash_attention.flash_attention(q, kv, kv, window=4, q_offset=3)
+    x, bc = _meta((1, 3, 2, 16), torch.bfloat16), _meta((1, 3, 1, 16),
+                                                       torch.bfloat16)
+    dt, a = _meta((1, 3, 2), torch.float32), _meta((2,), torch.float32)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        ops.ssd_scan(x, dt, a, bc, bc)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        ssd_scan.ssd_scan(x, dt, a, bc, bc, return_state=True)
 
 
 def test_launch_counters_count_kernel_launches_only():
@@ -116,12 +127,13 @@ def test_launch_counters_count_kernel_launches_only():
     assert ops.launch_counts() == {"qgemm": 0, "qconv2d": 0,
                                    "qconv2d_into": 0, "qdwconv2d": 0,
                                    "qdwconv2d_into": 0, "qgconv2d": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_kernel_sources_and_build_key():
     srcs = _build.sources()
-    assert set(srcs) == {"qgemm", "qconv", "qdwconv", "flash_attention"}
+    assert set(srcs) == {"qgemm", "qconv", "qdwconv", "flash_attention",
+                         "ssd_scan"}
     for name in srcs:
         lib = _build._lib_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -136,7 +148,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     entry point: ``c_void_p`` for a pointer, ``c_float`` for a float,
     ``c_int`` for an int."""
     sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES,
-                flash_attention=flash_attention._SIGNATURES)
+                flash_attention=flash_attention._SIGNATURES,
+                ssd_scan=ssd_scan._SIGNATURES)
     assert set(sigs) == set(_build.sources())
     for name, entries in sigs.items():
         src = _build.sources()[name].read_text()

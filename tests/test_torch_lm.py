@@ -80,7 +80,6 @@ def test_config_registry_matches(name):
 
 @pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
                                   "llama4-scout-17b-a16e", "qwen2-vl-2b",
-                                  "mamba2-2.7b", "zamba2-2.7b",
                                   "whisper-large-v3"])
 def test_model_refuses_the_unported_families(name):
     cfg = t_configs.get_smoke(name)
