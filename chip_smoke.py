@@ -27,10 +27,15 @@ Six phases, each printing one JSON line per check:
    224x224), each fused and unfused, per-tensor and per-channel: fused
    == unfused and kernel == plain;
 5. lm, the dense-LM serving path in bf16 with random weights from a
-   seed: the flash-attention kernel held against its plain version
-   (float32 within 2e-5, bf16 within one bf16 ulp plus 2e-6) at
-   qwen2-1.5b's and h2o-danube-3-4b's prefill shapes, on rows that see
-   no key, and over a seeded sweep; qwen2-1.5b at full width (28 layers,
+   seed: the built flash library's SASS must hold HGMMA (wgmma) and
+   UTMALDG (TMA loads); the flash-attention kernel held against its
+   plain version (float32 within 2e-5, bf16 within one bf16 ulp plus
+   2e-6) at qwen2-1.5b's and h2o-danube-3-4b's prefill shapes, on rows
+   that see no key, over a seeded sweep, and at the bf16 kernel's tile
+   edges (Sq 4095 and 1, Skv 100, D 64, 80, 120 and 77, a GQA 6:1
+   chunked prefill); at qwen2-1.5b's shape no farther from a float64 run
+   than 1.5x the plain version and within its bf16 allowance of it;
+   qwen2-1.5b at full width (28 layers,
    d_model 1536, GQA 12:2, 1.54 B parameters): ``Model.prefill`` of
    2 x 4096 tokens, each run launching the kernel 28 times, every call
    agreeing with the plain version and the logits with the plain path's;
@@ -62,8 +67,9 @@ Six phases, each printing one JSON line per check:
    kernel's time per launch beside the plain version's and the bound.
 
 Before the last line it prints the kernels' record (launches, error,
-times, bounds) as one JSON object, then the card's name and power limit
-from ``nvidia-smi``.  The last line is
+times, bounds; for flash_attention also its design, the SASS counts and
+nvcc's registers, shared memory and spills) as one JSON object, then
+the card's name and power limit from ``nvidia-smi``.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check exits non-zero without it, as does a run with no CUDA
 or outside a checkout of the repository.
@@ -74,6 +80,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -966,6 +974,27 @@ def flash_cases(rng):
                       ("f32", "bf16")[i % 2], causal, window,
                       int(rng.integers(0, 500)) if rng.random() < 0.6
                       else 0))
+    # the bf16 kernel's 128-row query and 128-key tiles at their edges,
+    # its TMA boxes at narrower and zero-filled widths, its plain-load
+    # producer (D not a multiple of 8) and a chunked-prefill shape
+    cases += [
+        ("bf16_sq4095_ragged_query_tile", 1, 4, 2, 4095, 4095, 128, "bf16",
+         True, None, 0),
+        ("bf16_sq1_one_row_query_tile", 2, 12, 2, 1, 4097, 128, "bf16", True,
+         None, 4096),
+        ("bf16_skv100_under_one_key_tile", 2, 4, 2, 100, 100, 128, "bf16",
+         True, None, 0),
+        ("bf16_d64_narrow_box", 1, 8, 2, 1000, 1000, 64, "bf16", True, None,
+         0),
+        ("bf16_d80_zero_filled_box", 1, 8, 1, 700, 900, 80, "bf16", True,
+         None, 200),
+        ("bf16_d120_zero_filled_box", 1, 8, 2, 1000, 1000, 120, "bf16", True,
+         None, 0),
+        ("bf16_d77_plain_load_producer", 1, 6, 2, 600, 700, 77, "bf16", True,
+         None, 100),
+        ("bf16_gqa6_chunked_prefill", 2, 12, 2, 1024, 4096, 128, "bf16", True,
+         None, 3072),
+    ]
     return cases
 
 
@@ -1000,6 +1029,88 @@ def flash_kernel_checks(torch, dev) -> None:
     check("lm", "flash_attention_random_sweep_40", not bad, failures=bad[:5])
     check("lm", "flash_attention_cases_include_blind_rows", blind_rows > 0,
           blind_rows=blind_rows)
+    flash_float64_distance(torch, dev, gen)
+
+
+def attention_float64(torch, q, k, v):
+    """Causal GQA attention of q (B, H, S, D) over k, v (B, HKV, S, D) in
+    float64, one KV head's group of query heads at a time."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    future = torch.ones((s, s), dtype=torch.bool, device=q.device).triu(1)
+    for i in range(b):
+        for j in range(hkv):
+            sc = (q[i, j * g:(j + 1) * g].double()
+                  @ k[i, j].double().T) * d ** -0.5
+            sc.masked_fill_(future, float("-inf"))
+            out[i, j * g:(j + 1) * g] = torch.softmax(sc, -1) @ v[i, j].double()
+    return out
+
+
+def flash_float64_distance(torch, dev, gen) -> None:
+    """The kernel's and the plain version's bf16 outputs against a float64
+    run of the same bf16 inputs at qwen2-1.5b's prefill shape.  The
+    kernel's largest absolute distance from float64 must be at most 1.5x
+    the plain version's, and every kernel output must lie within its bf16
+    allowance (one ulp plus BF16_ATOL) of the float64 value.  The first
+    is set by the outputs' rounding (half an ulp of the largest, for
+    both); the second guards the split P: a P multiplied as one bf16 is
+    ~240x its allowance away where outputs cancel towards 0 (the CPU
+    model in tests/test_torch_flash.py), hi + lo about 0.9x (the plain
+    version, rounding a float32 value once, about 0.5x)."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((2, 12, 4096, 128), generator=gen, device=dev).bfloat16()
+    k = torch.randn((2, 2, 4096, 128), generator=gen, device=dev).bfloat16()
+    v = torch.randn((2, 2, 4096, 128), generator=gen, device=dev).bfloat16()
+    yk = fa.flash_attention(q, k, v)
+    yp = fa.flash_attention_plain(q, k, v)
+    y64 = attention_float64(torch, q, k, v)
+    torch.cuda.synchronize()
+    allowance = bf16_ulp(torch, y64) + BF16_ATOL
+    d = {}
+    for tag, y in (("kernel", yk), ("plain", yp)):
+        dist = (y.double() - y64).abs()
+        d[f"abs_{tag}"] = dist.max().item()
+        d[f"share_of_allowance_{tag}"] = (dist / allowance).max().item()
+    check("lm", "flash_attention_float64_distance",
+          d["abs_kernel"] <= 1.5 * d["abs_plain"]
+          and d["share_of_allowance_kernel"] <= 1,
+          y_abs_max=y64.abs().max().item(), **d)
+
+
+def flash_build_record(torch) -> dict:
+    """The built flash library's tensor-core and TMA instructions
+    (``cuobjdump -sass``: HGMMA is wgmma, UTMALDG a TMA load) and each
+    kernel's registers, static shared memory and spills from nvcc's
+    ``-Xptxas -v`` log; checks that the bf16 path holds both."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(_build._lib_path(
+        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    sass = {op: len(re.findall(rf"\b{op}\b", out.stdout))
+            for op in ("HGMMA", "UTMALDG")}
+    check("lm", "flash_attention_sass_holds_hgmma_and_utmaldg",
+          out.returncode == 0 and all(sass.values()), **sass,
+          cuobjdump_rc=out.returncode)
+    usage, fn = {}, None
+    for ln in _build.build_log("flash_attention").splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      ln)
+        if m:
+            inst = re.search(r"flash_f32_kernelILi(\d+)E", m.group(1))
+            fn = ("flash_bf16_kernel" if "flash_bf16_kernel" in m.group(1)
+                  else f"flash_f32_kernel<{inst.group(1)}>" if inst else None)
+            if fn:
+                usage.setdefault(fn, {})
+        for key, pattern in (("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pattern, ln)
+            if m and fn:
+                usage[fn][key] = int(m.group(1))
+    return dict(sass=sass, ptxas=usage)
 
 
 @contextlib.contextmanager
@@ -1273,6 +1384,7 @@ def phase_lm(torch, dev, records):
 
     rng = np.random.default_rng(SEED)
     with tdevice.full_float32():
+        build = flash_build_record(torch)
         flash_kernel_checks(torch, dev)
         cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
                                   attention_impl="flash")
@@ -1285,6 +1397,8 @@ def phase_lm(torch, dev, records):
         serve_path(torch, model, params)
         records["flash_attention"] = flash_record(torch, dev, calls,
                                                   launches)
+        records["flash_attention"]["extra"] = dict(
+            design="bf16 wgmma + TMA; float32 CUDA cores", **build)
         del model, params, calls
         torch.cuda.empty_cache()
 
@@ -1643,7 +1757,8 @@ def main() -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"],
+                            **r.get("extra", {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

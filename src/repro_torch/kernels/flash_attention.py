@@ -5,8 +5,13 @@
 :func:`flash_attention_plain` on a CPU tensor.  It replaces the Pallas
 kernel ``src/repro/kernels/flash_attention.py:flash_attention``.  On the
 H100 causal prefill is bound by operations (about 0.1 TFLOP a layer at
-qwen2-1.5b's shapes against 59 MB of operands); the first kernel computes
-in float32 on the CUDA cores (see the note at the top of the source).
+qwen2-1.5b's shapes against 59 MB of operands).  A bfloat16 call runs on
+the tensor cores: a producer warp feeds 128-key K/V tiles through a
+two-stage ring of TMA copies, and two warpgroups take 64 query rows each
+with ``wgmma`` for Q·Kᵀ and for P·V, P split into two bf16 halves so that
+it keeps the plain version's float32 weights within one bf16 ulp.  A
+float32 call runs the first kernel of the port, on the CUDA cores.  The
+note at the top of the source gives both designs.
 
 Both versions compute what the TPU kernel computes, including its value
 for a row that sees no key: the finite ``-1e30`` sentinel makes every
@@ -24,7 +29,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-#: Widest head the kernel's register tiles hold.
+#: Widest head the kernels' tiles hold.
 MAX_HEAD_DIM = 128
 #: Launches of the kernel (plain-version calls are not counted).
 launches = {"flash_attention": 0}

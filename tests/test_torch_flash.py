@@ -11,7 +11,8 @@ only where the float32 values straddle a rounding boundary).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``; here its wrapper's operand checks run on ``meta``
-tensors.
+tensors, and a plain-torch model of its bf16 rounding (P multiplied into
+V as two bf16 halves) is held to chip_smoke's bf16 allowance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -151,3 +152,81 @@ def test_wrapper_checks_operands_before_the_device(q, k, v, kw, exc, match):
     with pytest.raises(exc, match=match):
         t_flash.flash_attention(q, k, v, **kw)
     assert t_flash.launches["flash_attention"] == 0
+
+
+def _bf16_kernel_model(q, k, v, *, split, causal=True, q_offset=0, bk=128):
+    """The bf16 CUDA kernel's rounding in plain torch: scores of bf16 q and
+    k summed in float32 (wgmma's products are exact), the online softmax
+    in float32 over 128-key tiles, and P·V with P rounded to bf16, either
+    once (``split=False``) or as hi = bf16(p) plus lo = bf16(p - hi)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    pad = -skv % bk
+    kp = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    qf = q.float().reshape(b, hkv, h // hkv, sq, d)
+    qpos = q_offset + torch.arange(sq)[:, None]
+    m = torch.full((b, hkv, h // hkv, sq, 1), t_flash.NEG_INF)
+    l_ = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, h // hkv, sq, d))
+    for k0 in range(0, skv + pad, bk):
+        kb, vb = kp[:, :, None, k0:k0 + bk], vp[:, :, None, k0:k0 + bk]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * d ** -0.5
+        kpos = k0 + torch.arange(bk)[None, :]
+        mask = (kpos < skv) & ((kpos <= qpos) if causal else True)
+        s = torch.where(mask, s, torch.full_like(s, t_flash.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l_ = l_ * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = torch.matmul(hi, vb)
+        if split:
+            pv = pv + torch.matmul((p - hi).bfloat16().float(), vb)
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l_).reshape(b, h, sq, d).bfloat16()
+
+
+def _share_of_bf16_allowance(got, want):
+    """chip_smoke's bf16 rule: the largest |got - want| as a share of one
+    bf16 ulp of ``want`` plus 2e-6 (at most 1 passes)."""
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return ((got.float() - want).abs() / (ulp + 2e-6)).max().item()
+
+
+# (B, H, HKV, Sq, Skv, D, causal, q_offset)
+SPLIT_CASES = [(1, 2, 1, 256, 256, 128, True, 0),
+               (1, 4, 2, 200, 330, 64, True, 130),
+               (2, 2, 1, 130, 130, 120, False, 0)]
+
+
+def _split_inputs(seed, b, h, hkv, sq, skv, d):
+    q, k, v = _inputs(b, h, hkv, sq, skv, d, seed=seed)
+    return tuple(torch.from_numpy(a).bfloat16() for a in (q, k, v))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_p_stays_within_one_bf16_ulp_of_the_plain_version(seed):
+    for b, h, hkv, sq, skv, d, causal, off in SPLIT_CASES:
+        q, k, v = _split_inputs(seed, b, h, hkv, sq, skv, d)
+        want = t_flash.flash_attention_plain(q, k, v, causal=causal,
+                                             q_offset=off)
+        got = _bf16_kernel_model(q, k, v, split=True, causal=causal,
+                                 q_offset=off)
+        assert _share_of_bf16_allowance(got, want) <= 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_one_bf16_p_misses_the_plain_versions_allowance(seed):
+    """Why the kernel splits P: rounded once to bf16, P carries 2^-9 of
+    relative error into outputs that cancel towards 0, far beyond one ulp
+    + 2e-6 of them."""
+    for b, h, hkv, sq, skv, d, causal, off in SPLIT_CASES:
+        q, k, v = _split_inputs(seed, b, h, hkv, sq, skv, d)
+        want = t_flash.flash_attention_plain(q, k, v, causal=causal,
+                                             q_offset=off)
+        got = _bf16_kernel_model(q, k, v, split=False, causal=causal,
+                                 q_offset=off)
+        assert _share_of_bf16_allowance(got, want) > 1
