@@ -1080,28 +1080,27 @@ def flash_float64_distance(torch, dev, gen) -> None:
           y_abs_max=y64.abs().max().item(), **d)
 
 
-def flash_build_record(torch) -> dict:
-    """The built flash library's tensor-core and TMA instructions
-    (``cuobjdump -sass``: HGMMA is wgmma, UTMALDG a TMA load) and each
-    kernel's registers, static shared memory and spills from nvcc's
-    ``-Xptxas -v`` log; checks that the bf16 path holds both."""
+def build_record(torch, phase: str, lib: str, label) -> dict:
+    """A built library's tensor-core and TMA instructions (``cuobjdump
+    -sass``: HGMMA is wgmma, UTMALDG a TMA load) and each kernel's
+    registers, static shared memory and spills from nvcc's ``-Xptxas -v``
+    log, keyed by ``label(mangled name)`` (None: not recorded); checks
+    that the library holds both instructions."""
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(_build._lib_path(
-        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    out = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                         capture_output=True, text=True, timeout=300)
     sass = {op: len(re.findall(rf"\b{op}\b", out.stdout))
             for op in ("HGMMA", "UTMALDG")}
-    check("lm", "flash_attention_sass_holds_hgmma_and_utmaldg",
+    check(phase, f"{lib}_sass_holds_hgmma_and_utmaldg",
           out.returncode == 0 and all(sass.values()), **sass,
           cuobjdump_rc=out.returncode)
     usage, fn = {}, None
-    for ln in _build.build_log("flash_attention").splitlines():
+    for ln in _build.build_log(lib).splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
                       ln)
         if m:
-            inst = re.search(r"flash_f32_kernelILi(\d+)E", m.group(1))
-            fn = ("flash_bf16_kernel" if "flash_bf16_kernel" in m.group(1)
-                  else f"flash_f32_kernel<{inst.group(1)}>" if inst else None)
+            fn = label(m.group(1))
             if fn:
                 usage.setdefault(fn, {})
         for key, pattern in (("spill_store_bytes", r"(\d+) bytes spill st"),
@@ -1111,6 +1110,24 @@ def flash_build_record(torch) -> dict:
             if m and fn:
                 usage[fn][key] = int(m.group(1))
     return dict(sass=sass, ptxas=usage)
+
+
+def flash_label(mangled: str):
+    if "flash_bf16_kernel" in mangled:
+        return "flash_bf16_kernel"
+    inst = re.search(r"flash_f32_kernelILi(\d+)E", mangled)
+    return f"flash_f32_kernel<{inst.group(1)}>" if inst else None
+
+
+def ssd_label(mangled: str):
+    for name in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"):
+        if name in mangled:
+            return name
+    inst = re.search(r"ssd_kernelI(13__nv_bfloat16|f)Li(\d+)E", mangled)
+    if inst:
+        kind = "float" if inst.group(1) == "f" else "bf16"
+        return f"ssd_kernel<{kind}, {inst.group(2)}>"
+    return None
 
 
 @contextlib.contextmanager
@@ -1384,7 +1401,7 @@ def phase_lm(torch, dev, records):
 
     rng = np.random.default_rng(SEED)
     with tdevice.full_float32():
-        build = flash_build_record(torch)
+        build = build_record(torch, "lm", "flash_attention", flash_label)
         flash_kernel_checks(torch, dev)
         cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
                                   attention_impl="flash")
@@ -1540,22 +1557,73 @@ def ssd_inputs(torch, dev, gen, b, length, h, p, g, n, dtype, with_d, init):
             randn((b, h, p, n), 1.0) if init else None)
 
 
+def ssd_edge_cases():
+    """bf16 cases at the edges of the chunk-parallel kernel's tiles, run
+    with that path forced at every L (:func:`chunked_path_forced`): L
+    around 64 and 256 and a ragged 4096 + 17, chunks 16 and 256, N 16, 64,
+    77, 128, P 64, 80, 100, G = 2 with 3 heads a group, and an initial
+    state that ``state_out`` overwrites in place (the final state aliasing
+    it).  Same fields as :func:`ssd_cases`, plus the alias flag."""
+    cases = [(f"bf16_L{length}", 2, length, 8, 64, 1, 128, "bf16", 256,
+              True, True, True, False)
+             for length in (1, 63, 64, 65, 255, 257)]
+    cases += [
+        ("bf16_L4113", 1, 4113, 16, 64, 1, 128, "bf16", 256, True, True,
+         True, False),
+        ("bf16_chunk16", 1, 1000, 8, 64, 1, 128, "bf16", 16, True, True,
+         True, False),
+        ("bf16_N16", 1, 700, 8, 64, 1, 16, "bf16", 256, False, True, True,
+         False),
+        ("bf16_N64", 1, 700, 8, 64, 1, 64, "bf16", 256, True, False, True,
+         False),
+        ("bf16_N77", 1, 700, 8, 64, 1, 77, "bf16", 256, True, True, True,
+         False),
+        ("bf16_P80", 1, 600, 8, 80, 1, 128, "bf16", 256, True, True, True,
+         False),
+        ("bf16_P100", 1, 600, 8, 100, 1, 128, "bf16", 128, True, True, True,
+         False),
+        ("bf16_groups2_3heads", 2, 500, 6, 64, 2, 128, "bf16", 256, True,
+         True, True, False),
+        ("bf16_state_out_aliases_init", 2, 700, 16, 64, 1, 128, "bf16", 256,
+         True, True, True, True),
+    ]
+    return cases
+
+
+@contextlib.contextmanager
+def chunked_path_forced():
+    """Every bf16 SSD call takes the chunk-parallel path, whatever L."""
+    from repro_torch.kernels import ssd_scan as ssd
+    kept = ssd.CHUNKED_MIN_LEN
+    ssd.CHUNKED_MIN_LEN = 1
+    try:
+        yield
+    finally:
+        ssd.CHUNKED_MIN_LEN = kept
+
+
 def ssd_kernel_checks(torch, dev) -> None:
     from repro_torch.kernels import ssd_scan as ssd
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     bad = []
-    for (name, b, length, h, p, g, n, dt, chunk, with_d, init,
-         ret) in ssd_cases(rng):
+    cases = ([c + (False, False) for c in ssd_cases(rng)]
+             + [c[:-1] + (True, c[-1]) for c in ssd_edge_cases()])
+    for (name, b, length, h, p, g, n, dt, chunk, with_d, init, ret,
+         forced, alias) in cases:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, dtv, a, bm, cm, d, s0 = ssd_inputs(torch, dev, gen, b, length, h,
                                               p, g, n, dtype, with_d, init)
         kw = dict(chunk=chunk, init_state=s0, return_state=ret)
-        out = ssd.ssd_scan(x, dtv, a, bm, cm, d, **kw)
         ref = ssd.ssd_scan_plain(x, dtv, a, bm, cm, d, **kw)
+        with chunked_path_forced() if forced else contextlib.nullcontext():
+            out = ssd.ssd_scan(x, dtv, a, bm, cm, d, **kw,
+                               state_out=s0 if alias else None)
         torch.cuda.synchronize()
         ok, err, share = checked_ssd_call(torch, out, ref)
+        if alias:
+            ok = ok and out[1] is s0
         shape = [b, length, h, p, g, n]
         if name.startswith("sweep"):
             if not ok:
@@ -1565,9 +1633,12 @@ def ssd_kernel_checks(torch, dev) -> None:
             continue
         check("ssm", f"ssd_scan_{name}", ok, dtype=dt, shape=shape,
               chunk=chunk, d=with_d, init_state=init, return_state=ret,
+              chunked_path_forced=forced, state_out_aliases_init=alias,
               max_abs_err=err, max_share_of_tolerance=share)
     check("ssm", "ssd_scan_random_sweep_24", not bad, failures=bad[:5])
     ssd_float64_distance(torch, dev, gen)
+    ssd_bf16_float64_distance(torch, dev, gen)
+    ssd_path_times(torch, dev, gen)
 
 
 def ssd_float64_distance(torch, dev, gen) -> None:
@@ -1593,6 +1664,71 @@ def ssd_float64_distance(torch, dev, gen) -> None:
           d["y_kernel"] <= 1.5 * d["y_plain"]
           and d["state_kernel"] <= 1.5 * d["state_plain"],
           y_abs_max=y64.abs().max().item(), **d)
+
+
+def ssd_bf16_float64_distance(torch, dev, gen) -> None:
+    """The kernel's and the plain version's bf16 y (and float32 final
+    state) against the plain version run in float64 on the same bf16
+    inputs, at mamba2-2.7b's prefill shape: the kernel's largest distance
+    from float64 must be at most 1.5x the plain version's, and every
+    kernel output within its allowance of the float64 value (SSD_F32_TOL
+    plus one bf16 ulp for y).  The second guards the split float32
+    factors: one bf16 rounding of any of them is 2-17x that allowance away
+    from the plain version (the CPU model in tests/test_torch_ssd.py)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dtv, a, bm, cm, _, _ = ssd_inputs(torch, dev, gen, 2, 4096, 80, 64, 1,
+                                         128, torch.bfloat16, False, False)
+    kw = dict(chunk=256, return_state=True)
+    yk, sk = ssd.ssd_scan(x, dtv, a, bm, cm, **kw)
+    yp, sp = ssd.ssd_scan_plain(x, dtv, a, bm, cm, **kw)
+    y64, s64 = ssd.ssd_scan_plain(*(t.double() for t in (x, dtv, a, bm, cm)),
+                                  **kw)
+    torch.cuda.synchronize()
+    d = {}
+    for part, want, ulp in (("y", y64, True), ("state", s64, False)):
+        allowance = SSD_F32_TOL[0] + SSD_F32_TOL[1] * want.abs()
+        if ulp:
+            allowance = allowance + bf16_ulp(torch, want)
+        for tag, got in (("kernel", yk if ulp else sk),
+                         ("plain", yp if ulp else sp)):
+            dist = (got.double() - want).abs()
+            d[f"{part}_{tag}"] = dist.max().item()
+            d[f"{part}_share_of_allowance_{tag}"] = (
+                dist / allowance).max().item()
+    check("ssm", "ssd_scan_bf16_float64_distance",
+          d["y_kernel"] <= 1.5 * d["y_plain"]
+          and d["state_kernel"] <= 1.5 * d["state_plain"]
+          and d["y_share_of_allowance_kernel"] <= 1
+          and d["state_share_of_allowance_kernel"] <= 1,
+          y_abs_max=y64.abs().max().item(), **d)
+
+
+def ssd_path_times(torch, dev, gen) -> None:
+    """Device ms of one bf16 call at mamba2-2.7b's widths (batch 2, 80
+    heads of 64, N 128, chunk 256, from a state) on each path, the
+    single-launch kernel and the chunk-parallel one, over L: where the
+    second starts to win sets ``CHUNKED_MIN_LEN``."""
+    from repro_torch.kernels import ssd_scan as ssd
+    rows = []
+    for length in (1, 16, 32, 64, 128, 256, 1024):
+        x, dtv, a, bm, cm, _, s0 = ssd_inputs(torch, dev, gen, 2, length, 80,
+                                              64, 1, 128, torch.bfloat16,
+                                              False, True)
+        kw = dict(chunk=256, init_state=s0, return_state=True)
+        kept = ssd.CHUNKED_MIN_LEN
+        row = dict(L=length, default="chunked" if length >= kept
+                   else "single_launch")
+        for tag, threshold in (("single_launch_ms", 1 << 30),
+                               ("chunked_ms", 1)):
+            ssd.CHUNKED_MIN_LEN = threshold
+            try:
+                row[tag] = time_ms(torch, lambda: ssd.ssd_scan(
+                    x, dtv, a, bm, cm, **kw))
+            finally:
+                ssd.CHUNKED_MIN_LEN = kept
+        rows.append(row)
+    emit(phase="ssm", what="ssd_scan_path_times", chunked_min_len=kept,
+         rows=rows)
 
 
 def fill_conv_bc(torch, params) -> None:
@@ -1638,6 +1774,18 @@ def ssd_record(torch, dev, calls, launches, phase: str = "ssm") -> dict:
                 library_ms=None)
 
 
+def ssd_decode_ms(torch, dev) -> float:
+    """Device ms of one bf16 SSD call at mamba2-2.7b's decode shape (batch
+    2, L = 1, from a state), as the decode step launches it."""
+    from repro_torch.kernels import ssd_scan as ssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x, dtv, a, bm, cm, _, s0 = ssd_inputs(torch, dev, gen, 2, 1, 80, 64, 1,
+                                          128, torch.bfloat16, False, True)
+    return time_ms(torch, lambda: ssd.ssd_scan(
+        x, dtv, a, bm, cm, chunk=256, init_state=s0, return_state=True))
+
+
 def ssd_term_check(torch, calls, tag: str) -> None:
     """The SSD output of the first layer is not 0 (it would be with the
     reference's zero ``conv_b``/``conv_c``)."""
@@ -1659,6 +1807,7 @@ def phase_ssm(torch, dev, records):
 
     rng = np.random.default_rng(SEED + 6)
     with tdevice.full_float32():
+        build = build_record(torch, "ssm", "ssd_scan", ssd_label)
         ssd_kernel_checks(torch, dev)
         cfg = configs.get("mamba2-2.7b")
         batch = {"tokens": torch.as_tensor(
@@ -1673,6 +1822,12 @@ def phase_ssm(torch, dev, records):
         serve_path(torch, model, params, per_call={"ssd_scan": cfg.n_layers},
                    phase="ssm")
         records["ssd_scan"] = ssd_record(torch, dev, calls, launches)
+        records["ssd_scan"]["extra"] = dict(
+            design="bf16 chunk-parallel wgmma + TMA (3 launches) from "
+                   "CHUNKED_MIN_LEN; float32 and bf16 decode CUDA cores",
+            decode_ms_per_launch=ssd_decode_ms(torch, dev),
+            prefill_ms_per_launch=records["ssd_scan"]["ms"]
+            / records["ssd_scan"]["calls_timed"], **build)
         del model, params, calls
         torch.cuda.empty_cache()
 

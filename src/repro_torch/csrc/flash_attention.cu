@@ -89,6 +89,8 @@
 #include <cstdint>
 #include <cstring>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -309,6 +311,8 @@ int dispatch(const FlashArgs& a, int b, cudaStream_t st) {
 
 namespace hopper {
 
+using namespace sm90;
+
 constexpr int kBQ = 128;                 // query rows of a block
 constexpr int kBK = 128;                 // keys of a KV tile
 constexpr int kBox = 64;                 // bf16 columns of one 128-byte box
@@ -326,131 +330,6 @@ constexpr size_t kSmemBytes = (1 + 2 * kStages) * kTileBytes + 1024;
 // mbarriers: Q full, K full x2, V full x2, K empty x2, V empty x2
 enum { kBarQ = 0, kBarK = 1, kBarV = 3, kBarKFree = 5, kBarVFree = 7,
        kBars = 9 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-// A wait that lasts more than about ten seconds is a deadlock: it traps,
-// so that the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// One box of a 3-D map, {c0, c1, c2} innermost first, into shared memory;
-// completes `bytes` of the barrier's transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor for the 128-byte swizzle: start
-// address, leading and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accesses of wgmma's registers across the
-// points where the asynchronous product reads or writes them.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define WG_D64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define WG_F16(i) WG_F4(i), WG_F4(i + 4), WG_F4(i + 8), WG_F4(i + 12)
-#define WG_F64 WG_F16(0), WG_F16(16), WG_F16(32), WG_F16(48)
-
-// d (64 x 128, float32) (+)= A (64 x 16) . B (16 x 128), A and B bf16 in
-// shared memory, both K-major; d is overwritten when `accumulate` is 0.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
-                                         uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WG_F64
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 x 128, float32) (+)= A (64 x 16, bf16 pairs in registers, the
-// accumulator's row layout) . B (16 x 128, bf16 in shared memory,
-// MN-major: the transpose bit); d is overwritten when `accumulate` is 0.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : WG_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
-}
-
-#undef WG_D64
-#undef WG_F4
-#undef WG_F16
-#undef WG_F64
 
 // Byte offset of element (r, c) of a 128 x 128 tile in the layout TMA's
 // 128-byte swizzle writes: two boxes of 64 columns, 128-byte rows, the
@@ -474,11 +353,6 @@ __device__ __forceinline__ void fill_tile(uint8_t* tile,
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncwarp();
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -727,52 +601,18 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime, so that the
-// library links nothing but the runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 3-D map of a contiguous (planes, rows, d) bf16 tensor, read in boxes
 // of 64 columns x 128 rows x 1 plane with the 128-byte swizzle; elements
 // outside the tensor read as zero.
 int encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
                int planes) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(planes)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(d) * 2 * rows};
   const cuuint32_t box[3] = {kBox, kBK, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_bf16_map(map, ptr, 3, dims, strides, box);
 }
 
 int launch(const FlashArgs& a, int b, cudaStream_t st) {

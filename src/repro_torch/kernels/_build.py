@@ -101,14 +101,17 @@ def build_log(name: str) -> str:
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed.
     ``signatures`` maps each C entry point to its ``argtypes`` (pointers
-    and the stream as ``c_void_p``); every entry returns ``int``."""
+    and the stream as ``c_void_p``), which returns ``int``, or to a pair
+    ``(argtypes, restype)``."""
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in signatures.items():
+        for fn, sig in signatures.items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (
+                sig, ctypes.c_int)
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
 

@@ -238,3 +238,63 @@ def test_layer_bytes_match_reference():
         tp = t_parse(getattr(t_cnn, name)())
         assert [r_pipe.layer_bytes(l) for l in rp.layers] == \
             [t_pipe.layer_bytes(l) for l in tp.layers]
+
+
+# ------------------------------------------ facts of the reference, pinned
+
+def _run_both(build, x):
+    """(int8 output, float output, calibrated specs) of one graph in each
+    package: the port on the CPU, the reference through the shim."""
+    out = {}
+    for name, mod, gate_cls, kw in (("port", t_cnn, TGate, {"device": "cpu"}),
+                                    ("reference", r_cnn, RGate, {})):
+        graph = build(mod)
+        gate = gate_cls.from_graph(graph, **kw)
+        specs = _spec_tuples(gate.calibrate_quantization(x))
+        out[name] = (np.asarray(gate.build("emulation")(x)),
+                     np.asarray(mod.run_float(graph, x, **kw)), specs)
+    return out
+
+
+def test_final_fc_output_scale_is_calibrated_on_the_softmax(
+        shimmed_reference):
+    """The parser fuses a Softmax into its FC, so calibration takes the
+    probabilities' exponent (m_y 7) for the FC's int8 output, which holds
+    the pre-softmax logits: they clip at 127 / 128 and three classes tie
+    at the top, where the float model's top-1 is 3.  Both packages give
+    the same numbers."""
+    x = (4 * np.random.default_rng(1).standard_normal((1, 12))).astype(
+        np.float32)
+    runs = _run_both(lambda mod: mod.GraphBuilder("fc1", (1, 12), 0).fc(
+        4, relu=False, softmax=True).build(), x)
+    for int8, flt, specs in runs.values():
+        assert specs == {"gemm_1": (7, 4, 7)}
+        np.testing.assert_allclose(int8[0], [0.2553, 0.2342, 0.2553, 0.2553],
+                                   atol=1e-4)
+        np.testing.assert_allclose(flt[0], [0.0014, 0.0007, 0.1292, 0.8687],
+                                   atol=1e-4)
+        assert int(int8.argmax()) == 0 and int((int8 == int8.max()).sum()) == 3
+        assert int(flt.argmax()) == 3
+    np.testing.assert_allclose(runs["port"][0], runs["reference"][0], rtol=0,
+                               atol=1e-6)
+
+
+def test_fc_on_a_4d_graph_input_reads_its_weight_rows_out_of_order(
+        shimmed_reference):
+    """The executor transposes a 4-D graph input to NHWC, but the FC's
+    rows are reordered to the NHWC flatten only when a stage produces its
+    input: an FC fed straight from the graph input reads them in NCHW
+    order.  The same weights on the flattened (1, 12) input agree with the
+    float model to int8 precision.  Both packages give the same numbers."""
+    x = (4 * np.random.default_rng(0).standard_normal((1, 3, 2, 2))).astype(
+        np.float32)
+    runs = _run_both(lambda mod: mod.GraphBuilder("fc1", (1, 3, 2, 2), 0).fc(
+        2, relu=False).build(), x)
+    flat = _run_both(lambda mod: mod.GraphBuilder("fc1", (1, 12), 0).fc(
+        2, relu=False).build(), x.reshape(1, 12))
+    for name in ("port", "reference"):
+        int8, flt, _ = runs[name]
+        np.testing.assert_array_equal(int8[0], [-3.9375, -0.625])
+        np.testing.assert_allclose(flt[0], [-7.2097, -3.1334], atol=1e-4)
+        np.testing.assert_array_equal(flat[name][0][0], [-7.1875, -3.0625])
+        np.testing.assert_allclose(flat[name][1], flt, atol=1e-5)

@@ -146,18 +146,26 @@ def test_kernel_sources_and_build_key():
 def test_ctypes_signatures_match_the_c_entry_points():
     """Each wrapper's ``argtypes`` has one entry per parameter of its C
     entry point: ``c_void_p`` for a pointer, ``c_float`` for a float,
-    ``c_int`` for an int."""
+    ``c_longlong`` for a long long, ``c_int`` for an int; and its return
+    type (``int`` unless the signature names another) is the C one."""
     sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES,
                 flash_attention=flash_attention._SIGNATURES,
                 ssd_scan=ssd_scan._SIGNATURES)
     assert set(sigs) == set(_build.sources())
+
+    def ctype(decl):
+        return (ctypes.c_void_p if "*" in decl else
+                ctypes.c_float if decl.startswith("float ") else
+                ctypes.c_longlong if decl.startswith("long long") else
+                ctypes.c_int)
     for name, entries in sigs.items():
         src = _build.sources()[name].read_text()
-        for fn, argtypes in entries.items():
-            m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src,
-                          re.S)
+        for fn, sig in entries.items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (
+                sig, ctypes.c_int)
+            m = re.search(r'extern "C" (int|long long) ' + fn
+                          + r"\((.*?)\)\s*\{", src, re.S)
             assert m is not None, (name, fn)
-            params = [p.strip() for p in m.group(1).split(",")]
-            assert [ctypes.c_void_p if "*" in p else
-                    ctypes.c_float if p.startswith("float ") else
-                    ctypes.c_int for p in params] == argtypes, (name, fn)
+            assert ctype(m.group(1) + " ") == restype, (name, fn)
+            params = [p.strip() for p in m.group(2).split(",")]
+            assert [ctype(p) for p in params] == argtypes, (name, fn)

@@ -259,3 +259,222 @@ def test_optional_operand_checks_and_the_device_check():
         ops.ssd_scan(o["x"], o["dt"], o["a"], o["b"], o["c"])
     assert ops.launch_counts()["ssd_scan"] == 0
 
+
+
+# ------------------------------------- the bf16 kernel's arithmetic, on the CPU
+
+#: chip_smoke's SSD allowance against the plain version (``SSD_F32_TOL``:
+#: the JAX package's chunked-vs-sequential tolerance), plus one bf16 ulp of
+#: the plain output for a bf16 y.
+SSD_F32_TOL = (1e-4, 1e-3)
+
+
+def _kernel_chunk(chunk):
+    """The chunk the bf16 kernel takes for the caller's: a multiple of 64
+    in [64, 256]."""
+    return min(256, max(64, chunk // 64 * 64))
+
+
+def _round(v, how):
+    """A float32 factor as the tensor cores see it: two bf16 halves
+    (``"split"``, hi + lo), one bf16 (``"bf16"``) or TF32 (``"tf32"``, 10
+    mantissa bits, to nearest)."""
+    if how == "split":
+        hi = v.bfloat16().float()
+        return hi + (v - hi).bfloat16().float()
+    if how == "bf16":
+        return v.bfloat16().float()
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16_kernel_model(x, dt, a, b, c, d=None, *, chunk, init_state=None,
+                       m="split", wx="split", s="split"):
+    """The chunk-parallel bf16 CUDA kernel's arithmetic in plain torch: at
+    the kernel's chunk, L = cumsum(dt a) added in order in float32; (a)
+    each chunk's state (w o x)^T B with w = exp(L_last - L) dt; (b) the
+    states entering the chunks, S <- exp(L_last) S + s_c; (c) y =
+    exp(L_t) C S_in^T + (C B^T o exp(L_t - L_s) dt_s, masked before the
+    exp) x (+ d x), rounded once to x's dtype; for s < a, a = 16 (t //
+    16) the first of the 16 rows that one warp of the kernel holds, the
+    decay is exp(L_t - L_a) (exp(L_a - L_s) dt_s), as the kernel forms
+    it.  The float32 factors M,
+    w o x and S_in go into the products as ``m``, ``wx``, ``s`` say
+    (:func:`_round`); bf16 x, B, C and the float32 sums are exact here,
+    as the tensor cores' products are."""
+    bsz, length, h, p = x.shape
+    n = b.shape[3]
+    grp = h // b.shape[2]
+    q = _kernel_chunk(chunk)
+    nc = -(-length // q)
+    pad = nc * q - length
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    xf = xf.reshape(bsz, nc, q, h, p)
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad)).reshape(
+        bsz, nc, q, h)
+
+    def heads(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return torch.repeat_interleave(t, grp, dim=2).reshape(bsz, nc, q, h,
+                                                              n)
+    bf, cf = heads(b), heads(c)
+    step = dtf * a.float()
+    ld = torch.empty_like(step)
+    acc = torch.zeros_like(step[:, :, 0])
+    for i in range(q):
+        acc = acc + step[:, :, i]
+        ld[:, :, i] = acc
+    # (a)
+    w = torch.exp(ld[:, :, -1:] - ld) * dtf
+    s_own = torch.einsum("bcqhp,bcqhn->bchpn", _round(w[..., None] * xf, wx),
+                         bf)
+    # (b)
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, p, n)))
+    s_in = []
+    for ci in range(nc):
+        s_in.append(state)
+        state = torch.exp(ld[:, :, -1])[:, ci, :, None, None] * state \
+            + s_own[:, ci]
+    # (c)
+    idx = torch.arange(q)
+    tri = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    diff = torch.where(tri, ld[:, :, :, None, :] - ld[:, :, None, :, :], 0.0)
+    gmat = torch.where(tri, torch.exp(diff) * dtf[:, :, None, :, :], 0.0)
+    ref = ld[:, :, idx // 16 * 16]                       # L_a of row t
+    below = (idx[:, None] // 16 > idx[None, :] // 16)[None, None, :, :, None]
+    factored = torch.exp(ld - ref)[:, :, :, None, :] * (
+        torch.exp(torch.where(below, ref[:, :, :, None, :]
+                              - ld[:, :, None, :, :], 0.0))
+        * dtf[:, :, None, :, :])
+    gmat = torch.where(below, factored, gmat)
+    mm = torch.einsum("bcthn,bcshn->bctsh", cf, bf) * gmat
+    y = torch.exp(ld)[..., None] * torch.einsum(
+        "bcthn,bchpn->bcthp", cf, _round(torch.stack(s_in, 1), s))
+    y = y + torch.einsum("bctsh,bcshp->bcthp", _round(mm, m), xf)
+    y = y.reshape(bsz, nc * q, h, p)[:, :length]
+    if d is not None:
+        y = y + d.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state
+
+
+def _share_of_ssd_allowance(got, want):
+    """chip_smoke's SSD rule: the largest |got - want| as a share of
+    ``atol + rtol |want|`` (SSD_F32_TOL), plus one bf16 ulp of ``want``
+    for a bf16 output (at most 1 passes)."""
+    allowance = SSD_F32_TOL[0] + SSD_F32_TOL[1] * want.float().abs()
+    if want.dtype == torch.bfloat16:
+        allowance = allowance + torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(1e-30))) - 7)
+    return ((got.float() - want.float()).abs() / allowance).max().item()
+
+
+# (b, l, h, p, g, n, chunk): a ragged L, G = 2, the chunks 16 and 256
+MODEL_SHAPES = [(2, 100, 4, 16, 2, 32, 16),
+                (1, 300, 4, 16, 2, 16, 256),
+                (1, 129, 2, 8, 1, 24, 64)]
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_model_gives_the_plain_versions_y_and_state(shape):
+    *dims, chunk = shape
+    x, dt, a, b, c, d, s0 = _inputs(*dims, seed=sum(dims) + 11)
+    want_y, want_s = t_ssd.ssd_scan_plain(*_t(x, dt, a, b, c, d),
+                                          chunk=chunk,
+                                          init_state=torch.from_numpy(s0),
+                                          return_state=True)
+    y, s = _bf16_kernel_model(*_t(x, dt, a, b, c, d), chunk=chunk,
+                              init_state=torch.from_numpy(s0))
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), **DECOMPOSED)
+    np.testing.assert_allclose(s.numpy(), want_s.numpy(), **DECOMPOSED)
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_model_matches_the_jax_functions(shape):
+    """The same inputs through the JAX package's ``ssd_chunked`` (with an
+    initial state, returning the final one) and its Pallas ``ssd_scan``
+    in interpret mode (with d)."""
+    *dims, chunk = shape
+    x, dt, a, b, c, d, s0 = _inputs(*dims, seed=sum(dims) + 12)
+    want_y, want_s = r_mamba2.ssd_chunked(*_j(x, dt, a, b, c), chunk,
+                                          jnp.asarray(s0))
+    y, s = _bf16_kernel_model(*_t(x, dt, a, b, c), chunk=chunk,
+                              init_state=torch.from_numpy(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **DECOMPOSED)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **DECOMPOSED)
+    want = np.asarray(r_ssd_scan(*_j(x, dt, a, b, c, d), chunk=chunk,
+                                 interpret=True))
+    y, _ = _bf16_kernel_model(*_t(x, dt, a, b, c, d), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), want, **DECOMPOSED)
+
+
+def _strong_decay_inputs(seed, b=2, l=600, h=4, p=64, g=2, n=64):
+    """bf16 x, B, C at chip_smoke's distributions (dt up to 1, a down to
+    -16: decay exponents that reach hundreds within a 256-chunk), with an
+    initial state."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy((rng.standard_normal((b, l, h, p)) * 0.5)
+                             .astype(np.float32)).bfloat16(),
+            torch.from_numpy(rng.uniform(0.001, 1.0, (b, l, h))
+                             .astype(np.float32)),
+            torch.from_numpy(-rng.uniform(0.5, 16.0, (h,)).astype(np.float32)),
+            torch.from_numpy((rng.standard_normal((b, l, g, n)) * 0.3)
+                             .astype(np.float32)).bfloat16(),
+            torch.from_numpy((rng.standard_normal((b, l, g, n)) * 0.3)
+                             .astype(np.float32)).bfloat16(),
+            torch.from_numpy(rng.standard_normal((b, h, p, n))
+                             .astype(np.float32)))
+
+
+def _model_share(seed, **rounding):
+    """The model's largest share of the SSD allowance against the plain
+    version, over y and the final state, at chunk 256."""
+    x, dt, a, b, c, s0 = _strong_decay_inputs(seed)
+    want_y, want_s = t_ssd.ssd_scan_plain(x, dt, a, b, c, chunk=256,
+                                          init_state=s0, return_state=True)
+    y, s = _bf16_kernel_model(x, dt, a, b, c, chunk=256, init_state=s0,
+                              **rounding)
+    return max(_share_of_ssd_allowance(y, want_y),
+               _share_of_ssd_allowance(s, want_s))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_factors_stay_within_the_plain_versions_allowance(seed):
+    """M = C B^T o decay, w o x and S_in, each as two bf16 halves: within
+    one bf16 ulp plus the float32 allowance of the plain version (about
+    0.87 of it: a one-ulp flip)."""
+    assert _model_share(seed) <= 1
+
+
+@pytest.mark.parametrize("factor", ["m", "wx", "s"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_one_bf16_factor_misses_the_plain_versions_allowance(seed, factor):
+    """Why the kernel splits every float32 factor: any one of them rounded
+    once to bf16 carries 2^-9 of relative error into outputs that cancel,
+    2-17x the allowance at these inputs."""
+    assert _model_share(seed, **{factor: "bf16"}) > 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_a_tf32_m_misses_the_plain_versions_allowance(seed):
+    """Nor would TF32 do for M (10 mantissa bits): 1.75-2.2x the allowance
+    at these inputs (about 0.95-1.1x at others)."""
+    assert _model_share(seed, m="tf32") > 1
+
+
+def test_state_out_may_be_the_initial_state():
+    """``state_out`` receives the final state in place, and may alias
+    ``init_state`` (the kernel reads each element before writing it)."""
+    x, dt, a, b, c, d, s0 = _inputs(2, 70, 4, 16, 2, 16, seed=13)
+    want_y, want_s = ops.ssd_scan(*_t(x, dt, a, b, c, d), chunk=32,
+                                  init_state=torch.from_numpy(s0),
+                                  return_state=True)
+    state = torch.from_numpy(s0.copy())
+    y, s = t_ssd.ssd_scan(*_t(x, dt, a, b, c, d), chunk=32,
+                          init_state=state, state_out=state)
+    assert s is state
+    assert torch.equal(y, want_y) and torch.equal(state, want_s)
+    with pytest.raises(ValueError, match="state_out"):
+        _call(_operands(), state_out=_meta((2, 4, 16, 8)))
