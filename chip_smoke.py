@@ -1786,6 +1786,28 @@ def ssd_decode_ms(torch, dev) -> float:
         x, dtv, a, bm, cm, chunk=256, init_state=s0, return_state=True))
 
 
+def ssd_kernel_split(torch, dev) -> dict:
+    """Device ms of each kernel of a bf16 SSD call at mamba2-2.7b's
+    prefill shape (the chunk-parallel path's three launches), from the
+    profiler over 5 calls, L2 warm.  Run last: it is the phase's only
+    profile of a call this short."""
+    from repro_torch.kernels import ssd_scan as ssd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x, dtv, a, bm, cm, _, _ = ssd_inputs(torch, dev, gen, 2, 4096, 80, 64, 1,
+                                         128, torch.bfloat16, False, False)
+    calls = 5
+    prof = device_time(torch, lambda: [ssd.ssd_scan(
+        x, dtv, a, bm, cm, chunk=256, return_state=True)
+        for _ in range(calls)], wall_ms=1.0)
+    split = {re.search(r"ssd_\w+", k).group(0): v / calls
+             for k, v in prof.get("top_device_ms", {}).items()
+             if re.search(r"ssd_\w+", k)}
+    emit(phase="ssm", what="ssd_scan_kernel_split", per_kernel_ms=split,
+         profiler_error=prof.get("profiler_error"))
+    return split
+
+
 def ssd_term_check(torch, calls, tag: str) -> None:
     """The SSD output of the first layer is not 0 (it would be with the
     reference's zero ``conv_b``/``conv_c``)."""
@@ -1847,6 +1869,9 @@ def phase_ssm(torch, dev, records):
         emit(phase="ssm", model=cfg.name, ssd_ms_per_launch=z["ms"] / n,
              plain_ms_per_launch=z["plain_ms"] / n,
              bound_ms_per_launch=z["bound_ms"] / n)
+        del model, params, calls
+        records["ssd_scan"]["extra"]["per_kernel_ms"] = ssd_kernel_split(
+            torch, dev)
 
 
 SOURCES = {
