@@ -10,14 +10,21 @@ Six phases, each printing one JSON line per check:
    (``torch.equal``) against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged ones: dense, depthwise
    (multipliers, pools, skip, concat buffer) and ragged grouped convs,
-   the GEMM, and a seeded random sweep over all of them; the standalone
-   pools' plain versions on the card equal to the CPU's;
+   the GEMM, and a seeded random sweep over all of them, with the dense
+   kernel's edges (split K at 14x14x512, batch 1 and 8; rows and K off
+   its tiles; Cin 3; 11x11/4 with the 3x3/2 pool; cout_g 192; skip with
+   pool; concat buffers at odd offsets), each conv check printing its
+   plan (kernel, tile width, K split); the standalone pools' plain
+   versions on the card equal to the CPU's;
 2. VGG-16 at full width (224x224, 1000 classes, 138 M random weights
    from a seed): ``CNN2Gate.from_graph`` -> ``calibrate_quantization`` ->
    ``build``, then serve 8 requests at batch 1 and one batch of 8.  The
    logits must equal those of the same executor with the plain ops, and
    every forward must launch the conv kernel 13 times and the GEMM
-   kernel 3 times;
+   kernel 3 times.  Every kernel call of a forward is held equal to its
+   plain version and timed, at batch 1 and at batch 8, and every conv
+   call must take the int8 ``wgmma`` kernel, whose library's SASS must
+   hold IGMMA and UTMALDG;
 3. mobilenet_tiny at its own widths on 224x224 inputs, per-tensor and
    per-channel, served the same way: every forward launches the dense
    conv 4 times, the depthwise conv 3 times and the GEMM once;
@@ -25,7 +32,9 @@ Six phases, each printing one JSON line per check:
    fused skip (dw-skip), a depthwise and a dense producer of one concat
    (dw-concat), and the two-tower AlexNet (group 2 on convs 2, 4 and 5,
    224x224), each fused and unfused, per-tensor and per-channel: fused
-   == unfused and kernel == plain;
+   == unfused and kernel == plain, every AlexNet conv on ``wgmma``; then
+   the __dp4a and ``wgmma`` conv kernels timed on the same narrow and
+   wide convs (``qconv_crossover``), where ``WGMMA_MIN_COUT`` comes from;
 5. lm, the dense-LM serving path in bf16 with random weights from a
    seed: the built flash library's SASS must hold HGMMA (wgmma) and
    UTMALDG (TMA loads); the flash-attention kernel held against its
@@ -67,8 +76,9 @@ Six phases, each printing one JSON line per check:
    kernel's time per launch beside the plain version's and the bound.
 
 Before the last line it prints the kernels' record (launches, error,
-times, bounds; for flash_attention also its design, the SASS counts and
-nvcc's registers, shared memory and spills) as one JSON object, then
+times, bounds; for the dense conv, flash_attention and ssd_scan also the
+design, the SASS counts and nvcc's registers, shared memory and spills,
+and for the dense conv each call's plan) as one JSON object, then
 the card's name and power limit from ``nvidia-smi``.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check exits non-zero without it, as does a run with no CUDA
@@ -288,6 +298,21 @@ def conv_cases():
              p=1, skip=True, pool=(2, 2)),
         dict(name="skip_per_lane_1x1_s2", n=1, h=56, cin=64, cout=128, k=1,
              s=2, p=0, skip=True, per_lane=True),
+        # the wgmma kernel's edges: split K at 14x14x512, batch 1 and 8,
+        # with and without the pool; 169 rows and K = 360 (neither a
+        # multiple of the tile); cout_g 192 = 128 + 64 with the 3x3/2 pool;
+        # a skip with the pool and per-lane shifts at 256 channels
+        dict(name="vgg_14x512_512", n=1, h=14, cin=512, cout=512, k=3, s=1,
+             p=1),
+        dict(name="vgg_14x512_512_batch8", n=8, h=14, cin=512, cout=512,
+             k=3, s=1, p=1),
+        dict(name="vgg_14x512_512_pool_batch8", n=8, h=14, cin=512,
+             cout=512, k=3, s=1, p=1, pool=(2, 2)),
+        dict(name="rows169_k360", n=1, h=13, cin=40, cout=96, k=3, s=1, p=1),
+        dict(name="g2_cout384_pool3s2", n=1, h=13, cin=256, cout=384, k=3,
+             s=1, p=1, groups=2, pool=(3, 2)),
+        dict(name="skip_pool_per_lane_c256", n=2, h=14, cin=128, cout=256,
+             k=3, s=1, p=1, skip=True, pool=(2, 2), per_lane=True),
     ]
 
 
@@ -302,6 +327,19 @@ def conv_kind(c):
         return ("qgconv2d", functools.partial(qconv.qgconv2d, groups=g),
                 functools.partial(qconv.qconv2d_plain, groups=g))
     return "qconv2d", qconv.qconv2d, qconv.qconv2d_plain
+
+
+def conv_plan(name, x, w, kw):
+    """The dense/grouped kernel's plan of a conv call (its kernel, tile
+    width and K split) as a dict; None for the depthwise kernel."""
+    from repro_torch.kernels import qconv
+    if not name.startswith(("qconv2d", "qgconv2d")):
+        return None
+    groups = x.shape[-1] // w.shape[2]
+    pl = qconv.plan_of(x, w, kw["strides"], kw.get("pool"), groups)
+    return dict(kernel=pl.kernel, bn=pl.bn, k_pad=pl.k_pad,
+                tiles=pl.tiles, splits=pl.splits, chunk=pl.chunk,
+                blocks=pl.blocks)
 
 
 def conv_inputs(torch, c, gen, dev):
@@ -369,7 +407,8 @@ def phase_kernels(torch, dev):
         err = (y.int() - yp.int()).abs().max().item()
         check("kernels", f"{name}_{c['name']}", torch.equal(y, yp),
               shape=list(y.shape), max_abs_err=err,
-              distinct_values=int(torch.unique(yp).numel()))
+              distinct_values=int(torch.unique(yp).numel()),
+              plan=conv_plan(name, x, w, kw))
 
     sweep(torch, gen, dev)
     pools_on_the_card(torch, gen, dev)
@@ -383,7 +422,12 @@ def phase_kernels(torch, dev):
               dict(n=1, h=24, cin=16, cout=16, off=5, c_tot=40, dw=True,
                    relu=False, per_lane=True),
               dict(n=1, h=15, cin=8, cout=32, off=3, c_tot=40, pool=(3, 2),
-                   dw=True, relu=False)):
+                   dw=True, relu=False),
+              dict(n=2, h=16, cin=64, cout=96, off=3, c_tot=131,
+                   pool=(2, 2), per_lane=True),
+              dict(n=1, h=14, cin=128, cout=192, off=17, c_tot=224),
+              dict(n=1, h=14, cin=512, cout=512, off=16, c_tot=544,
+                   pool=(2, 2))):
         c.update(k=3, s=1, p=1, name=f"off{c['off']}_cout{c['cout']}"
                  f"_ctot{c['c_tot']}")
         x, w, b, kw = conv_inputs(torch, c, gen, dev)
@@ -399,7 +443,8 @@ def phase_kernels(torch, dev):
         others = torch.cat([buf[..., :off], buf[..., off + cout:]], dim=-1)
         check("kernels", f"{name}_into_{c['name']}",
               torch.equal(buf, bufp) and bool((others == 77).all()),
-              max_abs_err=(buf.int() - bufp.int()).abs().max().item())
+              max_abs_err=(buf.int() - bufp.int()).abs().max().item(),
+              plan=conv_plan(name, x, w, kw))
 
 
 def pools_on_the_card(torch, gen, dev) -> None:
@@ -527,10 +572,12 @@ def serve(torch, gate, xs, expect, phase, name):
     return run, outs, ms
 
 
-def kernel_records(torch, run, x, launches, dev, phase):
+def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
     """Hold every kernel call one forward makes equal to its plain
-    version at that call's shapes and time both; return per-kernel sums
-    and bounds.  ``library_ms`` stays
+    version at that call's shapes and time both (the plain version only
+    with ``plain_times``); return per-kernel sums and bounds, and for the
+    dense and grouped convs each call's plan (kernel, tile, K split),
+    which its ``timing`` line prints too.  ``library_ms`` stays
     None: PyTorch has no int8 conv, and ``torch._int_mm`` takes no
     M <= 16 (see :func:`library_yardstick`)."""
     calls: list = []
@@ -546,7 +593,8 @@ def kernel_records(torch, run, x, launches, dev, phase):
     rec = {}
     for name, a, kw in calls:
         r = rec.setdefault(name, dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0,
-                                      library_ms=None, calls=0, err=0))
+                                      library_ms=None, calls=0, err=0,
+                                      plans=[]))
         if name == "qgemm":
             xx, ww = a[0], a[1]
             m, k = xx.shape
@@ -578,13 +626,18 @@ def kernel_records(torch, run, x, launches, dev, phase):
               max_abs_err=err)
         r["err"] = max(r["err"], err)
         ms = time_ms(torch, lambda: kernel[name](*a, **kw), flush=flush)
-        plain_ms = time_ms(torch, lambda: plain[name](*a, **kw), flush=flush)
+        plain_ms = (time_ms(torch, lambda: plain[name](*a, **kw),
+                            flush=flush) if plain_times else None)
+        pl = (conv_plan(name, a[0], a[1], kw) if name != "qgemm" else None)
+        if pl is not None:
+            r["plans"].append(pl)
         emit(phase="timing", kernel=name, call=r["calls"],
+             batch=int(a[0].shape[0]),
              shapes=[list(t.shape) for t in a if torch.is_tensor(t)],
              pool=kw.get("pool"), skip=kw.get("skip") is not None,
-             ms=ms, plain_ms=plain_ms)
+             ms=ms, plain_ms=plain_ms, plan=pl)
         r["ms"] += ms
-        r["plain_ms"] += plain_ms
+        r["plain_ms"] += plain_ms or 0.0
         r["calls"] += 1
     out = {}
     for name, r in rec.items():
@@ -595,7 +648,7 @@ def kernel_records(torch, run, x, launches, dev, phase):
                          ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         library_ms=r["library_ms"])
+                         library_ms=r["library_ms"], plans=r["plans"])
     return out
 
 
@@ -685,6 +738,18 @@ def phase_vgg(torch, dev, records):
     launches = ops.launch_counts()
     records.update(kernel_records(torch, run, reqs[0], launches, dev,
                                   "vgg16"))
+    ops.reset_launch_counts()
+    run(batch)
+    b8 = kernel_records(torch, run, batch, ops.launch_counts(), dev,
+                        "vgg16_batch8", plain_times=False)
+    emit(phase="vgg16", batch=8, qconv2d_ms=b8["qconv2d"]["ms"],
+         qgemm_ms=b8["qgemm"]["ms"],
+         qconv2d_bound_ms=b8["qconv2d"]["bound_ms"])
+    plans = records["qconv2d"]["plans"] + b8["qconv2d"]["plans"]
+    check("vgg16", "every_conv_call_on_the_wgmma_kernel",
+          len(plans) == 26 and all(p["kernel"] == "wgmma" for p in plans),
+          kernels=[p["kernel"] for p in plans])
+    attach_qconv_build(torch, records, "qconv2d")
     library_yardstick(torch, dev)
 
 
@@ -878,10 +943,19 @@ def phase_paths(torch, dev, records):
                                         fused.parsed.layers):
                 check(name, f"{tag}_{what}", ok, launches=launches)
             if name in PATH_RECORDS and not per_channel:
-                records.update(
-                    {k: v for k, v in kernel_records(
-                        torch, run_f, xs[0], launches, dev, name).items()
-                     if k == PATH_RECORDS[name]})
+                recs = kernel_records(torch, run_f, xs[0], launches, dev,
+                                      name)
+                if name == "alexnet_2tower":
+                    plans = [p for r in recs.values()
+                             for p in r.get("plans", [])]
+                    check(name, f"{tag}_every_conv_call_on_the_wgmma_kernel",
+                          len(plans) == n_conv
+                          and all(p["kernel"] == "wgmma" for p in plans),
+                          kernels=[p["kernel"] for p in plans])
+                kept = PATH_RECORDS[name]
+                records[kept] = recs[kept]
+                if kept != "qdwconv2d_into":
+                    attach_qconv_build(torch, records, kept)
             if name == "resnet18":
                 # per-inference time at batch 1, after a warm run
                 x1 = xs[0][:1]
@@ -897,6 +971,47 @@ def phase_paths(torch, dev, records):
                      statistics.median(times), ms_batch2_first=fused_ms)
                 emit(phase=name, mode=tag, **device_time(
                     torch, lambda: run_f(x1), statistics.median(times)))
+    qconv_crossover(torch, dev)
+
+
+def qconv_crossover(torch, dev) -> None:
+    """Time the __dp4a and wgmma kernels on the same convs, each held
+    equal to the plain version: googlenet_tiny's narrow convs (Cout 4-12,
+    batch 2) and wider ones, to place ``qconv.WGMMA_MIN_COUT``."""
+    from repro_torch.kernels import qconv
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
+    keep = qconv.WGMMA_MIN_COUT
+    bad = []
+    # n, h (unpadded), cin, cout, k, pad, pool
+    for n, h, cin, cout, k, p, pool in (
+            (2, 12, 16, 4, 1, 0, None), (2, 12, 16, 8, 1, 0, None),
+            (2, 14, 8, 12, 3, 1, (2, 2)), (2, 12, 4, 6, 5, 2, (2, 2)),
+            (2, 6, 32, 10, 1, 0, None), (2, 14, 16, 16, 3, 1, None),
+            (2, 14, 16, 32, 3, 1, None), (1, 56, 64, 8, 3, 1, None),
+            (1, 56, 64, 16, 3, 1, None), (1, 56, 64, 32, 3, 1, None),
+            (1, 56, 64, 64, 3, 1, None)):
+        c = dict(name=f"x{n}x{h}x{cin}_c{cout}_k{k}", n=n, h=h, cin=cin,
+                 cout=cout, k=k, s=1, p=p, pool=pool)
+        x, w, b, kw = conv_inputs(torch, c, gen, dev)
+        yp = qconv.qconv2d_plain(x, w, b, **kw)
+        row = dict(shape=[n, h, h, cin], cout=cout, k=k, pool=pool)
+        try:
+            for kernel, floor in (("dp4a", 1 << 30), ("wgmma", 1)):
+                qconv.WGMMA_MIN_COUT = floor
+                qconv.plan.cache_clear()
+                if not torch.equal(qconv.qconv2d(x, w, b, **kw), yp):
+                    bad.append((c["name"], kernel))
+                row[f"{kernel}_ms"] = time_ms(
+                    torch, lambda: qconv.qconv2d(x, w, b, **kw), flush=flush)
+        finally:
+            qconv.WGMMA_MIN_COUT = keep
+            qconv.plan.cache_clear()
+        row["faster"] = min(("dp4a", "wgmma"), key=lambda kk: row[kk + "_ms"])
+        emit(phase="qconv_crossover", **row)
+    check("paths", "qconv_crossover_kernels_equal_plain", not bad,
+          failures=bad, wgmma_min_cout=keep)
 
 
 # ---------------------------------------------- phase 5: the dense-LM path
@@ -1080,19 +1195,20 @@ def flash_float64_distance(torch, dev, gen) -> None:
           y_abs_max=y64.abs().max().item(), **d)
 
 
-def build_record(torch, phase: str, lib: str, label) -> dict:
+def build_record(torch, phase: str, lib: str, label,
+                 ops=("HGMMA", "UTMALDG")) -> dict:
     """A built library's tensor-core and TMA instructions (``cuobjdump
-    -sass``: HGMMA is wgmma, UTMALDG a TMA load) and each kernel's
-    registers, static shared memory and spills from nvcc's ``-Xptxas -v``
-    log, keyed by ``label(mangled name)`` (None: not recorded); checks
-    that the library holds both instructions."""
+    -sass``: HGMMA is the bf16 wgmma, IGMMA the int8 one, UTMALDG a TMA
+    load) and each kernel's registers, static shared memory and spills
+    from nvcc's ``-Xptxas -v`` log, keyed by ``label(mangled name)``
+    (None: not recorded); checks that the library holds every one of
+    ``ops``."""
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
                          capture_output=True, text=True, timeout=300)
-    sass = {op: len(re.findall(rf"\b{op}\b", out.stdout))
-            for op in ("HGMMA", "UTMALDG")}
-    check(phase, f"{lib}_sass_holds_hgmma_and_utmaldg",
+    sass = {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in ops}
+    check(phase, f"{lib}_sass_holds_" + "_and_".join(o.lower() for o in ops),
           out.returncode == 0 and all(sass.values()), **sass,
           cuobjdump_rc=out.returncode)
     usage, fn = {}, None
@@ -1110,6 +1226,32 @@ def build_record(torch, phase: str, lib: str, label) -> dict:
             if m and fn:
                 usage[fn][key] = int(m.group(1))
     return dict(sass=sass, ptxas=usage)
+
+
+def qconv_label(mangled: str):
+    if "qconv_dp4a_kernel" in mangled:
+        return "qconv_dp4a_kernel"
+    inst = re.search(r"qconv_wgmma_kernelILi(\d+)E", mangled)
+    return f"qconv_wgmma_kernel<{inst.group(1)}>" if inst else None
+
+
+_QCONV_BUILD: dict = {}
+
+
+def attach_qconv_build(torch, records, name: str) -> None:
+    """Give ``records[name]`` the qconv library's design note, its IGMMA
+    and UTMALDG counts and nvcc's registers, shared memory and spills
+    (the check that both instructions are there runs once)."""
+    if not _QCONV_BUILD:
+        _QCONV_BUILD.update(build_record(torch, "vgg16", "qconv",
+                                         qconv_label, ("IGMMA", "UTMALDG")))
+    r = records.get(name)
+    if r is not None:
+        r["extra"] = dict(
+            design="int8 wgmma (IGMMA), TMA-fed K-major weights, K split "
+                   "over a cluster under one wave (DSMEM reduction); __dp4a "
+                   "below WGMMA_MIN_COUT channels",
+            plans=r.pop("plans", []), **_QCONV_BUILD)
 
 
 def flash_label(mangled: str):

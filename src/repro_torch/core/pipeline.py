@@ -20,8 +20,10 @@ network ends in a spatial stage — and every layer's weights are staged
 on the model's device in the kernel layout once, at
 :func:`build_quantized` time (conv OIHW -> HWIO; FC rows permuted so
 flattening an NHWC activation hits the same features the NCHW-trained
-weights expect).  PyTorch runs the stage loop eagerly; each stage is
-one op of :mod:`repro_torch.kernels.ops`.
+weights expect; a dense or grouped conv's weight also K-major for the
+wgmma kernel, and a per-channel spec's shift vector).  PyTorch runs the
+stage loop eagerly; each stage is one op of
+:mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.kernels import ops
+from repro_torch.kernels.qconv import stage_kmajor
+from repro_torch.kernels.qgemm import stage_shift
 from . import parser as P
 from .quantize import QuantSpec, quantize_weights
 
@@ -52,6 +56,11 @@ class QuantizedLayer:
     # (requant shift from the common operand position to m_y); the
     # operand_shifts then align (conv intermediate, skip) in that order
     merge_spec: Optional[QuantSpec] = None
+    # the kernels' operands staged once: a dense or grouped conv's weight
+    # K-major (Cout, K_pad) for the wgmma kernel, and a per-lane spec's
+    # int32 shift vector (conv and FC)
+    w_k: Optional[torch.Tensor] = None
+    shift_vec: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -242,14 +251,19 @@ def build_quantized(model: P.ParsedModel,
             operand_shifts = tuple(m - spec.m_x for m in m_ops)
             if any(s < 0 for s in operand_shifts):
                 raise _negative_alignment(li.name, operand_shifts, spec.m_x)
+        w_k = shift_vec = None
         if w is not None:
             w_np, b_np = quantize_weights(w, b, spec)
             prev_info = model.stage_producing(li.inputs[0])
             w_np = np.ascontiguousarray(_stage_weights(li, prev_info, w_np))
             w_q = torch.from_numpy(w_np).to(dev)
             b_q = torch.from_numpy(b_np).to(dev) if b_np is not None else None
+            if li.kind == P.CONV and ops.conv_route(
+                    li.group, li.c_in, w_q.shape) != "depthwise":
+                w_k = stage_kmajor(w_q)
+            shift_vec = stage_shift(spec.requant_shift, w_q.shape[-1], dev)
         layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
-                                     merge_spec))
+                                     merge_spec, w_k, shift_vec))
     return QuantizedModel(
         name=model.name,
         layers=layers,
@@ -346,7 +360,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         return ops.qconv2d_nhwc(
             env[li.inputs[0]], ql.w_q, ql.b_q, strides=li.strides,
             pads=li.pads, shift=ql.spec.requant_shift, relu=li.relu,
-            pool=pool, groups=li.group, **merge_kw)
+            pool=pool, groups=li.group, w_k=ql.w_k,
+            shift_vec=ql.shift_vec, **merge_kw)
 
     def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor]):
         li = ql.info
@@ -363,7 +378,7 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                 # NHWC flatten: rows were permuted at staging time
                 h = h.reshape(h.shape[0], -1)
             return ops.qgemm(h, ql.w_q, ql.b_q, shift=ql.spec.requant_shift,
-                             relu=li.relu)
+                             relu=li.relu, shift_vec=ql.shift_vec)
         if li.kind == P.ADD:
             return ops.qadd_nhwc([env[t] for t in li.inputs],
                                  ql.operand_shifts,

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): shared-memory mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors for the 128-byte swizzle, the
-// m64n128k16 and m64n64k16 bf16 wgmma forms, and the driver's
-// cuTensorMapEncodeTiled reached through the runtime.
+// (flash_attention.cu, ssd_scan.cu, qconv.cu): shared-memory mbarriers,
+// TMA tile loads, cp.async copies, cluster barriers and distributed
+// shared-memory loads, wgmma shared-memory descriptors for the
+// 128-byte swizzle, the m64n128k16 and m64n64k16 bf16 wgmma forms with
+// float32 sums, the m64n128k32 and m64n64k32 int8 forms with int32 sums,
+// and the driver's cuTensorMapEncodeTiled reached through the runtime.
 #pragma once
 
 #include <cuda.h>
@@ -53,6 +55,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// One box of a 2-D map, {c0, c1} innermost first, into shared memory;
+// completes `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
 // One box of a 3-D map, {c0, c1, c2} innermost first, into shared memory;
 // completes `bytes` of the barrier's transaction count.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -89,6 +103,52 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// 16 (or 4) bytes from global to shared memory through cp.async; only the
+// first `src_bytes` are read and the rest of the copy is zero, so
+// src_bytes 0 writes zeros (`src` must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Thread-block clusters: a barrier over every thread of the cluster in
+// two halves (arrive releases this thread's shared-memory writes, wait
+// acquires the others'), the address of the same shared-memory location in
+// block `rank` of the cluster, and a 16-byte load from such an address.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
 // Make plain shared-memory stores visible to wgmma's (async) proxy.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -119,6 +179,11 @@ template <int K>
 __device__ __forceinline__ void fence_regs(float (&d)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int K>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 #define WG_D32                                                              \
@@ -197,6 +262,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "r"(accumulate));
 }
 
+#define WG_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define WG_R16(i) WG_R4(i), WG_R4(i + 4), WG_R4(i + 8), WG_R4(i + 12)
+
+// d (64 x 128, int32) += A (64 x 32) . B (32 x 128), A and B int8 in
+// shared memory, both K-major (the only layout int8 wgmma takes).  Integer
+// sums are exact (they wrap modulo 2^32, which no conv here reaches).
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_D64
+      ", %64, %65, p;\n"
+      "}\n"
+      : WG_R16(0), WG_R16(16), WG_R16(32), WG_R16(48)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, int32) += A (64 x 32) . B (32 x 64), as above.
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WG_D32
+      ", %32, %33, p;\n"
+      "}\n"
+      : WG_R16(0), WG_R16(16)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+#undef WG_R4
+#undef WG_R16
 #undef WG_D32
 #undef WG_D64
 #undef WG_F4
@@ -247,22 +347,37 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A map of a bf16 tensor of `rank` dimensions (innermost first; `strides`
-// in bytes for dimensions 1..rank-1), read in boxes of `box` elements with
-// the 128-byte swizzle; elements outside the tensor read as zero.  0 on
-// success, else a CUDA error code.
-inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// A map of a tensor of `type` and `rank` dimensions (innermost first;
+// `strides` in bytes for dimensions 1..rank-1), read in boxes of `box`
+// elements with the 128-byte swizzle; elements outside the tensor read as
+// zero.  0 on success, else a CUDA error code.
+inline int encode_tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* ptr, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides,
+                            const cuuint32_t* box) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      map, type, rank, const_cast<void*>(ptr),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank,
+                          dims, strides, box);
+}
+
+inline int encode_u8_map(CUtensorMap* map, const void* ptr, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, rank,
+                          dims, strides, box);
 }
 
 }  // namespace sm90

@@ -1,10 +1,11 @@
 // Dense int8 conv with the fused requant / ReLU / residual-skip / concat /
 // max-pool epilogue: the conv stage of the int8 CNN path.
 //
-// Replaces the Pallas kernels src/repro/kernels/qconv.py:qconv2d
-// (_qconv_band_kernel + _band_epilogue), its concat-buffer variant
-// _qconv2d_into (qconv2d(out_buf=...)) and the ragged grouped conv
-// qgconv2d, which runs the same band body once per group.
+// Replaces the Pallas kernels of src/repro/kernels/qconv.py: qconv2d
+// (pallas_call at :619; _qconv_band_kernel + _band_epilogue), its
+// concat-buffer variant _qconv2d_into (:453; qconv2d(out_buf=...)) and the
+// ragged grouped conv qgconv2d (:945), which runs the same band body once
+// per group.
 //
 // Semantics, per output channel c of a VALID conv over the pre-padded NHWC
 // input (strides sh, sw; HWIO weights): v = epilogue(acc, c) (requant.cuh:
@@ -18,45 +19,78 @@
 // Groups (1 when dense): group g reads input channels
 // [g*Cin/G, (g+1)*Cin/G) of each pixel and owns output channels
 // [g*Cout/G, (g+1)*Cout/G); its contraction is K = KH*KW*Cin/G against
-// those weight columns (HWIO (KH, KW, Cin/G, Cout)).  The group rides
-// gridDim.z and each block's channel tiles are masked at the group's edge,
-// so no tile mixes two groups.
+// those weight columns.  The group rides gridDim.z and each block's channel
+// tiles are masked at the group's edge, so no tile mixes two groups.
+//
+// Both kernels are implicit GEMMs: rows are (pooled pixel, window tap)
+// pairs, columns output channels, the contraction runs over (kh, kw, ci).
+// With the rows in that order a block owns whole pool windows, so the
+// fused max-pool never crosses blocks: a tap shared by two of AlexNet's
+// overlapping 3x3/2 windows is computed once for each (2.25x the conv
+// work; none extra for VGG's 2x2/2).  The epilogue writes the block's int8
+// values to shared memory, and the block then reduces each window and
+// stores the pooled row.
 //
 // What bounds it on the H100: the conv layers of VGG-16 and AlexNet reuse
 // every input byte KH*KW*Cout times and every weight byte once per output
-// pixel, so at the shapes of the main path they are bound by operations,
-// not by HBM.  This first version is an implicit GEMM on __dp4a (four
-// int8 products per instruction on the CUDA cores, not the tensor cores;
-// wgmma s8 comes in a later version): rows are output pixels, columns
-// output channels, the contraction runs over (kh, kw, ci).  A block
-// computes a 64 x 64 tile; each of its 256 threads a 4 x 4 sub-tile, with
-// 32-deep K steps staged in shared memory as k-packed words so that one
-// 128-bit shared load feeds four __dp4a.
+// pixel, so they are bound by operations (int8 tensor cores, 1,979 TOPS
+// dense) at every batch; at batch 1 the late 14x14 layers are too small
+// to fill 132 SMs, and launch latency is the floor.
 //
-// The fused max-pool is the hard part: every pooled output must see its
-// whole window of post-epilogue values, and AlexNet's 3x3/2 windows
-// overlap.  Here the GEMM rows are (pooled pixel, window tap) pairs, so a
-// block owns whole windows: a tap shared by two windows is computed once
-// for each (2.25x the conv work for 3x3/2, none extra for VGG's 2x2/2).
-// The epilogue writes the block's int8 values to shared memory and the
-// block then reduces each window and stores the pooled row.
+// What the design does about it (qconv_wgmma_kernel):
+// * The product runs on the int8 tensor cores: wgmma m64nNk32 s8.s8 with
+//   int32 accumulators in registers, two warpgroups of 64 rows (a 128-row
+//   tile), N = 128 output channels (64 for narrow convs).  Integer sums
+//   are exact in any order, so the result is bit for bit the plain
+//   version's whatever the tiling or K split.
+// * int8 wgmma takes both operands K-major.  HWIO weights are N-major, so
+//   the wrapper stages them once as a (Cout, K_pad) matrix, K zero-padded
+//   to the 128-byte K tile (kernels/qconv.py:stage_kmajor); TMA loads a
+//   (BN x 128-byte) box of it per K step, in the 128-byte swizzle that the
+//   wgmma descriptor names, through a ring of kStages mbarrier stages.
+// * A, the im2col rows, is gathered by all 256 threads into the same
+//   swizzled layout: 16-byte cp.async where Cin/G % 16 == 0 (every VGG
+//   layer but the first, AlexNet's groups of 48 and 192), 4-byte cp.async
+//   where Cin/G % 4 == 0, and plain byte loads spread over every thread
+//   otherwise (Cin 3, Cin/G 9); zero past K and past the last row.  The
+//   ring keeps kStages - 1 K steps in flight while the tensor cores work
+//   on the current one, and two blocks fit an SM, so that one's gather
+//   and epilogue overlap the other's products.
+// * The first weight boxes are requested before the block works out its
+//   rows, and the tile's bias and per-lane shifts go to shared memory
+//   meanwhile.
+// * Where the tile grid is under one wave (the 14x14 and 28x28 layers at
+//   batch 1), the K tiles are split across blocks (gridDim.z, at most 8):
+//   the splits of a tile run as one thread-block cluster.  Each block
+//   stages its int32 sums in its shared memory; then each adds the
+//   others' sums over its own share of the tile's pool windows through
+//   distributed shared memory and finishes those windows, so that the
+//   reduction and the epilogue are spread over the cluster.  The split is
+//   chosen in kernels/qconv.py:plan.
+// * The epilogue runs over the int32 tile staged in shared memory, one
+//   (row, channel) pair a thread at a time, and pooled rows leave in
+//   16-byte stores where the output's offset allows.
+//
+// Convs with fewer than 16 output channels per group (kernels/qconv.py:
+// WGMMA_MIN_COUT; googlenet_tiny's 4-12 channel convs) keep the CUDA-core
+// kernel qconv_dp4a_kernel: a 64 x 64 tile, each of 256 threads a 4 x 4
+// sub-tile on __dp4a, which measured faster there (PERF.md).
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 
+#include "hopper.cuh"
 #include "requant.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileM = 64;  // GEMM rows: (pooled pixel, window tap) pairs
-constexpr int kTileN = 64;  // output channels
-constexpr int kTileK = 32;  // contraction step
-constexpr int kQuads = kTileK / 4;
-
 struct ConvArgs {
   const int8_t* x;          // (N, Hp, Wp, Cin)
   const int8_t* w;          // (KH, KW, Cin/G, Cout) == (K, Cout)
+  const int8_t* wk;         // (Cout, k_pad), K-major (wgmma kernel)
   int8_t* y;                // (N, OH, OW, c_tot)
   Epilogue ep;
   int n, hp, wp, cin, kh, kw, cout, sh, sw;
@@ -65,39 +99,56 @@ struct ConvArgs {
   int pw, ps;               // pool window and stride; 1, 1 without a pool
   int c_tot, out_off;
   int vec;                  // Cin/G % 4 == 0 and x is 4-byte aligned
+  int k_pad, splits, chunk;  // wgmma: padded K, K split, K tiles a split
+  int mode;                 // wgmma A gather: 16-, 4- or 1-byte loads
+  int wide;                 // c_tot, out_off and y allow 16-byte stores
 };
 
-// The conv pixel that GEMM row `row` of block `blk` computes, or false when
-// the row lies past the last pooled pixel.
+// The conv pixel that GEMM row `row` of block `blk` computes, for blocks of
+// `rows` rows, or false when the row lies past the last pooled pixel.
 __device__ __forceinline__ bool row_pixel(const ConvArgs& a, int blk, int row,
-                                          int* img, int* ch, int* cw) {
+                                          int rows, int* img, int* ch,
+                                          int* cw) {
   const int taps = a.pw * a.pw;
-  const int per_block = kTileM / taps;
+  const int per_block = rows / taps;
   if (row >= per_block * taps) return false;
-  const long long pooled = static_cast<long long>(blk) * per_block + row / taps;
-  if (pooled >= static_cast<long long>(a.n) * a.oh * a.ow) return false;
+  const int pooled = blk * per_block + row / taps;  // < 2^31 (the wrapper)
+  if (pooled >= a.n * a.oh * a.ow) return false;
   const int tap = row % taps;
   const int plane = a.oh * a.ow;
-  *img = static_cast<int>(pooled / plane);
-  const int rem = static_cast<int>(pooled % plane);
+  *img = pooled / plane;
+  const int rem = pooled - *img * plane;
   *ch = (rem / a.ow) * a.ps + tap / a.pw;
   *cw = (rem % a.ow) * a.ps + tap % a.pw;
   return true;
 }
 
-// Input byte k of the contraction (k runs over (kh, kw, ci) within the
-// group) for the window whose group slice starts at `base`.
-__device__ __forceinline__ uint8_t x_at(const ConvArgs& a, long long base,
-                                        int k) {
-  const int ci = k % a.cin_g;
+// Offset of contraction byte k (over (kh, kw, ci) within the group) from
+// its window's first byte.
+__device__ __forceinline__ long long k_offset(const ConvArgs& a, int k) {
   const int t = k / a.cin_g;
-  const int j = t % a.kw;
-  const int i = t / a.kw;
-  return static_cast<uint8_t>(
-      a.x[base + (static_cast<long long>(i) * a.wp + j) * a.cin + ci]);
+  const int ci = k - t * a.cin_g;
+  return (static_cast<long long>(t / a.kw) * a.wp + t % a.kw) * a.cin + ci;
 }
 
-__global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
+// ------------------------------------------------ CUDA cores, narrow Cout
+
+namespace dp4a {
+
+constexpr int kThreads = 256;
+constexpr int kTileM = 64;  // GEMM rows: (pooled pixel, window tap) pairs
+constexpr int kTileN = 64;  // output channels
+constexpr int kTileK = 32;  // contraction step
+constexpr int kQuads = kTileK / 4;
+
+// Input byte k of the contraction for the window whose group slice starts
+// at `base`.
+__device__ __forceinline__ uint8_t x_at(const ConvArgs& a, long long base,
+                                        int k) {
+  return static_cast<uint8_t>(a.x[base + k_offset(a, k)]);
+}
+
+__global__ void __launch_bounds__(kThreads) qconv_dp4a_kernel(ConvArgs a) {
   __shared__ __align__(16) uint32_t as[kQuads][kTileM];
   __shared__ __align__(16) uint32_t bs[kQuads][kTileN];
   __shared__ int8_t ys[kTileM][kTileN];
@@ -114,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
   // (the group's first channel of the window's first pixel)
   const int a_row = tid % kTileM;
   int img, ch, cw;
-  const bool a_valid = row_pixel(a, blk, a_row, &img, &ch, &cw);
+  const bool a_valid = row_pixel(a, blk, a_row, kTileM, &img, &ch, &cw);
   const long long a_base =
       a_valid ? ((static_cast<long long>(img) * a.hp + ch * a.sh) * a.wp +
                  cw * a.sw) * a.cin + blockIdx.z * a.cin_g
@@ -136,12 +187,8 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
       uint32_t word = 0;
       if (a_valid) {
         if (a.vec && k + 3 < k_total) {
-          const int ci = k % a.cin_g;
-          const int t = k / a.cin_g;
-          const long long off =
-              a_base + (static_cast<long long>(t / a.kw) * a.wp + t % a.kw) *
-                           a.cin + ci;
-          word = *reinterpret_cast<const uint32_t*>(a.x + off);
+          word = *reinterpret_cast<const uint32_t*>(a.x + a_base +
+                                                    k_offset(a, k));
         } else {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
@@ -185,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int row = ty * 4 + i;
     int r_img, r_h, r_w;
-    if (!row_pixel(a, blk, row, &r_img, &r_h, &r_w)) continue;
+    if (!row_pixel(a, blk, row, kTileM, &r_img, &r_h, &r_w)) continue;
     const long long s_at =
         ((static_cast<long long>(r_img) * a.ho + r_h) * a.wo + r_w) * a.cout;
 #pragma unroll
@@ -214,11 +261,461 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(ConvArgs a) {
   }
 }
 
+int launch(const ConvArgs& a, int groups, cudaStream_t st) {
+  const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
+  const int per_block = kTileM / (a.pw * a.pw);
+  const dim3 grid(static_cast<unsigned>((n_pooled + per_block - 1) / per_block),
+                  (a.cout_g + kTileN - 1) / kTileN, groups);
+  qconv_dp4a_kernel<<<grid, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dp4a
+
+// ------------------------------------------------- int8 tensor cores (wgmma)
+
+namespace tc {
+
+using namespace sm90;
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kRows = 128;     // GEMM rows of a block: 64 a warpgroup
+constexpr int kBK = 128;       // K bytes a stage: one 128-byte swizzle row
+constexpr int kATile = kRows * kBK;
+constexpr int kMaxSplits = 8;  // K splits of a tile: one portable cluster
+
+// A ring of 4 stages at 64 channels, 3 at 128: two blocks fit an SM's
+// shared memory either way.
+template <int BN>
+struct Tile {
+  static constexpr int kStages = BN == 128 ? 3 : 4;
+  static constexpr int kBTile = BN * kBK;
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kAcc = BN / 2;  // int32 sums a thread
+  static constexpr size_t kSmem = kStages * kStage + 1024;  // + alignment
+  // the epilogue's int32 tile (rows padded by 8 words) and int8 tile
+  static_assert(kRows * (BN + 8) * 4 + kRows * BN <= kStages * kStage,
+                "the epilogue's tiles must fit the drained stages");
+};
+
+// Byte offset of chunk `c` (16 bytes) of row r in a tile of 128-byte rows
+// in the layout of TMA's 128-byte swizzle, which the descriptor names.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// The epilogue over rows [ra, rb) of the staged int32 tile `sums` into
+// the int8 tile `ys`.  A thread keeps four columns and walks their rows
+// four at a time, every load of a pass before any store, so that nothing
+// serialises them.  Its columns' biases are added to the sums first and
+// each column's shift is passed as the scalar one, so that epilogue()
+// reads nothing per value but the skip (requant adds the bias the same
+// way, with wrap_add, before the shift).  kMerge false is the path with no
+// skip and no concat step: those fields are constants there, so the
+// compiler drops their code from the unchanged epilogue().
+template <int BN, bool kMerge>
+__device__ __forceinline__ void epilogue_rows(
+    const ConvArgs& a, const int32_t* sums, int8_t* ys,
+    const long long* row_pix, const int32_t* s_bias, const int32_t* s_shift,
+    int ra, int rb, int ncols, int cg0) {
+  constexpr int kLd = BN + 8;
+  constexpr int kQuad = BN / 4;            // four-column groups a row
+  constexpr int kStep = kThreads / kQuad;  // rows apart in one pass
+  const int c4 = 4 * (threadIdx.x % kQuad);
+  Epilogue ep = a.ep;
+  ep.bias = nullptr;
+  ep.shift_vec = nullptr;
+  if (!kMerge) {
+    ep.skip = nullptr;
+    ep.concat_shift = 0;
+    ep.concat_relu = 0;
+  }
+  int32_t bias[4];
+  int shift[4];
+  bool ok[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    bias[e] = s_bias[c4 + e];
+    shift[e] = s_shift[c4 + e];
+    ok[e] = c4 + e < ncols;
+  }
+  for (int r0 = ra + static_cast<int>(threadIdx.x) / kQuad; r0 < rb;
+       r0 += 4 * kStep) {
+    int4 sum[4];
+    long long pix[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = min(r0 + kStep * u, rb - 1);
+      sum[u] = *reinterpret_cast<const int4*>(sums + r * kLd + c4);
+      pix[u] = row_pix[r];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int32_t s4[4] = {sum[u].x, sum[u].y, sum[u].z, sum[u].w};
+      uint32_t packed = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int32_t v = 0;
+        if (pix[u] >= 0 && ok[e]) {
+          ep.shift = shift[e];
+          v = epilogue(ep, wrap_add(s4[e], bias[e]), c4 + e,
+                       pix[u] * a.cout + cg0 + c4 + e);
+        }
+        packed |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * e);
+      }
+      if (r0 + kStep * u < rb)
+        *reinterpret_cast<uint32_t*>(ys + (r0 + kStep * u) * BN + c4) = packed;
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
+  using T = Tile<BN>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[kStages];
+  __shared__ long long row_off[kRows];  // window's first input byte
+  __shared__ long long row_pix[kRows];  // conv pixel (N, Ho, Wo) index
+  __shared__ int32_t s_bias[BN], s_shift[BN];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle's alignment
+  uint8_t* const base_ptr = smem_raw + (base - raw);
+  auto a_tile = [&](int s) { return base + s * T::kStage; };
+  auto b_tile = [&](int s) { return base + s * T::kStage + kATile; };
+  auto bar = [&](int s) { return smem_u32(&bars[s]); };
+
+  const int tid = threadIdx.x;
+  const int blk = blockIdx.x;
+  const int g = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
+  const int c0 = blockIdx.y * BN;       // within the group
+  const int cg0 = g * a.cout_g + c0;    // weight row / output channel
+  const int k_total = a.kh * a.kw * a.cin_g;
+  const int kt0 = split * a.chunk;
+  const int n_k = min(a.chunk, a.k_pad / kBK - kt0);
+
+  // K step j of this split into stage j % kStages: B by TMA (one thread),
+  // A gathered by every thread; always one cp.async group, so that the
+  // waits count
+  auto load_b = [&](int j) {
+    const int s = j % kStages;
+    mbar_expect_tx(bar(s), T::kBTile);
+    tma_load(b_tile(s), &map_w, bar(s), (kt0 + j) * kBK, cg0);
+  };
+  auto load_a = [&](int j) {
+    const int s = j % kStages;
+    const int kb = (kt0 + j) * kBK;  // first K byte of the step
+    const uint32_t at = a_tile(s);
+    if (a.mode == 16) {
+      const int c = tid & 7;
+      const int k = kb + 16 * c;
+      const bool kin = k < k_total;
+      const long long ko = kin ? k_offset(a, k) : 0;
+#pragma unroll
+      for (int m = 0; m < kRows / 32; ++m) {
+        const int r = (tid >> 3) + 32 * m;
+        const long long ro = row_off[r];
+        const bool ok = kin && ro >= 0;
+        cp_async16(at + sw128(r, c), ok ? a.x + ro + ko : a.x, ok ? 16 : 0);
+      }
+    } else if (a.mode == 4) {
+      const int wd = tid & 31;
+      const int k = kb + 4 * wd;
+      const bool kin = k < k_total;
+      const long long ko = kin ? k_offset(a, k) : 0;
+#pragma unroll 4
+      for (int m = 0; m < kRows / 8; ++m) {
+        const int r = (tid >> 5) + 8 * m;
+        const long long ro = row_off[r];
+        const bool ok = kin && ro >= 0;
+        cp_async4(at + sw128(r, wd >> 2) + 4 * (wd & 3),
+                  ok ? a.x + ro + ko : a.x, ok ? 4 : 0);
+      }
+    } else {
+      // bytes [kb, kb + kv) hold data: gather them a byte at a time over
+      // every thread, 16-byte chunks wholly past K get zeros
+      uint8_t* const tile = base_ptr + (at - base);
+      const int kv = min(kBK, k_total - kb);
+      const int span = 16 * ((kv + 15) / 16);  // chunks that hold data
+      const int zc = (kBK - span) / 16;         // chunks of zeros
+#pragma unroll 8
+      for (int idx = tid; idx < kRows * span; idx += kThreads) {
+        const int r = idx / span, b = idx - r * span;
+        const long long ro = row_off[r];
+        tile[sw128(r, b >> 4) + (b & 15)] =
+            b < kv && ro >= 0
+                ? static_cast<uint8_t>(a.x[ro + k_offset(a, kb + b)])
+                : 0;
+      }
+      for (int idx = tid; idx < kRows * zc; idx += kThreads) {
+        const int r = idx / zc, c = span / 16 + idx % zc;
+        *reinterpret_cast<uint4*>(tile + sw128(r, c)) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the first weight boxes go out before anything else; meanwhile the
+  // other threads find each row's window (the group's first channel of
+  // its first pixel) and stage the tile's bias and shifts
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bar(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < kStages - 1 && j < n_k; ++j) load_b(j);
+  }
+  if (tid < kRows) {
+    int img, ch, cw;
+    const bool valid = row_pixel(a, blk, tid, kRows, &img, &ch, &cw);
+    row_off[tid] =
+        valid ? ((static_cast<long long>(img) * a.hp + ch * a.sh) * a.wp +
+                 cw * a.sw) * a.cin + g * a.cin_g
+              : -1;
+    row_pix[tid] =
+        valid ? (static_cast<long long>(img) * a.ho + ch) * a.wo + cw : -1;
+  } else if (tid - kRows < BN) {
+    const int c = tid - kRows;
+    const bool in = c0 + c < a.cout_g;
+    s_bias[c] = a.ep.bias != nullptr && in ? a.ep.bias[cg0 + c] : 0;
+    s_shift[c] = a.ep.shift_vec != nullptr && in ? a.ep.shift_vec[cg0 + c]
+                                                 : a.ep.shift;
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  int32_t acc[T::kAcc];
+#pragma unroll
+  for (int i = 0; i < T::kAcc; ++i) acc[i] = 0;
+
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_k) load_a(j);
+    else cp_async_commit();
+  }
+  for (int j = 0; j < n_k; ++j) {
+    const int s = j % kStages;
+    // this thread's A bytes of step j are in; make them (and the plain
+    // stores of the byte gather) visible to wgmma, then wait for all
+    // threads: every warpgroup's step j - 1 products are done, so that
+    // stage is free
+    cp_async_wait<kStages - 2>();
+    fence_async_smem();
+    __syncthreads();
+    mbar_wait(bar(s), (j / kStages) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk)
+      wgmma_s8(acc, sw128_desc(a_tile(s) + wg * 64 * 128 + kk * 32, 16, 1024),
+               sw128_desc(b_tile(s) + kk * 32, 16, 1024));
+    wgmma_commit();
+    // step j + kStages - 1 goes into step j - 1's stage while the tensor
+    // cores run
+    if (j + kStages - 1 < n_k) {
+      load_a(j + kStages - 1);
+      if (tid == 0) load_b(j + kStages - 1);
+    } else {
+      cp_async_commit();
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  // epilogue: the int32 sums go to shared memory in their fragment
+  // layout (a thread holds rows r0 and r0 + 8 of its warp's 16, and of
+  // each 8 columns the pair 2 (lane % 4), + 1; rows padded by 8 words
+  // against bank conflicts), then a short loop applies the epilogue into
+  // the int8 tile ys.  The epilogue unrolled over every fragment register
+  // instead is code enough to stall on instruction fetch.
+  __syncthreads();  // every stage is drained: the tiles may take them
+  constexpr int kLd = BN + 8;
+  int32_t* const sums = reinterpret_cast<int32_t*>(base_ptr);  // (kRows, kLd)
+  int8_t* const ys =
+      reinterpret_cast<int8_t*>(base_ptr + kRows * kLd * 4);  // (kRows, BN)
+  {
+    const int lane = tid & 31;
+    const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn)
+        *reinterpret_cast<int2*>(sums + (r0 + 8 * h) * kLd + 8 * jn + col0) =
+            make_int2(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
+  }
+
+  // The pool windows this block finishes: all of them, or with a K split
+  // its share of them.  The splits of a tile form one cluster (rank =
+  // split); each block adds every other block's sums over its windows'
+  // rows into its own through distributed shared memory, then finishes
+  // those windows alone.
+  const int taps = a.pw * a.pw;
+  const int per_block = kRows / taps;
+  const int w_share = (per_block + a.splits - 1) / a.splits;
+  const int w0 = min(per_block, split * w_share);
+  const int w1 = min(per_block, w0 + w_share);
+  const int ra = w0 * taps, rb = w1 * taps;  // the rows of those windows
+  if (a.splits > 1) {
+    cluster_arrive();
+    cluster_wait();  // every block's sums are staged
+    for (int idx = tid; idx < (rb - ra) * (BN / 4); idx += kThreads) {
+      const int r = ra + idx / (BN / 4), c = 4 * (idx % (BN / 4));
+      int4* const mine = reinterpret_cast<int4*>(sums + r * kLd + c);
+      const uint32_t at = smem_u32(mine);
+      int4 v = *mine;
+      int4 u[kMaxSplits];
+#pragma unroll
+      for (int o = 0; o < kMaxSplits; ++o)   // every load before any add
+        if (o < a.splits && o != split)
+          u[o] = ld_cluster_v4(cluster_map(at, o));
+#pragma unroll
+      for (int o = 0; o < kMaxSplits; ++o)
+        if (o < a.splits && o != split) {
+          v.x = wrap_add(v.x, u[o].x);
+          v.y = wrap_add(v.y, u[o].y);
+          v.z = wrap_add(v.z, u[o].z);
+          v.w = wrap_add(v.w, u[o].w);
+        }
+      *mine = v;
+    }
+    // done reading the others: they may leave once all have said so
+    cluster_arrive();
+  }
+  __syncthreads();
+  const int ncols = min(BN, a.cout_g - c0);
+  if (a.ep.skip == nullptr && a.ep.concat_shift == 0 && a.ep.concat_relu == 0)
+    epilogue_rows<BN, false>(a, sums, ys, row_pix, s_bias, s_shift, ra, rb,
+                             ncols, cg0);
+  else
+    epilogue_rows<BN, true>(a, sums, ys, row_pix, s_bias, s_shift, ra, rb,
+                            ncols, cg0);
+  __syncthreads();
+
+  // max over each window, 16 channels at a time (a byte-wise signed max
+  // of four words); 16-byte stores where the destination allows
+  const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
+  const bool wide = a.wide && (cg0 & 15) == 0;
+  for (int idx = tid; idx < (w1 - w0) * (BN / 16); idx += kThreads) {
+    const int p = w0 + idx / (BN / 16), q = idx % (BN / 16);
+    const long long pooled = static_cast<long long>(blk) * per_block + p;
+    if (pooled >= n_pooled || 16 * q >= ncols) continue;
+    uint4 m = *reinterpret_cast<const uint4*>(ys + p * taps * BN + 16 * q);
+    for (int t = 1; t < taps; ++t) {
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(ys + (p * taps + t) * BN + 16 * q);
+      m.x = __vmaxs4(m.x, v.x);
+      m.y = __vmaxs4(m.y, v.y);
+      m.z = __vmaxs4(m.z, v.z);
+      m.w = __vmaxs4(m.w, v.w);
+    }
+    int8_t* const dst = a.y + pooled * a.c_tot + a.out_off + cg0 + 16 * q;
+    if (wide && 16 * q + 16 <= ncols) {
+      *reinterpret_cast<uint4*>(dst) = m;
+    } else {
+      const int8_t* mb = reinterpret_cast<const int8_t*>(&m);
+      for (int e = 0; e < min(16, ncols - 16 * q); ++e) dst[e] = mb[e];
+    }
+  }
+  // the others may still read this block's sums until all are done
+  if (a.splits > 1) cluster_wait();
+}
+
+// The tensor map of a K-major weight read in boxes of 128 K bytes x BN
+// rows (rows past Cout read as zero).  A map describes memory, not its
+// contents, so maps are kept by (address, k_pad, Cout, BN) and encoded
+// once: a layer's staged weight is encoded at its first launch only.
+int weight_map(const ConvArgs& a, int bn, CUtensorMap* out) {
+  struct Entry {
+    const void* ptr;
+    int k_pad, cout, bn;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 128;
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.ptr == a.wk && e.k_pad == a.k_pad && e.cout == a.cout
+        && e.bn == bn) {
+      *out = e.map;
+      return 0;
+    }
+  }
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof(map));
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.k_pad),
+                              static_cast<cuuint64_t>(a.cout)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.k_pad)};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(bn)};
+  const int err = encode_u8_map(&map, a.wk, 2, dims, strides, box);
+  if (err != 0) return err;
+  Entry& e = cache[next];
+  e.ptr = a.wk; e.k_pad = a.k_pad; e.cout = a.cout; e.bn = bn; e.map = map;
+  next = (next + 1) % kEntries;
+  used = used < kEntries ? used + 1 : kEntries;
+  *out = map;
+  return 0;
+}
+
+template <int BN>
+int launch(const ConvArgs& a, int groups, cudaStream_t st) {
+  CUtensorMap map;
+  const int err = weight_map(a, BN, &map);
+  if (err != 0) return err;
+  // the shared-memory allowance, set once a device
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  if (dev >= 64 || !allowed[dev]) {
+    cerr = cudaFuncSetAttribute(
+        qconv_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tile<BN>::kSmem));
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    if (dev < 64) allowed[dev] = true;
+  }
+  const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
+  const int per_block = kRows / (a.pw * a.pw);
+  const dim3 grid(static_cast<unsigned>((n_pooled + per_block - 1) / per_block),
+                  (a.cout_g + BN - 1) / BN, groups * a.splits);
+  if (a.splits == 1) {
+    qconv_wgmma_kernel<BN><<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
+  } else {
+    // the K splits of a tile are one cluster, adjacent along z
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Tile<BN>::kSmem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = a.splits;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cerr = cudaLaunchKernelEx(&cfg, qconv_wgmma_kernel<BN>, map, a);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Launch the conv.  Pointers may be null where ConvArgs and Epilogue say
 // so.  The wrapper checks every shape, type and range (groups divides Cin
-// and Cout).  Returns cudaGetLastError().
+// and Cout) and chooses the kernel: bn 0 is the __dp4a kernel (w, HWIO);
+// bn 64 or 128 the wgmma kernel (wk, K-major (Cout, k_pad), k_pad a
+// multiple of 128, 16-byte aligned) with `splits` (at most 8, a cluster)
+// K splits of `chunk` K tiles.  mode is the A
+// gather's load width (16: Cin/G % 16 == 0 and x 16-byte aligned; 4:
+// Cin/G % 4 == 0 and x 4-byte aligned; else 1); wide says that c_tot,
+// out_off and y allow 16-byte stores.  Returns cudaGetLastError() or the
+// error of encoding the weight's tensor map.
 extern "C" int qconv_s8(const void* x, const void* w, const void* bias,
                         const void* shift_vec, const void* skip, void* y,
                         int n, int hp, int wp, int cin, int kh, int kw,
@@ -226,10 +723,12 @@ extern "C" int qconv_s8(const void* x, const void* w, const void* bias,
                         int relu, int a_conv, int a_skip, int merge_shift,
                         int merge_relu, int concat_shift, int concat_relu,
                         int c_tot, int out_off, int vec, int groups,
-                        void* stream) {
+                        const void* wk, int bn, int k_pad, int splits,
+                        int chunk, int mode, int wide, void* stream) {
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
+  a.wk = static_cast<const int8_t*>(wk);
   a.y = static_cast<int8_t*>(y);
   a.ep.bias = static_cast<const int32_t*>(bias);
   a.ep.shift_vec = static_cast<const int32_t*>(shift_vec);
@@ -247,10 +746,15 @@ extern "C" int qconv_s8(const void* x, const void* w, const void* bias,
   a.oh = (a.ho - pw) / ps + 1;
   a.ow = (a.wo - pw) / ps + 1;
   a.c_tot = c_tot; a.out_off = out_off; a.vec = vec;
-  const long long n_pooled = static_cast<long long>(n) * a.oh * a.ow;
-  const int per_block = kTileM / (pw * pw);
-  const dim3 grid(static_cast<unsigned>((n_pooled + per_block - 1) / per_block),
-                  (a.cout_g + kTileN - 1) / kTileN, groups);
-  qconv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.k_pad = k_pad; a.splits = splits; a.chunk = chunk; a.mode = mode;
+  a.wide = wide;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == 0) return dp4a::launch(a, groups, st);
+  if (wk == nullptr || k_pad % tc::kBK != 0 || splits < 1
+      || splits > tc::kMaxSplits || chunk < 1
+      || (splits - 1) * chunk >= k_pad / tc::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bn == 128) return tc::launch<128>(a, groups, st);
+  if (bn == 64) return tc::launch<64>(a, groups, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

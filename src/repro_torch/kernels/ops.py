@@ -51,10 +51,12 @@ def reset_launch_counts() -> None:
             c[name] = 0
 
 
-def qgemm(x, w, b=None, *, shift, relu: bool = False) -> torch.Tensor:
+def qgemm(x, w, b=None, *, shift, relu: bool = False,
+          shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``shift`` is an int (per-tensor) or a length-N tuple (per-output-
-    channel weight scales — the per-lane shift vector path)."""
-    return _qgemm.qgemm(x, w, b, shift=shift, relu=relu)
+    channel weight scales — the per-lane shift vector path), which
+    ``shift_vec`` may carry staged on the card."""
+    return _qgemm.qgemm(x, w, b, shift=shift, relu=relu, shift_vec=shift_vec)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -80,6 +82,17 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
 
 # ------------------------------------------------------ NHWC-native paths
 
+def conv_route(groups: int, cin: int, w_shape) -> str:
+    """Which kernel a conv of ``groups`` over ``cin`` channels with an
+    HWIO weight of ``w_shape`` takes: ``"dense"``, ``"depthwise"`` or
+    ``"grouped"`` (see :func:`qconv2d_nhwc`)."""
+    if groups == 1:
+        return "dense"
+    if groups == cin and w_shape[-1] % cin == 0 and w_shape[2] == 1:
+        return "depthwise"
+    return "grouped"
+
+
 def qconv2d_nhwc(
     x: torch.Tensor,  # (N, H, W, Cin) int8, unpadded
     w: torch.Tensor,  # (KH, KW, Cin/groups, Cout) int8 (HWIO)
@@ -99,6 +112,8 @@ def qconv2d_nhwc(
     out_off: int = 0,
     concat_shift: int = 0,
     concat_relu: bool = False,
+    w_k: Optional[torch.Tensor] = None,
+    shift_vec: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused conv+requant+ReLU(+skip/concat)+pool.  Returns NHWC int8
     (post-pool when ``pool`` is given), or ``out_buf`` with this conv's
@@ -111,25 +126,30 @@ def qconv2d_nhwc(
       * anything else (ragged groups) — :func:`qconv.qgconv2d`.
 
     ``shift`` is an int (per-tensor requant) or a length-Cout tuple
-    (per-output-channel weight scales)."""
-    cin = x.shape[-1]
-    cout = w.shape[-1]
+    (per-output-channel weight scales).  ``w_k`` (``w`` staged K-major,
+    :func:`qconv.stage_kmajor`) and ``shift_vec`` (the per-lane shifts
+    staged on the card) are what a built layer made once; without them
+    a CUDA launch stages its own."""
+    route = conv_route(groups, x.shape[-1], w.shape)
     x = ref.pad_nhwc(x, pads).contiguous()
     merge_kw = dict(skip=skip, skip_shifts=skip_shifts,
                     merge_shift=merge_shift, merge_relu=merge_relu,
                     out_buf=out_buf, out_off=out_off,
                     concat_shift=concat_shift, concat_relu=concat_relu)
-    if groups == 1:
+    if route == "dense":
         return _qconv.qconv2d(x, w, b, strides=strides, shift=shift,
-                              relu=relu, pool=pool, **merge_kw)
-    if groups == cin and cout % cin == 0 and w.shape[2] == 1:
+                              relu=relu, pool=pool, w_k=w_k,
+                              shift_vec=shift_vec, **merge_kw)
+    if route == "depthwise":
         return _qconv.qdwconv2d(x, w, b, strides=strides, shift=shift,
-                                relu=relu, pool=pool, **merge_kw)
+                                relu=relu, pool=pool, shift_vec=shift_vec,
+                                **merge_kw)
     if skip is not None or out_buf is not None:
         raise ValueError("merge fusion requires the dense or depthwise "
                          "conv")
     return _qconv.qgconv2d(x, w, b, groups=groups, strides=strides,
-                           shift=shift, relu=relu, pool=pool)
+                           shift=shift, relu=relu, pool=pool, w_k=w_k,
+                           shift_vec=shift_vec)
 
 
 def qadd_nhwc(xs, align_shifts, *, shift=0,

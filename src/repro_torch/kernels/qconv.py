@@ -4,18 +4,31 @@ Each wrapper launches its hand-written CUDA kernel on a CUDA tensor and
 runs the plain version :func:`qconv2d_plain` on a CPU tensor:
 
 * :func:`qconv2d` — dense conv, ``csrc/qconv.cu``; replaces the Pallas
-  kernel ``src/repro/kernels/qconv.py:qconv2d`` (``_qconv_band_kernel`` +
-  ``_band_epilogue``).  With ``out_buf`` it is :func:`qconv2d_into`,
-  which replaces ``_qconv2d_into``.  Bound by operations on the H100: an
-  implicit GEMM on ``__dp4a`` with the fused max-pool computed on whole
-  windows per block (see the note at the top of the source).
+  kernel ``src/repro/kernels/qconv.py:qconv2d`` (``pallas_call`` at
+  ``:619``; ``_qconv_band_kernel`` + ``_band_epilogue``).  With
+  ``out_buf`` it is :func:`qconv2d_into`, which replaces
+  ``_qconv2d_into`` (``:453``).  Bound by operations on the H100: an
+  implicit GEMM on the int8 tensor cores (``wgmma`` s8, 128-row tiles of
+  (pooled pixel, window tap) pairs so that the fused max-pool sees whole
+  windows, weights staged K-major and loaded by TMA, K split across the
+  blocks of a thread-block cluster where the tile grid is under one
+  wave; see the note at the top of the source).  :func:`plan` chooses
+  the tile width and the split; convs narrower than
+  :data:`WGMMA_MIN_COUT` channels a group keep the CUDA-core ``__dp4a``
+  kernel.
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
   Bound by bytes, and at the main path's sizes by launch overhead: a
   direct conv, one thread per (output pixel, output channel).
 * :func:`qgconv2d` — ragged grouped conv, the dense kernel of
   ``csrc/qconv.cu`` with the group on ``gridDim.z``; replaces
-  ``qgconv2d``.
+  ``qgconv2d`` (``:945``).
+
+The dense and grouped kernels take their weight K-major, as
+:func:`stage_kmajor` lays it out; a layer stages it once
+(``core/pipeline.py:build_quantized``) and passes it as ``w_k``, and a
+call without one gets one made for it.  Per-lane shifts may come staged
+the same way (``shift_vec``, :func:`qgemm.stage_shift`).
 
 All of them share one epilogue (``csrc/requant.cuh``), in the order
 :func:`qconv2d_plain` spells out.
@@ -23,6 +36,9 @@ All of them share one epilogue (``csrc/requant.cuh``), in the order
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -31,8 +47,23 @@ from . import _build, ref
 from .qgemm import shift_args
 
 INT8_MIN, INT8_MAX = ref.INT8_MIN, ref.INT8_MAX
-#: GEMM rows of one block: the widest fused pool window it holds.
+#: GEMM rows of one __dp4a block: the widest fused pool window it holds.
 MAX_POOL_TAPS = 64
+#: GEMM rows of one wgmma block: two warpgroups of 64.
+TILE_M = 128
+#: K bytes of one wgmma step: one 128-byte swizzle row of each operand;
+#: the K-major weight's rows are zero-padded to a multiple of it.
+K_TILE = 128
+#: The fewest output channels a group that take the wgmma kernel; narrower
+#: convs (googlenet_tiny's 4-12 channel convs) keep the __dp4a kernel,
+#: which chip_smoke's ``qconv_crossover`` lines time against it.
+WGMMA_MIN_COUT = 16
+#: Streaming multiprocessors the split-K chooser fills when it cannot ask
+#: the card (the H100 SXM's count).
+H100_SMS = 132
+#: The most K splits of one tile: the splits of a tile run as one
+#: thread-block cluster, and 8 is the portable cluster size.
+MAX_SPLITS = 8
 
 #: Launches of each wrapper's kernel (plain-version calls are not counted).
 launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
@@ -40,7 +71,7 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
 
 _SIGNATURES = {
     "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 23
-              + [ctypes.c_void_p]},
+              + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]},
     "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
                 + [ctypes.c_void_p]},
 }
@@ -64,6 +95,8 @@ def qconv2d_plain(
     out_off: int = 0,
     concat_shift: int = 0,
     concat_relu: bool = False,
+    w_k: Optional[torch.Tensor] = None,
+    shift_vec: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernels' semantics in plain PyTorch (any device, any
     ``groups``), in the JAX package's ``_band_epilogue`` order: bias →
@@ -71,8 +104,30 @@ def qconv2d_plain(
     merge requant → merge ReLU → clip; with a concat, the operand's
     alignment and the merge's ReLU; max-pool last.  With ``out_buf`` the
     result is written into its channels ``[out_off, out_off + Cout)``
-    in place and the whole buffer is returned."""
-    acc = ref.int_conv_nhwc(x, w, strides, groups)
+    in place and the whole buffer is returned.  It takes the wrappers'
+    staged copies ``w_k`` and ``shift_vec`` and reads ``w`` and
+    ``shift`` instead."""
+    y = epilogue_plain(ref.int_conv_nhwc(x, w, strides, groups), b,
+                       shift=shift, relu=relu, skip=skip,
+                       skip_shifts=skip_shifts, merge_shift=merge_shift,
+                       merge_relu=merge_relu, concat_shift=concat_shift,
+                       concat_relu=concat_relu)
+    if pool is not None:
+        y = ref.maxpool2d_ref(y, pool[0], pool[1])
+    if out_buf is None:
+        return y
+    out_buf[..., out_off:out_off + y.shape[-1]] = y   # in place
+    return out_buf
+
+
+def epilogue_plain(acc: torch.Tensor, b: Optional[torch.Tensor], *, shift=0,
+                   relu: bool = True, skip: Optional[torch.Tensor] = None,
+                   skip_shifts: Tuple[int, int] = (0, 0),
+                   merge_shift: int = 0, merge_relu: bool = False,
+                   concat_shift: int = 0,
+                   concat_relu: bool = False) -> torch.Tensor:
+    """int32 conv sums (..., Cout) -> the int8 values before the pool, in
+    :func:`qconv2d_plain`'s order (``csrc/requant.cuh:epilogue``)."""
     if b is not None:
         acc = acc + b.to(torch.int32)
     acc = ref.round_shift(acc, shift)
@@ -91,13 +146,120 @@ def qconv2d_plain(
         acc = ref.round_shift(acc, concat_shift).clamp(INT8_MIN, INT8_MAX)
     if concat_relu:
         acc = acc.clamp_min(0)
-    y = acc.to(torch.int8)
-    if pool is not None:
-        y = ref.maxpool2d_ref(y, pool[0], pool[1])
-    if out_buf is None:
-        return y
-    out_buf[..., out_off:out_off + y.shape[-1]] = y   # in place
-    return out_buf
+    return acc.to(torch.int8)
+
+
+def k_padded(k: int) -> int:
+    """K rounded up to the wgmma kernel's K tile."""
+    return K_TILE * math.ceil(k / K_TILE)
+
+
+def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (KH, KW, Cin/G, Cout) int8 -> the wgmma kernel's K-major
+    (Cout, K_pad) int8: row c holds output channel c's weights in the
+    contraction order (kh, kw, ci), zero-padded from K = KH*KW*Cin/G to
+    :func:`k_padded` (every row a multiple of 16 bytes, as TMA needs;
+    the padding adds 0 to every sum).  Made once per layer."""
+    kh, kw, cin_g, cout = w.shape
+    k = kh * kw * cin_g
+    wk = torch.zeros((cout, k_padded(k)), dtype=torch.int8, device=w.device)
+    wk[:, :k] = w.reshape(k, cout).t()
+    return wk
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one conv call runs: the kernel, its tiles and its K split."""
+
+    kernel: str      # "wgmma" or "dp4a"
+    bn: int          # output channels a wgmma tile (0: dp4a)
+    k: int           # contraction depth KH*KW*Cin/G
+    k_pad: int       # K padded to the K tile
+    m_tiles: int     # row tiles of (pooled pixel, tap) pairs
+    n_tiles: int     # channel tiles a group
+    groups: int
+    splits: int      # K splits a tile
+    chunk: int       # K tiles a split (the last may hold fewer)
+
+    @property
+    def k_tiles(self) -> int:
+        return self.k_pad // K_TILE
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles * self.groups
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def split_ranges(self):
+        """The K tiles [start, stop) of each split, in order."""
+        return [(s * self.chunk, min((s + 1) * self.chunk, self.k_tiles))
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
+         strides: Tuple[int, int] = (1, 1),
+         pool: Optional[Tuple[int, int]] = None, groups: int = 1,
+         sms: int = H100_SMS) -> Plan:
+    """The kernel, tile and K split of a conv, from its shapes alone.
+
+    Cout/G below :data:`WGMMA_MIN_COUT` takes the __dp4a kernel (64-row
+    tiles).  Otherwise the wgmma kernel: 128-row tiles holding
+    ``TILE_M // taps`` whole pool windows, 128 channels a tile where
+    Cout/G >= 128, else 64.  Where the tiles do not fill ``sms`` blocks,
+    each tile's K tiles are split over ``min(sms // tiles, MAX_SPLITS)``
+    blocks at most: the smallest chunk of K tiles a block that keeps the
+    grid within one wave, and as few splits as that chunk needs."""
+    sh, sw = strides
+    ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    pw, ps = pool if pool is not None else (1, 1)
+    oh, ow = (ho - pw) // ps + 1, (wo - pw) // ps + 1
+    cin_g, cout_g = cin // groups, cout // groups
+    k = kh * kw * cin_g
+    n_pooled = n * oh * ow
+    if cout_g < WGMMA_MIN_COUT:
+        per_block = 64 // (pw * pw)
+        return Plan("dp4a", 0, k, k, math.ceil(n_pooled / per_block),
+                    math.ceil(cout_g / 64), groups, 1, 1)
+    bn = 128 if cout_g >= 128 else 64
+    per_block = TILE_M // (pw * pw)
+    m_tiles = math.ceil(n_pooled / per_block)
+    n_tiles = math.ceil(cout_g / bn)
+    k_pad = k_padded(k)
+    k_tiles = k_pad // K_TILE
+    tiles = m_tiles * n_tiles * groups
+    chunk = k_tiles
+    if tiles < sms:
+        chunk = math.ceil(k_tiles / min(sms // tiles, MAX_SPLITS))
+    return Plan("wgmma", bn, k, k_pad, m_tiles, n_tiles, groups,
+                math.ceil(k_tiles / chunk), chunk)
+
+
+def gather_width(cin_g: int, x: torch.Tensor) -> int:
+    """Bytes of each load of the wgmma kernel's A gather: 16 where a
+    group's channels and the input allow 16-byte copies, else 4, else
+    1."""
+    for width in (16, 4):
+        if cin_g % width == 0 and x.data_ptr() % width == 0:
+            return width
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_of(x: torch.Tensor, w: torch.Tensor, strides, pool,
+            groups: int) -> Plan:
+    """:func:`plan` of a call, with the SM count of the card it runs on."""
+    sms = _sms(x.device) if x.device.type == "cuda" else H100_SMS
+    return plan(*x.shape, w.shape[0], w.shape[1], w.shape[3],
+                tuple(strides), None if pool is None else tuple(pool),
+                groups, sms)
 
 
 def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
@@ -108,11 +270,14 @@ def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
 
 def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
             skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
-            concat_relu, what: str) -> None:
+            concat_relu, what: str, w_k=None, shift_vec=None) -> None:
     """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
     dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
-    ``out.shape[-1]``).  Every check comes before the device's, so a
-    tensor on any device reports a bad operand first."""
+    ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
+    (:func:`stage_kmajor`; made here when the wgmma kernel needs it and
+    none is given), ``shift_vec`` the per-lane shifts staged on the card.
+    Every check comes before the device's, so a tensor on any device
+    reports a bad operand first."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
     if x.ndim != 4 or w.ndim != 4:
@@ -133,6 +298,9 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
         raise ValueError(f"{what}: window {kh}x{kw} stride {strides} over "
                          f"input {hp}x{wp}")
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    if n * ho * wo >= 2 ** 31:
+        raise ValueError(f"{what}: {n}x{ho}x{wo} output pixels; the kernels "
+                         "index them with 32 bits")
     pw, ps = pool if pool is not None else (1, 1)
     if pw * pw > MAX_POOL_TAPS or ho < pw or wo < pw or ps < 1:
         raise ValueError(f"{what}: pool {pool} over conv output {ho}x{wo}")
@@ -162,7 +330,15 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
                     ("concat_shift", concat_shift)):
         if not 0 <= int(v) <= 31:
             raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
-    s, svec = shift_args(shift, cout, x.device)
+    s, svec = shift_args(shift, cout, x.device, shift_vec)
+    k_pad = k_padded(kh * kw * cin_g)
+    if w_k is not None and (w_k.dtype != torch.int8
+                            or tuple(w_k.shape) != (cout, k_pad)
+                            or w_k.device != x.device
+                            or not w_k.is_contiguous()):
+        raise ValueError(f"{what}: staged weight must be contiguous int8 "
+                         f"({cout}, {k_pad}) on {x.device}, got "
+                         f"{w_k.dtype} {tuple(w_k.shape)} on {w_k.device}")
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
     args = [n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps, s, int(relu),
@@ -171,13 +347,23 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     lib = _build.load(kernel, _SIGNATURES[kernel])
     p = _build.ptr
     ptrs = (p(x), p(w), p(b), p(svec), p(skip), p(out))
+    stream = _build.stream(x.device)
     if kernel == "qdwconv":
-        err = lib.qdwconv_s8(*ptrs, *args, _build.stream(x.device))
+        err = lib.qdwconv_s8(*ptrs, *args, stream)
     else:
         # 4-byte input loads need whole words inside each group's slice
         vec = int(cin_g % 4 == 0 and x.data_ptr() % 4 == 0)
-        err = lib.qconv_s8(*ptrs, *args, vec, int(groups),
-                           _build.stream(x.device))
+        pl = plan_of(x, w, strides, pool, groups)
+        if pl.kernel == "wgmma":
+            if w_k is None:
+                w_k = stage_kmajor(w)
+            if w_k.data_ptr() % 16:   # TMA reads 16-byte aligned rows
+                w_k = w_k.clone()
+        wide = int(c_tot % 16 == 0 and out_off % 16 == 0
+                   and out.data_ptr() % 16 == 0)
+        err = lib.qconv_s8(*ptrs, *args, vec, int(groups), p(w_k), pl.bn,
+                           pl.k_pad, pl.splits, pl.chunk,
+                           gather_width(cin_g, x), wide, stream)
     _build.check(err, what)
 
 
@@ -226,26 +412,32 @@ def qconv2d(
     out_off: int = 0,
     concat_shift: int = 0,
     concat_relu: bool = False,
+    w_k: Optional[torch.Tensor] = None,  # w staged K-major (stage_kmajor)
+    shift_vec: Optional[torch.Tensor] = None,  # per-lane shifts, staged
 ) -> torch.Tensor:
     """Dense fused int8 conv.  Returns (N, OH, OW, Cout) int8 (post-pool
     when ``pool`` is given); with ``out_buf`` the result lands in that
     buffer's channels ``[out_off, out_off + Cout)`` (see
     :func:`qconv2d_into`) and the buffer is returned.  ``skip`` is a
     residual operand in the *conv output* geometry (pre-pool).  On a CPU
-    tensor this is the plain version; on a CUDA tensor it launches the
-    kernel or raises."""
+    tensor this is the plain version (``w_k`` and ``shift_vec`` unused);
+    on a CUDA tensor it launches the kernel or raises."""
     kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool, skip=skip,
                skip_shifts=skip_shifts, merge_shift=merge_shift,
                merge_relu=merge_relu, concat_shift=concat_shift,
                concat_relu=concat_relu)
     if out_buf is not None:
-        return qconv2d_into(x, w, b, out_buf, out_off=out_off, **kw_)
+        return qconv2d_into(x, w, b, out_buf, out_off=out_off, w_k=w_k,
+                            shift_vec=shift_vec, **kw_)
     if x.device.type == "cpu":
         return qconv2d_plain(x, w, b, **kw_)
-    return _run("qconv", "qconv2d", x, w, b, groups=1, **kw_)
+    return _run("qconv", "qconv2d", x, w, b, groups=1, w_k=w_k,
+                shift_vec=shift_vec, **kw_)
 
 
 def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
+                 w_k: Optional[torch.Tensor] = None,
+                 shift_vec: Optional[torch.Tensor] = None,
                  **kw) -> torch.Tensor:
     """Concat-epilogue variant of :func:`qconv2d`: writes the conv's
     result, after this operand's ``concat_shift`` alignment and the
@@ -256,7 +448,7 @@ def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
     if x.device.type == "cpu":
         return qconv2d_plain(x, w, b, out_buf=out_buf, out_off=out_off, **kw)
     return _run("qconv", "qconv2d_into", x, w, b, groups=1, out_buf=out_buf,
-                out_off=out_off, **kw)
+                out_off=out_off, w_k=w_k, shift_vec=shift_vec, **kw)
 
 
 def qdwconv2d(
@@ -276,6 +468,7 @@ def qdwconv2d(
     out_off: int = 0,
     concat_shift: int = 0,
     concat_relu: bool = False,
+    shift_vec: Optional[torch.Tensor] = None,  # per-lane shifts, staged
 ) -> torch.Tensor:
     """Depthwise fused int8 conv (group == Cin, Cout = m·Cin; output
     channel c convolves input channel c // m) with the same epilogues as
@@ -290,19 +483,22 @@ def qdwconv2d(
     if x.device.type == "cpu":
         return qdwconv2d_plain(x, w, b, **kw_)
     what = "qdwconv2d" if out_buf is None else "qdwconv2d_into"
-    return _run("qdwconv", what, x, w, b, groups=x.shape[-1], **kw_)
+    return _run("qdwconv", what, x, w, b, groups=x.shape[-1],
+                shift_vec=shift_vec, **kw_)
 
 
 def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), shift=0, relu=True,
-             pool=None) -> torch.Tensor:
+             pool=None, w_k: Optional[torch.Tensor] = None,
+             shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ragged grouped int8 conv (1 < groups < Cin; HWIO weight
     (KH, KW, Cin/groups, Cout)) with requant, ReLU and the fused
     max-pool; it never takes a skip or a concat buffer.  On a CPU tensor
     this is the plain version; on a CUDA tensor it launches the dense
-    kernel once per group or raises."""
+    kernel, every group at once, or raises."""
     kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
     if x.device.type == "cpu":
         return qconv2d_plain(x, w, b, groups=groups, **kw_)
     return _run("qconv", "qgconv2d", x, w, b, groups=groups, skip=None,
                 skip_shifts=(0, 0), merge_shift=0, merge_relu=False,
-                concat_shift=0, concat_relu=False, **kw_)
+                concat_shift=0, concat_relu=False, w_k=w_k,
+                shift_vec=shift_vec, **kw_)

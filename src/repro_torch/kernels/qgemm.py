@@ -30,16 +30,33 @@ _SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                + [ctypes.c_void_p]}
 
 
-def qgemm_plain(x, w, b=None, *, shift, relu: bool = False) -> torch.Tensor:
-    """The kernel's semantics in plain PyTorch (any device)."""
+def qgemm_plain(x, w, b=None, *, shift, relu: bool = False,
+                shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's semantics in plain PyTorch (any device); the staged
+    ``shift_vec`` is not read: ``shift`` says the same."""
     return ref.qgemm_ref(x, w, b, shift, relu)
 
 
-def shift_args(shift, n: int, device) -> Tuple[int, Optional[torch.Tensor]]:
+def shift_args(shift, n: int, device, staged: Optional[torch.Tensor] = None
+               ) -> Tuple[int, Optional[torch.Tensor]]:
     """(scalar, per-lane vector or None) shift arguments of a launch.
     ``shift`` is an int or a length-``n`` sequence of ints; every count
     must lie in [0, 31], the range the kernels' round-half-up add
-    supports."""
+    supports.  ``staged`` is the per-lane vector already on ``device``
+    (:func:`stage_shift` of the same ``shift``, made once at build time):
+    it is used as it is, and no copy is made for the launch."""
+    if staged is not None:
+        if not isinstance(shift, (tuple, list)):
+            raise ValueError("a staged shift vector needs per-lane shifts")
+        if staged.dtype != torch.int32 or tuple(staged.shape) != (n,) \
+                or staged.device != torch.device(device) \
+                or not staged.is_contiguous():
+            raise ValueError(f"staged shifts must be ({n},) int32 on "
+                             f"{device}, got {tuple(staged.shape)} "
+                             f"{staged.dtype} on {staged.device}")
+        if len(shift) != n:
+            raise ValueError(f"{len(shift)} per-lane shifts for {n} lanes")
+        return 0, staged
     if isinstance(shift, (tuple, list)):
         lanes = [int(s) for s in shift]
         if len(lanes) != n:
@@ -52,6 +69,13 @@ def shift_args(shift, n: int, device) -> Tuple[int, Optional[torch.Tensor]]:
     if not 0 <= s <= 31:
         raise ValueError(f"shift must lie in [0, 31], got {s}")
     return s, None
+
+
+def stage_shift(shift, n: int, device) -> Optional[torch.Tensor]:
+    """The int32 per-lane shift vector of ``shift`` on ``device`` (checked
+    as :func:`shift_args` checks it), or None for a scalar shift: what a
+    layer stages once so that its launches pass ``shift_vec``."""
+    return shift_args(shift, n, device)[1]
 
 
 def _block_m(m: int) -> int:
@@ -70,11 +94,14 @@ def _splits(m: int, n: int, k: int, bm: int, device) -> tuple:
 
 
 def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-          *, shift, relu: bool = False) -> torch.Tensor:
+          *, shift, relu: bool = False,
+          shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``requant(x @ w + b)``: x (M, K) int8, w (K, N) int8, b (N,) int32
     or None; ``shift`` an int or a length-N sequence of per-column
-    shifts.  Returns (M, N) int8.  On a CPU tensor this is the plain
-    version; on a CUDA tensor it launches the kernel or raises."""
+    shifts, ``shift_vec`` the latter staged on the card
+    (:func:`stage_shift`).  Returns (M, N) int8.  On a CPU tensor this is
+    the plain version; on a CUDA tensor it launches the kernel or
+    raises."""
     if x.device.type == "cpu":
         return qgemm_plain(x, w, b, shift=shift, relu=relu)
     if x.device.type != "cuda":
@@ -95,7 +122,7 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if not (x.is_contiguous() and w.is_contiguous()
             and (b is None or b.is_contiguous())):
         raise ValueError("qgemm takes contiguous tensors")
-    s, svec = shift_args(shift, n, x.device)
+    s, svec = shift_args(shift, n, x.device, shift_vec)
     y = torch.empty((m, n), dtype=torch.int8, device=x.device)
     if m == 0 or n == 0:
         return y
