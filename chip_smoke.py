@@ -13,18 +13,19 @@ Six phases, each printing one JSON line per check:
    the GEMM, and a seeded random sweep over all of them, with the dense
    kernel's edges (split K at 14x14x512, batch 1 and 8; rows and K off
    its tiles; Cin 3; 11x11/4 with the 3x3/2 pool; cout_g 192; skip with
-   pool; concat buffers at odd offsets), each conv check printing its
-   plan (kernel, tile width, K split); the standalone pools' plain
-   versions on the card equal to the CPU's;
+   pool; concat buffers at odd offsets; narrow convs of 4-64 channels),
+   each conv check printing its plan (tile width, K split); the
+   standalone pools' plain versions on the card equal to the CPU's;
 2. VGG-16 at full width (224x224, 1000 classes, 138 M random weights
    from a seed): ``CNN2Gate.from_graph`` -> ``calibrate_quantization`` ->
    ``build``, then serve 8 requests at batch 1 and one batch of 8.  The
    logits must equal those of the same executor with the plain ops, and
    every forward must launch the conv kernel 13 times and the GEMM
    kernel 3 times.  Every kernel call of a forward is held equal to its
-   plain version and timed, at batch 1 and at batch 8, and every conv
-   call must take the int8 ``wgmma`` kernel, whose library's SASS must
-   hold IGMMA and UTMALDG;
+   plain version and timed, at batch 1 and at batch 8; the profiler
+   must see the int8 ``wgmma`` kernel launched once for every conv
+   call, and its library's SASS must hold IGMMA and UTMALDG and no
+   other kernel;
 3. mobilenet_tiny at its own widths on 224x224 inputs, per-tensor and
    per-channel, served the same way: every forward launches the dense
    conv 4 times, the depthwise conv 3 times and the GEMM once;
@@ -32,9 +33,8 @@ Six phases, each printing one JSON line per check:
    fused skip (dw-skip), a depthwise and a dense producer of one concat
    (dw-concat), and the two-tower AlexNet (group 2 on convs 2, 4 and 5,
    224x224), each fused and unfused, per-tensor and per-channel: fused
-   == unfused and kernel == plain, every AlexNet conv on ``wgmma``; then
-   the __dp4a and ``wgmma`` conv kernels timed on the same narrow and
-   wide convs (``qconv_crossover``), where ``WGMMA_MIN_COUT`` comes from;
+   == unfused and kernel == plain, every AlexNet and googlenet_tiny
+   conv launching the ``wgmma`` kernel;
 5. lm, the dense-LM serving path in bf16 with random weights from a
    seed: the built flash library's SASS must hold HGMMA (wgmma) and
    UTMALDG (TMA loads); the flash-attention kernel held against its
@@ -313,7 +313,18 @@ def conv_cases():
              s=1, p=1, groups=2, pool=(3, 2)),
         dict(name="skip_pool_per_lane_c256", n=2, h=14, cin=128, cout=256,
              k=3, s=1, p=1, skip=True, pool=(2, 2), per_lane=True),
-    ]
+    ] + [
+        # narrow convs on a 64-channel tile: googlenet_tiny's Cout 4-12
+        # (batch 2), then 8-64 channels over 56x56x64
+        dict(name=f"narrow_{n}x{h}x{cin}_c{cout}_k{k}", n=n, h=h, cin=cin,
+             cout=cout, k=k, s=1, p=p, pool=pool)
+        for n, h, cin, cout, k, p, pool in (
+            (2, 12, 16, 4, 1, 0, None), (2, 12, 16, 8, 1, 0, None),
+            (2, 14, 8, 12, 3, 1, (2, 2)), (2, 12, 4, 6, 5, 2, (2, 2)),
+            (2, 6, 32, 10, 1, 0, None), (2, 14, 16, 16, 3, 1, None),
+            (2, 14, 16, 32, 3, 1, None), (1, 56, 64, 8, 3, 1, None),
+            (1, 56, 64, 16, 3, 1, None), (1, 56, 64, 32, 3, 1, None),
+            (1, 56, 64, 64, 3, 1, None))]
 
 
 def conv_kind(c):
@@ -330,14 +341,14 @@ def conv_kind(c):
 
 
 def conv_plan(name, x, w, kw):
-    """The dense/grouped kernel's plan of a conv call (its kernel, tile
-    width and K split) as a dict; None for the depthwise kernel."""
+    """The dense/grouped kernel's plan of a conv call (its tile width and
+    K split) as a dict; None for the depthwise kernel."""
     from repro_torch.kernels import qconv
     if not name.startswith(("qconv2d", "qgconv2d")):
         return None
     groups = x.shape[-1] // w.shape[2]
     pl = qconv.plan_of(x, w, kw["strides"], kw.get("pool"), groups)
-    return dict(kernel=pl.kernel, bn=pl.bn, k_pad=pl.k_pad,
+    return dict(bn=pl.bn, k_pad=pl.k_pad,
                 tiles=pl.tiles, splits=pl.splits, chunk=pl.chunk,
                 blocks=pl.blocks)
 
@@ -686,6 +697,30 @@ def device_time(torch, fn, wall_ms: float) -> dict:
                 top_device_ms=dict(top))
 
 
+def wgmma_launches(torch, fn) -> dict:
+    """Launches of the int8 ``wgmma`` conv kernel in one call of ``fn``,
+    as ``torch.profiler`` sees them on the device, beside the launches of
+    every device kernel in the trace.  A trace that holds no device
+    event at all is a trace that failed, not a finding: it is taken
+    again, three times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    seen: list = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA]
+        if seen:
+            break
+    return dict(wgmma_launches=sum(ev.count for ev in seen
+                                   if "qconv_wgmma_kernel" in ev.key),
+                device_launches=sum(ev.count for ev in seen))
+
+
 def phase_vgg(torch, dev, records):
     from repro_torch.core.synthesis import CNN2Gate
     from repro_torch.kernels import ops
@@ -745,10 +780,10 @@ def phase_vgg(torch, dev, records):
     emit(phase="vgg16", batch=8, qconv2d_ms=b8["qconv2d"]["ms"],
          qgemm_ms=b8["qgemm"]["ms"],
          qconv2d_bound_ms=b8["qconv2d"]["bound_ms"])
-    plans = records["qconv2d"]["plans"] + b8["qconv2d"]["plans"]
-    check("vgg16", "every_conv_call_on_the_wgmma_kernel",
-          len(plans) == 26 and all(p["kernel"] == "wgmma" for p in plans),
-          kernels=[p["kernel"] for p in plans])
+    for x, tag in ((reqs[0], "batch1"), (batch, "batch8")):
+        wg = wgmma_launches(torch, lambda: run(x))
+        check("vgg16", f"every_conv_call_on_the_wgmma_kernel_{tag}",
+              wg["wgmma_launches"] == 13, conv_calls=13, **wg)
     attach_qconv_build(torch, records, "qconv2d")
     library_yardstick(torch, dev)
 
@@ -945,13 +980,11 @@ def phase_paths(torch, dev, records):
             if name in PATH_RECORDS and not per_channel:
                 recs = kernel_records(torch, run_f, xs[0], launches, dev,
                                       name)
-                if name == "alexnet_2tower":
-                    plans = [p for r in recs.values()
-                             for p in r.get("plans", [])]
+                if name in ("alexnet_2tower", "googlenet_tiny"):
+                    wg = wgmma_launches(torch, lambda: run_f(xs[0]))
                     check(name, f"{tag}_every_conv_call_on_the_wgmma_kernel",
-                          len(plans) == n_conv
-                          and all(p["kernel"] == "wgmma" for p in plans),
-                          kernels=[p["kernel"] for p in plans])
+                          wg["wgmma_launches"] == n_conv, conv_calls=n_conv,
+                          **wg)
                 kept = PATH_RECORDS[name]
                 records[kept] = recs[kept]
                 if kept != "qdwconv2d_into":
@@ -971,47 +1004,6 @@ def phase_paths(torch, dev, records):
                      statistics.median(times), ms_batch2_first=fused_ms)
                 emit(phase=name, mode=tag, **device_time(
                     torch, lambda: run_f(x1), statistics.median(times)))
-    qconv_crossover(torch, dev)
-
-
-def qconv_crossover(torch, dev) -> None:
-    """Time the __dp4a and wgmma kernels on the same convs, each held
-    equal to the plain version: googlenet_tiny's narrow convs (Cout 4-12,
-    batch 2) and wider ones, to place ``qconv.WGMMA_MIN_COUT``."""
-    from repro_torch.kernels import qconv
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 11)
-    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
-    keep = qconv.WGMMA_MIN_COUT
-    bad = []
-    # n, h (unpadded), cin, cout, k, pad, pool
-    for n, h, cin, cout, k, p, pool in (
-            (2, 12, 16, 4, 1, 0, None), (2, 12, 16, 8, 1, 0, None),
-            (2, 14, 8, 12, 3, 1, (2, 2)), (2, 12, 4, 6, 5, 2, (2, 2)),
-            (2, 6, 32, 10, 1, 0, None), (2, 14, 16, 16, 3, 1, None),
-            (2, 14, 16, 32, 3, 1, None), (1, 56, 64, 8, 3, 1, None),
-            (1, 56, 64, 16, 3, 1, None), (1, 56, 64, 32, 3, 1, None),
-            (1, 56, 64, 64, 3, 1, None)):
-        c = dict(name=f"x{n}x{h}x{cin}_c{cout}_k{k}", n=n, h=h, cin=cin,
-                 cout=cout, k=k, s=1, p=p, pool=pool)
-        x, w, b, kw = conv_inputs(torch, c, gen, dev)
-        yp = qconv.qconv2d_plain(x, w, b, **kw)
-        row = dict(shape=[n, h, h, cin], cout=cout, k=k, pool=pool)
-        try:
-            for kernel, floor in (("dp4a", 1 << 30), ("wgmma", 1)):
-                qconv.WGMMA_MIN_COUT = floor
-                qconv.plan.cache_clear()
-                if not torch.equal(qconv.qconv2d(x, w, b, **kw), yp):
-                    bad.append((c["name"], kernel))
-                row[f"{kernel}_ms"] = time_ms(
-                    torch, lambda: qconv.qconv2d(x, w, b, **kw), flush=flush)
-        finally:
-            qconv.WGMMA_MIN_COUT = keep
-            qconv.plan.cache_clear()
-        row["faster"] = min(("dp4a", "wgmma"), key=lambda kk: row[kk + "_ms"])
-        emit(phase="qconv_crossover", **row)
-    check("paths", "qconv_crossover_kernels_equal_plain", not bad,
-          failures=bad, wgmma_min_cout=keep)
 
 
 # ---------------------------------------------- phase 5: the dense-LM path
@@ -1229,10 +1221,9 @@ def build_record(torch, phase: str, lib: str, label,
 
 
 def qconv_label(mangled: str):
-    if "qconv_dp4a_kernel" in mangled:
-        return "qconv_dp4a_kernel"
+    """Every kernel of the qconv library, the wgmma instances by name."""
     inst = re.search(r"qconv_wgmma_kernelILi(\d+)E", mangled)
-    return f"qconv_wgmma_kernel<{inst.group(1)}>" if inst else None
+    return f"qconv_wgmma_kernel<{inst.group(1)}>" if inst else mangled
 
 
 _QCONV_BUILD: dict = {}
@@ -1245,12 +1236,15 @@ def attach_qconv_build(torch, records, name: str) -> None:
     if not _QCONV_BUILD:
         _QCONV_BUILD.update(build_record(torch, "vgg16", "qconv",
                                          qconv_label, ("IGMMA", "UTMALDG")))
+        names = sorted(_QCONV_BUILD["ptxas"])
+        check("vgg16", "qconv_library_holds_only_the_wgmma_kernel",
+              names == ["qconv_wgmma_kernel<128>", "qconv_wgmma_kernel<64>"],
+              kernels=names)
     r = records.get(name)
     if r is not None:
         r["extra"] = dict(
             design="int8 wgmma (IGMMA), TMA-fed K-major weights, K split "
-                   "over a cluster under one wave (DSMEM reduction); __dp4a "
-                   "below WGMMA_MIN_COUT channels",
+                   "over a cluster under one wave (DSMEM reduction)",
             plans=r.pop("plans", []), **_QCONV_BUILD)
 
 

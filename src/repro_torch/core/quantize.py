@@ -30,6 +30,7 @@ units.  This module implements:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -65,10 +66,13 @@ class QuantSpec:
         ``m_y``: every per-lane shift must stay non-negative)."""
         return min(self.m_w) if self.per_channel else self.m_w
 
-    @property
+    @functools.cached_property
     def requant_shift(self) -> Union[int, Tuple[int, ...]]:
         """int32 accumulator (scale 2^-(m_w+m_x)) -> int8 out (scale
-        2^-m_y).  A per-channel spec yields a per-lane shift vector."""
+        2^-m_y).  A per-channel spec yields a per-lane shift vector.
+        Worked out once per spec: the executor reads it at every stage
+        of every forward, and a per-lane vector costs a pass over its
+        lanes."""
         shifts = shift_lanes(self)
         if self.per_channel:
             if any(s < 0 for s in shifts):

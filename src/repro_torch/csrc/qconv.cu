@@ -22,14 +22,16 @@
 // those weight columns.  The group rides gridDim.z and each block's channel
 // tiles are masked at the group's edge, so no tile mixes two groups.
 //
-// Both kernels are implicit GEMMs: rows are (pooled pixel, window tap)
+// The kernel is an implicit GEMM: rows are (pooled pixel, window tap)
 // pairs, columns output channels, the contraction runs over (kh, kw, ci).
 // With the rows in that order a block owns whole pool windows, so the
 // fused max-pool never crosses blocks: a tap shared by two of AlexNet's
 // overlapping 3x3/2 windows is computed once for each (2.25x the conv
 // work; none extra for VGG's 2x2/2).  The epilogue writes the block's int8
 // values to shared memory, and the block then reduces each window and
-// stores the pooled row.
+// stores the pooled row.  Every dense and grouped conv takes it, down to
+// googlenet_tiny's 4-channel convs: a group narrower than the tile masks
+// the columns past its edge.
 //
 // What bounds it on the H100: the conv layers of VGG-16 and AlexNet reuse
 // every input byte KH*KW*Cout times and every weight byte once per output
@@ -70,11 +72,6 @@
 // * The epilogue runs over the int32 tile staged in shared memory, one
 //   (row, channel) pair a thread at a time, and pooled rows leave in
 //   16-byte stores where the output's offset allows.
-//
-// Convs with fewer than 16 output channels per group (kernels/qconv.py:
-// WGMMA_MIN_COUT; googlenet_tiny's 4-12 channel convs) keep the CUDA-core
-// kernel qconv_dp4a_kernel: a 64 x 64 tile, each of 256 threads a 4 x 4
-// sub-tile on __dp4a, which measured faster there (PERF.md).
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -89,8 +86,7 @@ namespace {
 
 struct ConvArgs {
   const int8_t* x;          // (N, Hp, Wp, Cin)
-  const int8_t* w;          // (KH, KW, Cin/G, Cout) == (K, Cout)
-  const int8_t* wk;         // (Cout, k_pad), K-major (wgmma kernel)
+  const int8_t* wk;         // (Cout, k_pad), K-major
   int8_t* y;                // (N, OH, OW, c_tot)
   Epilogue ep;
   int n, hp, wp, cin, kh, kw, cout, sh, sw;
@@ -98,9 +94,8 @@ struct ConvArgs {
   int ho, wo, oh, ow;       // conv and output (pooled) geometry
   int pw, ps;               // pool window and stride; 1, 1 without a pool
   int c_tot, out_off;
-  int vec;                  // Cin/G % 4 == 0 and x is 4-byte aligned
-  int k_pad, splits, chunk;  // wgmma: padded K, K split, K tiles a split
-  int mode;                 // wgmma A gather: 16-, 4- or 1-byte loads
+  int k_pad, splits, chunk;  // padded K, K split, K tiles a split
+  int mode;                 // A gather: 16-, 4- or 1-byte loads
   int wide;                 // c_tot, out_off and y allow 16-byte stores
 };
 
@@ -130,147 +125,6 @@ __device__ __forceinline__ long long k_offset(const ConvArgs& a, int k) {
   const int ci = k - t * a.cin_g;
   return (static_cast<long long>(t / a.kw) * a.wp + t % a.kw) * a.cin + ci;
 }
-
-// ------------------------------------------------ CUDA cores, narrow Cout
-
-namespace dp4a {
-
-constexpr int kThreads = 256;
-constexpr int kTileM = 64;  // GEMM rows: (pooled pixel, window tap) pairs
-constexpr int kTileN = 64;  // output channels
-constexpr int kTileK = 32;  // contraction step
-constexpr int kQuads = kTileK / 4;
-
-// Input byte k of the contraction for the window whose group slice starts
-// at `base`.
-__device__ __forceinline__ uint8_t x_at(const ConvArgs& a, long long base,
-                                        int k) {
-  return static_cast<uint8_t>(a.x[base + k_offset(a, k)]);
-}
-
-__global__ void __launch_bounds__(kThreads) qconv_dp4a_kernel(ConvArgs a) {
-  __shared__ __align__(16) uint32_t as[kQuads][kTileM];
-  __shared__ __align__(16) uint32_t bs[kQuads][kTileN];
-  __shared__ int8_t ys[kTileM][kTileN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channels tx*4 .. tx*4+3
-  const int ty = tid / 16;  // rows ty*4 .. ty*4+3
-  const int blk = blockIdx.x;
-  const int c0 = blockIdx.y * kTileN;             // within the group
-  const int cg0 = blockIdx.z * a.cout_g + c0;     // weight / output column
-  const int k_total = a.kh * a.kw * a.cin_g;
-
-  // the A row this thread stages, and its input window's base offset
-  // (the group's first channel of the window's first pixel)
-  const int a_row = tid % kTileM;
-  int img, ch, cw;
-  const bool a_valid = row_pixel(a, blk, a_row, kTileM, &img, &ch, &cw);
-  const long long a_base =
-      a_valid ? ((static_cast<long long>(img) * a.hp + ch * a.sh) * a.wp +
-                 cw * a.sw) * a.cin + blockIdx.z * a.cin_g
-              : 0;
-  const int b_col = tid % kTileN;
-  const bool b_valid = c0 + b_col < a.cout_g;
-
-  int32_t acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < k_total; k0 += kTileK) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = tid / kTileM + 4 * h;
-      const int k = k0 + 4 * q;
-      uint32_t word = 0;
-      if (a_valid) {
-        if (a.vec && k + 3 < k_total) {
-          word = *reinterpret_cast<const uint32_t*>(a.x + a_base +
-                                                    k_offset(a, k));
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k + i < k_total)
-              word |= static_cast<uint32_t>(x_at(a, a_base, k + i)) << (8 * i);
-        }
-      }
-      as[q][a_row] = word;
-
-      uint32_t wword = 0;
-      if (b_valid) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k + i < k_total)
-            wword |= static_cast<uint32_t>(static_cast<uint8_t>(
-                         a.w[static_cast<long long>(k + i) * a.cout + cg0 +
-                             b_col]))
-                     << (8 * i);
-      }
-      bs[q][b_col] = wword;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kQuads; ++q) {
-      const uint4 av = *reinterpret_cast<const uint4*>(&as[q][ty * 4]);
-      const uint4 bv = *reinterpret_cast<const uint4*>(&bs[q][tx * 4]);
-      const int ar[4] = {static_cast<int>(av.x), static_cast<int>(av.y),
-                         static_cast<int>(av.z), static_cast<int>(av.w)};
-      const int br[4] = {static_cast<int>(bv.x), static_cast<int>(bv.y),
-                         static_cast<int>(bv.z), static_cast<int>(bv.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: conv requant, skip merge, concat alignment -> int8 in ys
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty * 4 + i;
-    int r_img, r_h, r_w;
-    if (!row_pixel(a, blk, row, kTileM, &r_img, &r_h, &r_w)) continue;
-    const long long s_at =
-        ((static_cast<long long>(r_img) * a.ho + r_h) * a.wo + r_w) * a.cout;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx * 4 + j;
-      if (c0 + col >= a.cout_g) continue;
-      const int c = cg0 + col;
-      ys[row][col] =
-          static_cast<int8_t>(epilogue(a.ep, acc[i][j], c, s_at + c));
-    }
-  }
-  __syncthreads();
-
-  // max over each window (one tap without a pool), strided store
-  const int taps = a.pw * a.pw;
-  const int per_block = kTileM / taps;
-  const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
-  for (int idx = tid; idx < per_block * kTileN; idx += kThreads) {
-    const int p = idx / kTileN;
-    const int col = idx % kTileN;
-    const long long pooled = static_cast<long long>(blk) * per_block + p;
-    if (pooled >= n_pooled || c0 + col >= a.cout_g) continue;
-    int m = ys[p * taps][col];
-    for (int t = 1; t < taps; ++t) m = max(m, static_cast<int>(ys[p * taps + t][col]));
-    a.y[pooled * a.c_tot + a.out_off + cg0 + col] = static_cast<int8_t>(m);
-  }
-}
-
-int launch(const ConvArgs& a, int groups, cudaStream_t st) {
-  const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
-  const int per_block = kTileM / (a.pw * a.pw);
-  const dim3 grid(static_cast<unsigned>((n_pooled + per_block - 1) / per_block),
-                  (a.cout_g + kTileN - 1) / kTileN, groups);
-  qconv_dp4a_kernel<<<grid, kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace dp4a
 
 // ------------------------------------------------- int8 tensor cores (wgmma)
 
@@ -708,26 +562,28 @@ int launch(const ConvArgs& a, int groups, cudaStream_t st) {
 
 // Launch the conv.  Pointers may be null where ConvArgs and Epilogue say
 // so.  The wrapper checks every shape, type and range (groups divides Cin
-// and Cout) and chooses the kernel: bn 0 is the __dp4a kernel (w, HWIO);
-// bn 64 or 128 the wgmma kernel (wk, K-major (Cout, k_pad), k_pad a
-// multiple of 128, 16-byte aligned) with `splits` (at most 8, a cluster)
-// K splits of `chunk` K tiles.  mode is the A
-// gather's load width (16: Cin/G % 16 == 0 and x 16-byte aligned; 4:
-// Cin/G % 4 == 0 and x 4-byte aligned; else 1); wide says that c_tot,
-// out_off and y allow 16-byte stores.  Returns cudaGetLastError() or the
-// error of encoding the weight's tensor map.
-extern "C" int qconv_s8(const void* x, const void* w, const void* bias,
+// and Cout) and plans the launch: wk is the weight K-major (Cout, k_pad),
+// k_pad a multiple of 128, 16-byte aligned; bn (64 or 128) output
+// channels a tile; `splits` (at most 8, a cluster) K splits of `chunk` K
+// tiles.  mode is the A gather's load width (16: Cin/G % 16 == 0 and x
+// 16-byte aligned; 4: Cin/G % 4 == 0 and x 4-byte aligned; else 1); wide
+// says that c_tot, out_off and y allow 16-byte stores.  Returns
+// cudaGetLastError() or the error of encoding the weight's tensor map.
+extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
                         const void* shift_vec, const void* skip, void* y,
                         int n, int hp, int wp, int cin, int kh, int kw,
                         int cout, int sh, int sw, int pw, int ps, int shift,
                         int relu, int a_conv, int a_skip, int merge_shift,
                         int merge_relu, int concat_shift, int concat_relu,
-                        int c_tot, int out_off, int vec, int groups,
-                        const void* wk, int bn, int k_pad, int splits,
-                        int chunk, int mode, int wide, void* stream) {
+                        int c_tot, int out_off, int groups, int bn,
+                        int k_pad, int splits, int chunk, int mode, int wide,
+                        void* stream) {
+  if (wk == nullptr || k_pad % tc::kBK != 0 || splits < 1
+      || splits > tc::kMaxSplits || chunk < 1
+      || (splits - 1) * chunk >= k_pad / tc::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
-  a.w = static_cast<const int8_t*>(w);
   a.wk = static_cast<const int8_t*>(wk);
   a.y = static_cast<int8_t*>(y);
   a.ep.bias = static_cast<const int32_t*>(bias);
@@ -745,15 +601,10 @@ extern "C" int qconv_s8(const void* x, const void* w, const void* bias,
   a.pw = pw; a.ps = ps;
   a.oh = (a.ho - pw) / ps + 1;
   a.ow = (a.wo - pw) / ps + 1;
-  a.c_tot = c_tot; a.out_off = out_off; a.vec = vec;
+  a.c_tot = c_tot; a.out_off = out_off;
   a.k_pad = k_pad; a.splits = splits; a.chunk = chunk; a.mode = mode;
   a.wide = wide;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 0) return dp4a::launch(a, groups, st);
-  if (wk == nullptr || k_pad % tc::kBK != 0 || splits < 1
-      || splits > tc::kMaxSplits || chunk < 1
-      || (splits - 1) * chunk >= k_pad / tc::kBK)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (bn == 128) return tc::launch<128>(a, groups, st);
   if (bn == 64) return tc::launch<64>(a, groups, st);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -13,9 +13,7 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   windows, weights staged K-major and loaded by TMA, K split across the
   blocks of a thread-block cluster where the tile grid is under one
   wave; see the note at the top of the source).  :func:`plan` chooses
-  the tile width and the split; convs narrower than
-  :data:`WGMMA_MIN_COUT` channels a group keep the CUDA-core ``__dp4a``
-  kernel.
+  the tile width and the split.
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
   Bound by bytes, and at the main path's sizes by launch overhead: a
@@ -24,11 +22,15 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   ``csrc/qconv.cu`` with the group on ``gridDim.z``; replaces
   ``qgconv2d`` (``:945``).
 
-The dense and grouped kernels take their weight K-major, as
+The dense and grouped kernel takes its weight K-major, as
 :func:`stage_kmajor` lays it out; a layer stages it once
 (``core/pipeline.py:build_quantized``) and passes it as ``w_k``, and a
 call without one gets one made for it.  Per-lane shifts may come staged
-the same way (``shift_vec``, :func:`qgemm.stage_shift`).
+the same way (``shift_vec``, :func:`qgemm.stage_shift`).  What a launch
+derives from its shapes alone (their checks, the plan, the kernel's
+integer arguments) is worked out at the first call of each shape
+(:func:`_geometry`), so that a layer's later calls only check their
+tensors and launch.
 
 All of them share one epilogue (``csrc/requant.cuh``), in the order
 :func:`qconv2d_plain` spells out.
@@ -47,17 +49,13 @@ from . import _build, ref
 from .qgemm import shift_args
 
 INT8_MIN, INT8_MAX = ref.INT8_MIN, ref.INT8_MAX
-#: GEMM rows of one __dp4a block: the widest fused pool window it holds.
+#: The most taps of a fused pool window (8x8).
 MAX_POOL_TAPS = 64
-#: GEMM rows of one wgmma block: two warpgroups of 64.
+#: GEMM rows of one block: two warpgroups of 64.
 TILE_M = 128
 #: K bytes of one wgmma step: one 128-byte swizzle row of each operand;
 #: the K-major weight's rows are zero-padded to a multiple of it.
 K_TILE = 128
-#: The fewest output channels a group that take the wgmma kernel; narrower
-#: convs (googlenet_tiny's 4-12 channel convs) keep the __dp4a kernel,
-#: which chip_smoke's ``qconv_crossover`` lines time against it.
-WGMMA_MIN_COUT = 16
 #: Streaming multiprocessors the split-K chooser fills when it cannot ask
 #: the card (the H100 SXM's count).
 H100_SMS = 132
@@ -70,8 +68,8 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
             "qdwconv2d_into": 0, "qgconv2d": 0}
 
 _SIGNATURES = {
-    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 23
-              + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]},
+    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28
+              + [ctypes.c_void_p]},
     "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
                 + [ctypes.c_void_p]},
 }
@@ -155,7 +153,7 @@ def k_padded(k: int) -> int:
 
 
 def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (KH, KW, Cin/G, Cout) int8 -> the wgmma kernel's K-major
+    """HWIO (KH, KW, Cin/G, Cout) int8 -> the kernel's K-major
     (Cout, K_pad) int8: row c holds output channel c's weights in the
     contraction order (kh, kw, ci), zero-padded from K = KH*KW*Cin/G to
     :func:`k_padded` (every row a multiple of 16 bytes, as TMA needs;
@@ -169,10 +167,9 @@ def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one conv call runs: the kernel, its tiles and its K split."""
+    """How one conv call runs: its tiles and its K split."""
 
-    kernel: str      # "wgmma" or "dp4a"
-    bn: int          # output channels a wgmma tile (0: dp4a)
+    bn: int          # output channels a tile
     k: int           # contraction depth KH*KW*Cin/G
     k_pad: int       # K padded to the K tile
     m_tiles: int     # row tiles of (pooled pixel, tap) pairs
@@ -204,15 +201,13 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
          strides: Tuple[int, int] = (1, 1),
          pool: Optional[Tuple[int, int]] = None, groups: int = 1,
          sms: int = H100_SMS) -> Plan:
-    """The kernel, tile and K split of a conv, from its shapes alone.
-
-    Cout/G below :data:`WGMMA_MIN_COUT` takes the __dp4a kernel (64-row
-    tiles).  Otherwise the wgmma kernel: 128-row tiles holding
-    ``TILE_M // taps`` whole pool windows, 128 channels a tile where
-    Cout/G >= 128, else 64.  Where the tiles do not fill ``sms`` blocks,
-    each tile's K tiles are split over ``min(sms // tiles, MAX_SPLITS)``
-    blocks at most: the smallest chunk of K tiles a block that keeps the
-    grid within one wave, and as few splits as that chunk needs."""
+    """The tiles and K split of a conv, from its shapes alone: 128-row
+    tiles holding ``TILE_M // taps`` whole pool windows, 128 channels a
+    tile where Cout/G >= 128, else 64.  Where the tiles do not fill
+    ``sms`` blocks, each tile's K tiles are split over
+    ``min(sms // tiles, MAX_SPLITS)`` blocks at most: the smallest chunk
+    of K tiles a block that keeps the grid within one wave, and as few
+    splits as that chunk needs."""
     sh, sw = strides
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
     pw, ps = pool if pool is not None else (1, 1)
@@ -220,10 +215,6 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
     cin_g, cout_g = cin // groups, cout // groups
     k = kh * kw * cin_g
     n_pooled = n * oh * ow
-    if cout_g < WGMMA_MIN_COUT:
-        per_block = 64 // (pw * pw)
-        return Plan("dp4a", 0, k, k, math.ceil(n_pooled / per_block),
-                    math.ceil(cout_g / 64), groups, 1, 1)
     bn = 128 if cout_g >= 128 else 64
     per_block = TILE_M // (pw * pw)
     m_tiles = math.ceil(n_pooled / per_block)
@@ -234,32 +225,25 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
     chunk = k_tiles
     if tiles < sms:
         chunk = math.ceil(k_tiles / min(sms // tiles, MAX_SPLITS))
-    return Plan("wgmma", bn, k, k_pad, m_tiles, n_tiles, groups,
+    return Plan(bn, k, k_pad, m_tiles, n_tiles, groups,
                 math.ceil(k_tiles / chunk), chunk)
 
 
-def gather_width(cin_g: int, x: torch.Tensor) -> int:
-    """Bytes of each load of the wgmma kernel's A gather: 16 where a
-    group's channels and the input allow 16-byte copies, else 4, else
-    1."""
-    for width in (16, 4):
-        if cin_g % width == 0 and x.data_ptr() % width == 0:
-            return width
-    return 1
-
-
 @functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _sms(index: Optional[int]) -> int:
+    """SMs of CUDA card ``index``; the H100's count for no card."""
+    if index is None:
+        return H100_SMS
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plan_of(x: torch.Tensor, w: torch.Tensor, strides, pool,
             groups: int) -> Plan:
     """:func:`plan` of a call, with the SM count of the card it runs on."""
-    sms = _sms(x.device) if x.device.type == "cuda" else H100_SMS
     return plan(*x.shape, w.shape[0], w.shape[1], w.shape[3],
                 tuple(strides), None if pool is None else tuple(pool),
-                groups, sms)
+                groups, _sms(x.device.index if x.device.type == "cuda"
+                             else None))
 
 
 def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
@@ -268,31 +252,37 @@ def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
     return qconv2d_plain(x, w, b, groups=x.shape[-1], **kw)
 
 
-def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
-            skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
-            concat_relu, what: str, w_k=None, shift_vec=None) -> None:
-    """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
-    dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
-    ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
-    (:func:`stage_kmajor`; made here when the wgmma kernel needs it and
-    none is given), ``shift_vec`` the per-lane shifts staged on the card.
-    Every check comes before the device's, so a tensor on any device
-    reports a bad operand first."""
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
-    if x.ndim != 4 or w.ndim != 4:
+@dataclasses.dataclass(frozen=True)
+class _Geometry:
+    """What a launch derives from its shapes and integer options alone."""
+
+    head: tuple      # n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps
+    tail: tuple      # c_tot, out_off
+    plan: Optional[Plan]  # None for the depthwise kernel
+    width: int       # widest A gather load Cin/G allows: 16, 4 or 1
+    wide: bool       # c_tot and out_off allow 16-byte stores
+
+
+@functools.lru_cache(maxsize=4096)
+def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
+              pool, out_off: int, b_shape, skip_shape, options,
+              device_index: Optional[int]) -> _Geometry:
+    """Check the shapes and integer ``options`` (a_conv, a_skip,
+    merge_shift, concat_shift) of a launch of ``kernel`` and plan it;
+    worked out once for each distinct call and kept."""
+    if len(xs) != 4 or len(ws) != 4:
         raise ValueError(f"{what}: NHWC input and HWIO weight, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    n, hp, wp, cin = x.shape
-    kh, kw, cin_g, cout = w.shape
+                         f"{tuple(xs)} and {tuple(ws)}")
+    n, hp, wp, cin = xs
+    kh, kw, cin_g, cout = ws
     if kernel == "qdwconv":
         if cin_g != 1 or cin == 0 or cout % cin:
             raise ValueError(f"{what}: depthwise weight must be HWIO "
-                             f"(KH, KW, 1, m*{cin}), got {tuple(w.shape)}")
+                             f"(KH, KW, 1, m*{cin}), got {tuple(ws)}")
     elif groups < 1 or cin % groups or cout % groups \
             or cin_g * groups != cin:
         raise ValueError(f"{what}: {groups} groups over input "
-                         f"{tuple(x.shape)} and HWIO {tuple(w.shape)}")
+                         f"{tuple(xs)} and HWIO {tuple(ws)}")
     sh, sw = strides
     if hp < kh or wp < kw or sh < 1 or sw < 1:
         raise ValueError(f"{what}: window {kh}x{kw} stride {strides} over "
@@ -305,65 +295,95 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     if pw * pw > MAX_POOL_TAPS or ho < pw or wo < pw or ps < 1:
         raise ValueError(f"{what}: pool {pool} over conv output {ho}x{wo}")
     oh, ow = (ho - pw) // ps + 1, (wo - pw) // ps + 1
-    c_tot = out.shape[-1]
-    if tuple(out.shape[:3]) != (n, oh, ow) or out_off < 0 \
+    c_tot = outs[-1]
+    if tuple(outs[:3]) != (n, oh, ow) or out_off < 0 \
             or out_off + cout > c_tot:
-        raise ValueError(f"{what}: output {tuple(out.shape)} cannot hold "
+        raise ValueError(f"{what}: output {tuple(outs)} cannot hold "
                          f"channels [{out_off}, {out_off + cout}) of "
                          f"({n}, {oh}, {ow}, ...)")
+    if b_shape is not None and tuple(b_shape) != (cout,):
+        raise ValueError(f"{what}: bias must be ({cout},) int32")
+    if skip_shape is not None and tuple(skip_shape) != (n, ho, wo, cout):
+        raise ValueError(f"{what}: skip must be int8 {(n, ho, wo, cout)}, "
+                         f"got shape {tuple(skip_shape)}")
+    for name, v in zip(("skip_shifts", "skip_shifts", "merge_shift",
+                        "concat_shift"), options):
+        if not 0 <= v <= 31:
+            raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
+    pl = None
+    if kernel == "qconv":
+        pl = plan(n, hp, wp, cin, kh, kw, cout, (sh, sw),
+                  None if pool is None else (pw, ps), groups,
+                  _sms(device_index))
+    return _Geometry((n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps),
+                     (c_tot, out_off), pl,
+                     16 if cin_g % 16 == 0 else 4 if cin_g % 4 == 0 else 1,
+                     c_tot % 16 == 0 and out_off % 16 == 0)
+
+
+def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
+            skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
+            concat_relu, what: str, w_k=None, shift_vec=None) -> None:
+    """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
+    dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
+    ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
+    (:func:`stage_kmajor`; made here when none is given), ``shift_vec``
+    the per-lane shifts staged on the card.  Every check comes before
+    the device's, so a tensor on any device reports a bad operand
+    first."""
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
+    dev = x.device
+    options = tuple(int(v) for v in skip_shifts) + (int(merge_shift),
+                                                    int(concat_shift))
+    geo = _geometry(kernel, what, x.shape, w.shape, out.shape, groups,
+                    tuple(strides), None if pool is None else tuple(pool),
+                    int(out_off), None if b is None else b.shape,
+                    None if skip is None else skip.shape, options,
+                    dev.index if dev.type == "cuda" else None)
     if out.dtype != torch.int8:
         raise TypeError(f"{what}: output must be int8, got {out.dtype}")
-    if b is not None and (b.dtype != torch.int32 or b.shape != (cout,)):
-        raise ValueError(f"{what}: bias must be ({cout},) int32")
-    if skip is not None and (skip.dtype != torch.int8
-                             or tuple(skip.shape) != (n, ho, wo, cout)):
-        raise ValueError(f"{what}: skip must be int8 {(n, ho, wo, cout)}, "
-                         f"got {skip.dtype} {tuple(skip.shape)}")
+    if b is not None and b.dtype != torch.int32:
+        raise ValueError(f"{what}: bias must be ({w.shape[-1]},) int32")
+    if skip is not None and skip.dtype != torch.int8:
+        raise ValueError(f"{what}: skip must be int8, got {skip.dtype}")
     for t in (x, w, b, skip, out):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{what}: operands on {t.device} and {x.device}")
+        if t is not None and t.device != dev:
+            raise ValueError(f"{what}: operands on {t.device} and {dev}")
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors")
-    a_conv, a_skip = (int(v) for v in skip_shifts)
-    for name, v in (("skip_shifts", a_conv), ("skip_shifts", a_skip),
-                    ("merge_shift", merge_shift),
-                    ("concat_shift", concat_shift)):
-        if not 0 <= int(v) <= 31:
-            raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
-    s, svec = shift_args(shift, cout, x.device, shift_vec)
-    k_pad = k_padded(kh * kw * cin_g)
+    cout = w.shape[-1]
+    s, svec = shift_args(shift, cout, dev, shift_vec)
+    pl = geo.plan
     if w_k is not None and (w_k.dtype != torch.int8
-                            or tuple(w_k.shape) != (cout, k_pad)
-                            or w_k.device != x.device
+                            or w_k.shape != (cout, pl.k_pad)
+                            or w_k.device != dev
                             or not w_k.is_contiguous()):
         raise ValueError(f"{what}: staged weight must be contiguous int8 "
-                         f"({cout}, {k_pad}) on {x.device}, got "
+                         f"({cout}, {pl.k_pad}) on {dev}, got "
                          f"{w_k.dtype} {tuple(w_k.shape)} on {w_k.device}")
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
-    args = [n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps, s, int(relu),
-            a_conv, a_skip, int(merge_shift), int(merge_relu),
-            int(concat_shift), int(concat_relu), c_tot, int(out_off)]
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {dev}")
+    args = (*geo.head, s, int(relu), *options[:2], options[2],
+            int(merge_relu), options[3], int(concat_relu), *geo.tail)
     lib = _build.load(kernel, _SIGNATURES[kernel])
     p = _build.ptr
-    ptrs = (p(x), p(w), p(b), p(svec), p(skip), p(out))
-    stream = _build.stream(x.device)
+    stream = _build.stream(dev)
     if kernel == "qdwconv":
-        err = lib.qdwconv_s8(*ptrs, *args, stream)
+        err = lib.qdwconv_s8(p(x), p(w), p(b), p(svec), p(skip), p(out),
+                             *args, stream)
     else:
-        # 4-byte input loads need whole words inside each group's slice
-        vec = int(cin_g % 4 == 0 and x.data_ptr() % 4 == 0)
-        pl = plan_of(x, w, strides, pool, groups)
-        if pl.kernel == "wgmma":
-            if w_k is None:
-                w_k = stage_kmajor(w)
-            if w_k.data_ptr() % 16:   # TMA reads 16-byte aligned rows
-                w_k = w_k.clone()
-        wide = int(c_tot % 16 == 0 and out_off % 16 == 0
-                   and out.data_ptr() % 16 == 0)
-        err = lib.qconv_s8(*ptrs, *args, vec, int(groups), p(w_k), pl.bn,
-                           pl.k_pad, pl.splits, pl.chunk,
-                           gather_width(cin_g, x), wide, stream)
+        if w_k is None:
+            w_k = stage_kmajor(w)
+        if w_k.data_ptr() % 16:   # TMA reads 16-byte aligned rows
+            w_k = w_k.clone()
+        width, xp = geo.width, x.data_ptr()
+        while xp % width:         # 16 -> 4 -> 1
+            width //= 4
+        wide = int(geo.wide and out.data_ptr() % 16 == 0)
+        err = lib.qconv_s8(p(x), p(w_k), p(b), p(svec), p(skip), p(out),
+                           *args, int(groups), pl.bn, pl.k_pad, pl.splits,
+                           pl.chunk, width, wide, stream)
     _build.check(err, what)
 
 

@@ -44,7 +44,7 @@ def kernel_model(x, w, b, *, strides=(1, 1), shift=0, relu=True, pool=None,
     kh, kw, cin_g, cout = w.shape
     pl = qconv.plan(n, hp, wp, cin, kh, kw, cout, tuple(strides), pool,
                     groups, sms)
-    assert pl.kernel == "wgmma"
+    assert pl.bn in (64, 128)
     ho, wo, pw, ps, oh, ow = _shapes(n, hp, wp, kh, kw, strides, pool)
     cout_g, k, bn = cout // groups, kh * kw * cin_g, pl.bn
     taps = pw * pw
@@ -143,7 +143,9 @@ def _case_inputs(c, seed):
 
 # Layer shapes of VGG-16, AlexNet (one tower and two) and ResNet-18 at a
 # reduced spatial size, and the ragged cases: Cin 3, Cin/G 9, Cout 130,
-# 3 groups, pools 3/2 and 2/2, strides 2 and 4, skip, per-lane shifts.
+# 3 groups, pools 3/2 and 2/2, strides 2 and 4, skip, per-lane shifts;
+# and googlenet_tiny's narrow convs, 4-12 channels (2 a group) on a
+# 64-channel tile.
 CASES = [
     dict(name="vgg_conv1_1_cin3", n=1, h=9, cin=3, cout=64, k=3, p=1),
     dict(name="vgg_conv1_2_pool", n=1, h=8, cin=64, cout=64, k=3, p=1,
@@ -173,6 +175,13 @@ CASES = [
          skip=True, pool=(2, 2), per_lane=True),
     dict(name="per_lane_pool3s2", n=1, h=9, cin=16, cout=96, k=3, p=1,
          pool=(3, 2), per_lane=True),
+    dict(name="googlenet_1x1_cout4", n=2, h=6, cin=16, cout=4, k=1),
+    dict(name="googlenet_5x5_cout6_pool", n=2, h=8, cin=4, cout=6, k=5,
+         p=2, pool=(2, 2)),
+    dict(name="googlenet_3x3_cout12_into_pool", n=2, h=7, cin=8, cout=12,
+         k=3, p=1, pool=(2, 2)),
+    dict(name="groups3_cout_g2_per_lane", n=2, h=6, cin=9, cout=6, k=3,
+         p=1, groups=3, per_lane=True),
 ]
 
 
@@ -264,10 +273,6 @@ PLAN_SHAPES = (
 def test_the_split_covers_k_and_stays_within_a_wave(shape):
     n, hp, wp, cin, kh, kw, cout, strides, pool, groups = shape
     pl = qconv.plan(n, hp, wp, cin, kh, kw, cout, strides, pool, groups)
-    if cout // groups < qconv.WGMMA_MIN_COUT:
-        assert pl.kernel == "dp4a" and pl.splits == 1
-        return
-    assert pl.kernel == "wgmma"
     assert pl.bn == (128 if cout // groups >= 128 else 64)
     ranges = pl.split_ranges()
     assert len(ranges) == pl.splits <= qconv.MAX_SPLITS
@@ -296,6 +301,30 @@ def test_the_late_vgg_layers_split_k_at_batch_1(h):
         assert pl.splits > 1
         assert min(qconv.H100_SMS // 2, pl.tiles * qconv.MAX_SPLITS) \
             <= pl.blocks <= qconv.H100_SMS
+
+
+def test_a_launch_works_out_each_shape_once():
+    """Shape checks, the plan and the integer launch arguments are kept
+    per distinct call: a second call of a shape finds them (here on
+    ``meta`` tensors, which then fail the device check)."""
+    x = torch.empty((1, 16, 16, 64), dtype=torch.int8, device="meta")
+    w = torch.empty((3, 3, 64, 128), dtype=torch.int8, device="meta")
+    qconv._geometry.cache_clear()
+    for _ in range(3):
+        with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+            qconv.qconv2d(x, w, None, shift=7, pool=(2, 2))
+    info = qconv._geometry.cache_info()
+    assert (info.misses, info.hits) == (1, 2)
+    geo = qconv._geometry(
+        "qconv", "qconv2d", x.shape, w.shape, (1, 7, 7, 128), 1, (1, 1),
+        (2, 2), 0, None, None, (0, 0, 0, 0), None)
+    assert geo.plan == qconv.plan(1, 16, 16, 64, 3, 3, 128, (1, 1), (2, 2))
+    assert geo.head == (1, 16, 16, 64, 3, 3, 128, 1, 1, 2, 2)
+    assert (geo.tail, geo.width, geo.wide) == ((128, 0), 16, True)
+    with pytest.raises(ValueError, match="skip_shifts"):
+        qconv.qconv2d(x, w, None, shift=7, skip_shifts=(32, 0),
+                      skip=torch.empty((1, 14, 14, 128), dtype=torch.int8,
+                                       device="meta"))
 
 
 def _strip_staged(qm):
