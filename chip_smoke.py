@@ -14,7 +14,12 @@ Six phases, each printing one JSON line per check:
    kernel's edges (split K at 14x14x512, batch 1 and 8; rows and K off
    its tiles; Cin 3; 11x11/4 with the 3x3/2 pool; cout_g 192; skip with
    pool; concat buffers at odd offsets; narrow convs of 4-64 channels),
-   each conv check printing its plan (tile width, K split); the
+   the GEMM kernel's (M 1, 2, 7, 8, 9, 16, 17, 32 and 69 against N 1,
+   10, 1000 and 4096, ragged K, per-column shifts) and the depthwise
+   kernel's (mobilenet_tiny@224's three layers at batch 1 and 8, m = 2,
+   stride 3, a 5x5 window, 3x3/2 windows across one-row bands, 20 and
+   130 channels, skip, concat buffers), each check printing its plan
+   (tile width and K split; the GEMM's wgmma N; the depthwise band); the
    standalone pools' plain versions on the card equal to the CPU's;
 2. VGG-16 at full width (224x224, 1000 classes, 138 M random weights
    from a seed): ``CNN2Gate.from_graph`` -> ``calibrate_quantization`` ->
@@ -23,18 +28,22 @@ Six phases, each printing one JSON line per check:
    every forward must launch the conv kernel 13 times and the GEMM
    kernel 3 times.  Every kernel call of a forward is held equal to its
    plain version and timed, at batch 1 and at batch 8; the profiler
-   must see the int8 ``wgmma`` kernel launched once for every conv
-   call, and its library's SASS must hold IGMMA and UTMALDG and no
-   other kernel;
+   must see the int8 ``wgmma`` conv kernel launched once for every conv
+   call and the GEMM's ``wgmma`` kernel once for every FC call, each FC
+   call alone launching nothing else, and each library's SASS must hold
+   IGMMA and UTMALDG and no other kernel; ``qgemm_launch_split`` gives
+   the device launches and ms of one FC call at each FC shape;
 3. mobilenet_tiny at its own widths on 224x224 inputs, per-tensor and
    per-channel, served the same way: every forward launches the dense
-   conv 4 times, the depthwise conv 3 times and the GEMM once;
+   conv 4 times, the depthwise conv 3 times and the GEMM once (one
+   device launch); the depthwise launches are timed at batch 1 and 8
+   beside an empty kernel's time (``launch_floor_ms``);
 4. ResNet-18 at full width, googlenet_tiny, a depthwise producer with a
    fused skip (dw-skip), a depthwise and a dense producer of one concat
    (dw-concat), and the two-tower AlexNet (group 2 on convs 2, 4 and 5,
    224x224), each fused and unfused, per-tensor and per-channel: fused
    == unfused and kernel == plain, every AlexNet and googlenet_tiny
-   conv launching the ``wgmma`` kernel;
+   conv launching the ``wgmma`` kernel, ResNet-18's FC one GEMM launch;
 5. lm, the dense-LM serving path in bf16 with random weights from a
    seed: the built flash library's SASS must hold HGMMA (wgmma) and
    UTMALDG (TMA loads); the flash-attention kernel held against its
@@ -76,9 +85,11 @@ Six phases, each printing one JSON line per check:
    kernel's time per launch beside the plain version's and the bound.
 
 Before the last line it prints the kernels' record (launches, error,
-times, bounds; for the dense conv, flash_attention and ssd_scan also the
-design, the SASS counts and nvcc's registers, shared memory and spills,
-and for the dense conv each call's plan) as one JSON object, then
+times, bounds; for the dense conv, the GEMM, flash_attention and
+ssd_scan also the design, the SASS counts and nvcc's registers, shared
+memory and spills; for the convs and the GEMM each call's plan; batch-8
+times of the GEMM and the depthwise conv, and the launch floor beside
+the depthwise rows) as one JSON object, then
 the card's name and power limit from ``nvidia-smi``.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check exits non-zero without it, as does a run with no CUDA
@@ -243,6 +254,15 @@ def gemm_cases():
               dict(m=8, k=4096, n=1000, relu=True, per_col=True),
               dict(m=64, k=515, n=2049, relu=False, per_col=False),
               dict(m=5, k=33, n=7, relu=True, per_col=False, shift=0)]
+    # the swap-AB kernel's tiles: each wgmma N (8, 16, 32) and its edges,
+    # M past 32 (tiled over gridDim.y); N of 1 and 10 (narrow heads), 1000
+    # (64-column tiles, the last ragged) and 4096; ragged K (x padded to
+    # 16 bytes, the weight to 128); per-column shifts every other case
+    ks = (777, 130, 2500, 4096, 1001, 64, 3001)
+    for i, (m, n) in enumerate((m, n) for m in (1, 2, 7, 8, 9, 16, 17, 32, 69)
+                               for n in (1, 10, 1000, 4096)):
+        cases.append(dict(m=m, k=ks[i % len(ks)], n=n, relu=i % 3 != 0,
+                          per_col=i % 2 == 1))
     return cases
 
 
@@ -259,6 +279,25 @@ def conv_cases():
     return mobilenet_dw + [
         dict(name="dw_m2", n=2, h=20, cin=12, cout=24, k=3, s=1, p=1,
              dw=True),
+    ] + [
+        dict(name=f"mobilenet224_dw{i}_{h}x{c}_s{st}_batch8", n=8, h=h,
+             cin=c, cout=c, k=3, s=st, p=1, dw=True)
+        for i, (h, c, st) in enumerate(((112, 16, 1), (112, 32, 2),
+                                        (56, 64, 1)), 1)
+    ] + [
+        # the band kernel's edges: stride 3; a 5x5 window (the generic
+        # path); 3x3/2 windows across one-row bands at batch 8; m = 2 with
+        # stride 2 and the 2x2/2 pool; 20 channels (4-byte copies)
+        dict(name="dw_s3", n=2, h=25, cin=16, cout=16, k=3, s=3, p=1,
+             dw=True),
+        dict(name="dw_5x5_c24", n=1, h=20, cin=24, cout=24, k=5, s=1, p=2,
+             dw=True),
+        dict(name="dw_pool3s2_bands_batch8", n=8, h=56, cin=32, cout=32, k=3,
+             s=1, p=1, dw=True, pool=(3, 2)),
+        dict(name="dw_m2_s2_pool2s2", n=2, h=30, cin=12, cout=24, k=3, s=2,
+             p=1, dw=True, pool=(2, 2)),
+        dict(name="dw_c20_per_lane", n=2, h=15, cin=20, cout=20, k=3, s=1,
+             p=1, dw=True, per_lane=True),
         dict(name="dw_m4_s2_per_lane", n=1, h=21, cin=8, cout=32, k=3, s=2,
              p=1, dw=True, per_lane=True),
         dict(name="dw_pool2s2", n=2, h=28, cin=32, cout=32, k=3, s=1, p=1,
@@ -341,16 +380,32 @@ def conv_kind(c):
 
 
 def conv_plan(name, x, w, kw):
-    """The dense/grouped kernel's plan of a conv call (its tile width and
-    K split) as a dict; None for the depthwise kernel."""
-    from repro_torch.kernels import qconv
-    if not name.startswith(("qconv2d", "qgconv2d")):
-        return None
+    """A conv call's plan as a dict: the dense/grouped kernel's tile
+    width and K split, or the depthwise kernel's band (output rows,
+    columns, channels a block)."""
+    from repro_torch.kernels import qconv, qgemm
+    if name.startswith("qdwconv2d"):
+        pool = kw.get("pool")
+        pl = qconv.dw_plan(*x.shape, w.shape[0], w.shape[1], w.shape[3],
+                           tuple(kw["strides"]),
+                           None if pool is None else tuple(pool),
+                           qgemm.sms_of(x.device.index))
+        return dict(rp=pl.rp, cp=pl.cp, cb=pl.cb,
+                    blocks=x.shape[0] * pl.blocks_per_image, smem=pl.smem)
     groups = x.shape[-1] // w.shape[2]
     pl = qconv.plan_of(x, w, kw["strides"], kw.get("pool"), groups)
     return dict(bn=pl.bn, k_pad=pl.k_pad,
                 tiles=pl.tiles, splits=pl.splits, chunk=pl.chunk,
                 blocks=pl.blocks)
+
+
+def gemm_plan(x, w):
+    """The GEMM kernel's plan of a call (tiles, wgmma N, K split)."""
+    from repro_torch.kernels import qgemm
+    pl = qgemm.plan(x.shape[0], w.shape[1], x.shape[1],
+                    qgemm.sms_of(x.device.index))
+    return dict(bn=pl.bn, nw=pl.nw, tiles=pl.tiles, splits=pl.splits,
+                chunk=pl.chunk, blocks=pl.blocks)
 
 
 def conv_inputs(torch, c, gen, dev):
@@ -407,7 +462,8 @@ def phase_kernels(torch, dev):
         check("kernels", f"qgemm_{c['m']}x{c['k']}x{c['n']}"
               f"{'_percol' if c['per_col'] else ''}"
               f"{'_relu' if c['relu'] else ''}", torch.equal(y, yp),
-              max_abs_err=err, distinct_values=int(torch.unique(yp).numel()))
+              max_abs_err=err, distinct_values=int(torch.unique(yp).numel()),
+              plan=gemm_plan(x, w))
 
     for c in conv_cases():
         x, w, b, kw = conv_inputs(torch, c, gen, dev)
@@ -587,8 +643,9 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
     """Hold every kernel call one forward makes equal to its plain
     version at that call's shapes and time both (the plain version only
     with ``plain_times``); return per-kernel sums and bounds, and for the
-    dense and grouped convs each call's plan (kernel, tile, K split),
-    which its ``timing`` line prints too.  ``library_ms`` stays
+    convs and the GEMM each call's plan (:func:`conv_plan`,
+    :func:`gemm_plan`), which its ``timing`` line prints too.
+    ``library_ms`` stays
     None: PyTorch has no int8 conv, and ``torch._int_mm`` takes no
     M <= 16 (see :func:`library_yardstick`)."""
     calls: list = []
@@ -639,9 +696,9 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
         ms = time_ms(torch, lambda: kernel[name](*a, **kw), flush=flush)
         plain_ms = (time_ms(torch, lambda: plain[name](*a, **kw),
                             flush=flush) if plain_times else None)
-        pl = (conv_plan(name, a[0], a[1], kw) if name != "qgemm" else None)
-        if pl is not None:
-            r["plans"].append(pl)
+        pl = (gemm_plan(a[0], a[1]) if name == "qgemm"
+              else conv_plan(name, a[0], a[1], kw))
+        r["plans"].append(pl)
         emit(phase="timing", kernel=name, call=r["calls"],
              batch=int(a[0].shape[0]),
              shapes=[list(t.shape) for t in a if torch.is_tensor(t)],
@@ -697,12 +754,58 @@ def device_time(torch, fn, wall_ms: float) -> dict:
                 top_device_ms=dict(top))
 
 
-def wgmma_launches(torch, fn) -> dict:
-    """Launches of the int8 ``wgmma`` conv kernel in one call of ``fn``,
-    as ``torch.profiler`` sees them on the device, beside the launches of
-    every device kernel in the trace.  A trace that holds no device
-    event at all is a trace that failed, not a finding: it is taken
-    again, three times at most."""
+def launch_split(torch, fn, calls: int = 5) -> dict:
+    """Device launches and device ms of each kernel, per call of ``fn``,
+    from ``torch.profiler`` over ``calls`` calls (L2 warm): where the
+    time of one call falls between its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        r = split.setdefault(ev.key, dict(launches_per_call=0.0,
+                                          ms_per_call=0.0))
+        r["launches_per_call"] += ev.count / calls
+        r["ms_per_call"] += ev.self_device_time_total / 1e3 / calls
+    return split
+
+
+def qgemm_launch_split(torch, dev) -> None:
+    """The device launches of one ``qgemm`` call at each of VGG-16's FC
+    shapes at batch 1 and 8, with the weight staged K-major once as the
+    executor stages it, and the device ms of each."""
+    from repro_torch.kernels import qgemm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for m in (1, 8):
+        for k, n, relu in ((25088, 4096, True), (4096, 4096, True),
+                           (4096, 1000, False)):
+            x = rand_i8(torch, (m, k), gen, dev)
+            w = rand_i8(torch, (k, n), gen, dev)
+            w_k = qgemm.stage_kmajor(w)   # staged once, as a layer does
+            b = rand_bias(torch, n, gen, dev)
+            split = launch_split(torch, lambda: qgemm.qgemm(
+                x, w, b, shift=shift_for(k), relu=relu, w_k=w_k))
+            emit(phase="vgg16", what="qgemm_launch_split", m=m, k=k, n=n,
+                 launches_per_call=sum(r["launches_per_call"]
+                                       for r in split.values()),
+                 per_kernel=split)
+
+
+def wgmma_launches(torch, fn, kernel: str = "qconv_wgmma_kernel") -> dict:
+    """Launches of an int8 ``wgmma`` kernel (the conv's by default) in one
+    call of ``fn``, as ``torch.profiler`` sees them on the device, beside
+    the launches of every device kernel in the trace.  A trace that holds
+    no device event at all is a trace that failed, not a finding: it is
+    taken again, three times at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     seen: list = []
@@ -717,8 +820,27 @@ def wgmma_launches(torch, fn) -> dict:
         if seen:
             break
     return dict(wgmma_launches=sum(ev.count for ev in seen
-                                   if "qconv_wgmma_kernel" in ev.key),
+                                   if kernel in ev.key),
                 device_launches=sum(ev.count for ev in seen))
+
+
+def one_launch_per_fc(torch, phase: str, tag: str, run, x) -> None:
+    """The profiler sees one ``qgemm`` kernel launch per FC call of a
+    forward, and an FC call alone launches that kernel and nothing else:
+    no zeroed scratch, no second kernel."""
+    from repro_torch.kernels import qgemm
+    calls: list = []
+    with recorded_calls(calls):
+        run(x)
+    fcs = [(a, kw) for name, a, kw in calls if name == "qgemm"]
+    forward = wgmma_launches(torch, lambda: run(x), "qgemm_wgmma_kernel")
+    alone = [wgmma_launches(torch, lambda: qgemm.qgemm(*a, **kw),
+                            "qgemm_wgmma_kernel") for a, kw in fcs]
+    check(phase, f"{tag}_one_qgemm_launch_per_fc_call",
+          forward["wgmma_launches"] == len(fcs) > 0
+          and all(r["wgmma_launches"] == r["device_launches"] == 1
+                  for r in alone),
+          fc_calls=len(fcs), forward=forward, each_call_alone=alone)
 
 
 def phase_vgg(torch, dev, records):
@@ -779,12 +901,18 @@ def phase_vgg(torch, dev, records):
                         "vgg16_batch8", plain_times=False)
     emit(phase="vgg16", batch=8, qconv2d_ms=b8["qconv2d"]["ms"],
          qgemm_ms=b8["qgemm"]["ms"],
-         qconv2d_bound_ms=b8["qconv2d"]["bound_ms"])
+         qconv2d_bound_ms=b8["qconv2d"]["bound_ms"],
+         qgemm_bound_ms=b8["qgemm"]["bound_ms"])
+    records["qgemm"]["extra"] = dict(batch8_ms=b8["qgemm"]["ms"],
+                                     batch8_bound_ms=b8["qgemm"]["bound_ms"])
     for x, tag in ((reqs[0], "batch1"), (batch, "batch8")):
         wg = wgmma_launches(torch, lambda: run(x))
         check("vgg16", f"every_conv_call_on_the_wgmma_kernel_{tag}",
               wg["wgmma_launches"] == 13, conv_calls=13, **wg)
+        one_launch_per_fc(torch, "vgg16", f"vgg16_{tag}", run, x)
     attach_qconv_build(torch, records, "qconv2d")
+    attach_qgemm_build(torch, records)
+    qgemm_launch_split(torch, dev)
     library_yardstick(torch, dev)
 
 
@@ -826,6 +954,7 @@ def phase_mobilenet(torch, dev, records):
              ms_batch8=ms[-1], ms_per_inference_batch8=ms[-1] / 8)
         emit(phase="mobilenet", mode=tag,
              **device_time(torch, lambda: run(reqs[0]), median))
+        one_launch_per_fc(torch, "mobilenet", tag, run, reqs[0])
         if not per_channel:
             ops.reset_launch_counts()
             run(reqs[0])
@@ -833,12 +962,33 @@ def phase_mobilenet(torch, dev, records):
             records.update({k: v for k, v in kernel_records(
                 torch, run, reqs[0], launches, dev, "mobilenet").items()
                 if k == "qdwconv2d"})
+            ops.reset_launch_counts()
+            run(batch)
+            b8 = kernel_records(torch, run, batch, ops.launch_counts(), dev,
+                                "mobilenet_batch8", plain_times=False)
+            dw = records["qdwconv2d"]
+            dw["extra"] = dict(batch8_ms=b8["qdwconv2d"]["ms"],
+                               batch8_bound_ms=b8["qdwconv2d"]["bound_ms"],
+                               launch_floor_ms=launch_floor_ms(torch),
+                               plans=dw.pop("plans"),
+                               batch8_plans=b8["qdwconv2d"]["plans"])
+            emit(phase="mobilenet", what="qdwconv2d_times",
+                 launches=dw["launches"], batch1_ms=dw["ms"],
+                 batch1_bound_ms=dw["bound_ms"], **dw["extra"])
+
+
+def launch_floor_ms(torch) -> float:
+    """An empty kernel's time under :func:`time_ms`'s timer: the least a
+    launch can show there (``torch.cuda._sleep(0)`` spins no cycles)."""
+    return time_ms(torch, lambda: torch.cuda._sleep(0))
 
 
 def library_yardstick(torch, dev, m: int = 32) -> None:
     """``torch._int_mm`` (int8 x int8 -> int32, no bias or requant) takes
     only M > 16, so it has no time at the main path's M = 1 and 8; time
-    it and the qgemm kernel at VGG-16's FC shapes with M = 32."""
+    it and the qgemm kernel at VGG-16's FC shapes with M = 32, the
+    kernel's weight staged K-major once beforehand, as a layer stages
+    it."""
     from repro_torch.kernels import qgemm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -850,9 +1000,11 @@ def library_yardstick(torch, dev, m: int = 32) -> None:
             lib_ms = time_ms(torch, lambda: torch._int_mm(x, w), flush=flush)
         except RuntimeError as e:   # a build of torch without it
             lib_ms = f"not measured: {e}"
+        w_k = qgemm.stage_kmajor(w)
         emit(phase="library", m=m, k=k, n=n,
              qgemm_ms=time_ms(torch, lambda: qgemm.qgemm(
-                 x, w, b, shift=shift_for(k), relu=True), flush=flush),
+                 x, w, b, shift=shift_for(k), relu=True, w_k=w_k),
+                 flush=flush),
              int_mm_ms=lib_ms)
 
 
@@ -987,9 +1139,19 @@ def phase_paths(torch, dev, records):
                           **wg)
                 kept = PATH_RECORDS[name]
                 records[kept] = recs[kept]
+                if kept == "qdwconv2d_into":
+                    records[kept]["extra"] = dict(
+                        launch_floor_ms=launch_floor_ms(torch),
+                        plans=records[kept].pop("plans"))
+                    emit(phase=name, what="qdwconv2d_into_times",
+                         launches=recs[kept]["launches"],
+                         ms=recs[kept]["ms"],
+                         bound_ms=recs[kept]["bound_ms"],
+                         **records[kept]["extra"])
                 if kept != "qdwconv2d_into":
                     attach_qconv_build(torch, records, kept)
             if name == "resnet18":
+                one_launch_per_fc(torch, name, tag, run_f, xs[0])
                 # per-inference time at batch 1, after a warm run
                 x1 = xs[0][:1]
                 run_f(x1)
@@ -1246,6 +1408,33 @@ def attach_qconv_build(torch, records, name: str) -> None:
             design="int8 wgmma (IGMMA), TMA-fed K-major weights, K split "
                    "over a cluster under one wave (DSMEM reduction)",
             plans=r.pop("plans", []), **_QCONV_BUILD)
+
+
+def qgemm_label(mangled: str):
+    """Every kernel of the qgemm library, the wgmma instances by name."""
+    inst = re.search(r"qgemm_wgmma_kernelILi(\d+)ELi(\d+)E", mangled)
+    return (f"qgemm_wgmma_kernel<{inst.group(1)}, {inst.group(2)}>" if inst
+            else mangled)
+
+
+def attach_qgemm_build(torch, records) -> None:
+    """Check that the qgemm library's SASS holds IGMMA and UTMALDG and no
+    kernel but the wgmma instances, and give ``records["qgemm"]`` its
+    design note, plans, SASS counts and nvcc's registers, shared memory
+    and spills."""
+    build = build_record(torch, "vgg16", "qgemm", qgemm_label,
+                         ("IGMMA", "UTMALDG"))
+    names = sorted(build["ptxas"])
+    check("vgg16", "qgemm_library_holds_only_the_wgmma_kernel",
+          names == sorted(f"qgemm_wgmma_kernel<{bn}, {nw}>"
+                          for bn in (64, 128) for nw in (8, 16, 32)),
+          kernels=names)
+    r = records["qgemm"]
+    r["extra"] = dict(
+        design="swap-AB int8 wgmma (IGMMA) on a TMA ring fed by a producer "
+               "warp, K split over a cluster, DSMEM reduction and requant "
+               "in the same launch",
+        plans=r.pop("plans", []), **r.get("extra", {}), **build)
 
 
 def flash_label(mangled: str):

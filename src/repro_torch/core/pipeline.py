@@ -34,9 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.kernels import ops
-from repro_torch.kernels.qconv import stage_kmajor
-from repro_torch.kernels.qgemm import stage_shift
+from repro_torch.kernels import ops, qconv, qgemm
 from . import parser as P
 from .quantize import QuantSpec, quantize_weights
 
@@ -56,9 +54,9 @@ class QuantizedLayer:
     # (requant shift from the common operand position to m_y); the
     # operand_shifts then align (conv intermediate, skip) in that order
     merge_spec: Optional[QuantSpec] = None
-    # the kernels' operands staged once: a dense or grouped conv's weight
-    # K-major (Cout, K_pad) for the wgmma kernel, and a per-lane spec's
-    # int32 shift vector (conv and FC)
+    # the kernels' operands staged once: the weight K-major for the wgmma
+    # kernels, (Cout, K_pad) for a dense or grouped conv and (N, K_pad)
+    # for an FC, and a per-lane spec's int32 shift vector (conv and FC)
     w_k: Optional[torch.Tensor] = None
     shift_vec: Optional[torch.Tensor] = None
 
@@ -260,8 +258,11 @@ def build_quantized(model: P.ParsedModel,
             b_q = torch.from_numpy(b_np).to(dev) if b_np is not None else None
             if li.kind == P.CONV and ops.conv_route(
                     li.group, li.c_in, w_q.shape) != "depthwise":
-                w_k = stage_kmajor(w_q)
-            shift_vec = stage_shift(spec.requant_shift, w_q.shape[-1], dev)
+                w_k = qconv.stage_kmajor(w_q)
+            elif li.kind == P.FC:
+                w_k = qgemm.stage_kmajor(w_q)
+            shift_vec = qgemm.stage_shift(spec.requant_shift, w_q.shape[-1],
+                                          dev)
         layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
                                      merge_spec, w_k, shift_vec))
     return QuantizedModel(
@@ -378,7 +379,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                 # NHWC flatten: rows were permuted at staging time
                 h = h.reshape(h.shape[0], -1)
             return ops.qgemm(h, ql.w_q, ql.b_q, shift=ql.spec.requant_shift,
-                             relu=li.relu, shift_vec=ql.shift_vec)
+                             relu=li.relu, shift_vec=ql.shift_vec,
+                             w_k=ql.w_k)
         if li.kind == P.ADD:
             return ops.qadd_nhwc([env[t] for t in li.inputs],
                                  ql.operand_shifts,

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu, qconv.cu): shared-memory mbarriers,
-// TMA tile loads, cp.async copies, cluster barriers and distributed
-// shared-memory loads, wgmma shared-memory descriptors for the
-// 128-byte swizzle, the m64n128k16 and m64n64k16 bf16 wgmma forms with
-// float32 sums, the m64n128k32 and m64n64k32 int8 forms with int32 sums,
-// and the driver's cuTensorMapEncodeTiled reached through the runtime.
+// (flash_attention.cu, ssd_scan.cu, qconv.cu, qgemm.cu, qdwconv.cu):
+// shared-memory mbarriers, TMA tile loads, cp.async copies, cluster
+// barriers and distributed shared-memory loads, wgmma shared-memory
+// descriptors for the 128-byte swizzle, the m64n128k16 and m64n64k16 bf16
+// wgmma forms with float32 sums, the m64nNk32 int8 forms (N = 128, 64,
+// 32, 16, 8) with int32 sums, and the driver's cuTensorMapEncodeTiled
+// reached through the runtime.
 #pragma once
 
 #include <cuda.h>
@@ -12,6 +13,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 
 namespace {
 namespace sm90 {
@@ -64,6 +67,35 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1)
+      : "memory");
+}
+
+// Bring a TMA descriptor (a __grid_constant__ parameter) into the cache
+// before its first use.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// An L2 policy for data read once: its lines are the first evicted, so
+// that streaming it through L2 pushes out little else.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// tma_load of a 2-D box under an L2 cache policy.
+__device__ __forceinline__ void tma_load_policy(uint32_t dst,
+                                                const CUtensorMap* map,
+                                                uint32_t bar, int c0, int c1,
+                                                uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "l"(policy)
       : "memory");
 }
 
@@ -186,6 +218,10 @@ __device__ __forceinline__ void fence_regs(int32_t (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
+#define WG_D4 "{%0, %1, %2, %3}"
+#define WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_D16                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_D32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -295,8 +331,53 @@ __device__ __forceinline__ void wgmma_s8(int32_t (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 32, int32) += A (64 x 32) . B (32 x 32), as above.
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[16], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 " WG_D16
+      ", %16, %17, p;\n"
+      "}\n"
+      : WG_R16(0)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 16, int32) += A (64 x 32) . B (32 x 16), as above.
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[8], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 " WG_D8
+      ", %8, %9, p;\n"
+      "}\n"
+      : WG_R4(0), WG_R4(4)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 8, int32) += A (64 x 32) . B (32 x 8), as above.
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[4], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 " WG_D4
+      ", %4, %5, p;\n"
+      "}\n"
+      : WG_R4(0)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 #undef WG_R4
 #undef WG_R16
+#undef WG_D4
+#undef WG_D8
+#undef WG_D16
 #undef WG_D32
 #undef WG_D64
 #undef WG_F4
@@ -378,6 +459,48 @@ inline int encode_u8_map(CUtensorMap* map, const void* ptr, int rank,
                          const cuuint32_t* box) {
   return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, rank,
                           dims, strides, box);
+}
+
+// The map of a row-major int8 matrix of `rows` rows of `cols` bytes (row
+// stride `stride`, a multiple of 16), read in boxes of 128 bytes x
+// `box_rows` rows; bytes past `cols` or rows past `rows` read as zero.  A
+// map describes memory, not its contents, so maps are kept by (address,
+// cols, rows, stride, box_rows) and each is encoded once: a layer's
+// staged weight, or an activation buffer the allocator hands out again,
+// is encoded at its first launch only.
+inline int cached_u8_map(CUtensorMap* out, const void* ptr, int cols,
+                         int rows, int stride, int box_rows) {
+  struct Entry {
+    const void* ptr;
+    int cols, rows, stride, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 256;
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.ptr == ptr && e.cols == cols && e.rows == rows
+        && e.stride == stride && e.box_rows == box_rows) {
+      *out = e.map;
+      return 0;
+    }
+  }
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof(map));
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const int err = encode_u8_map(&map, ptr, 2, dims, strides, box);
+  if (err != 0) return err;
+  cache[next] = Entry{ptr, cols, rows, stride, box_rows, map};
+  next = (next + 1) % kEntries;
+  used = used < kEntries ? used + 1 : kEntries;
+  *out = map;
+  return 0;
 }
 
 }  // namespace sm90

@@ -76,8 +76,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstring>
-#include <mutex>
 
 #include "hopper.cuh"
 #include "requant.cuh"
@@ -474,49 +472,12 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   if (a.splits > 1) cluster_wait();
 }
 
-// The tensor map of a K-major weight read in boxes of 128 K bytes x BN
-// rows (rows past Cout read as zero).  A map describes memory, not its
-// contents, so maps are kept by (address, k_pad, Cout, BN) and encoded
-// once: a layer's staged weight is encoded at its first launch only.
-int weight_map(const ConvArgs& a, int bn, CUtensorMap* out) {
-  struct Entry {
-    const void* ptr;
-    int k_pad, cout, bn;
-    CUtensorMap map;
-  };
-  constexpr int kEntries = 128;
-  static Entry cache[kEntries];
-  static int used = 0, next = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.ptr == a.wk && e.k_pad == a.k_pad && e.cout == a.cout
-        && e.bn == bn) {
-      *out = e.map;
-      return 0;
-    }
-  }
-  CUtensorMap map;
-  std::memset(&map, 0, sizeof(map));
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.k_pad),
-                              static_cast<cuuint64_t>(a.cout)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.k_pad)};
-  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(bn)};
-  const int err = encode_u8_map(&map, a.wk, 2, dims, strides, box);
-  if (err != 0) return err;
-  Entry& e = cache[next];
-  e.ptr = a.wk; e.k_pad = a.k_pad; e.cout = a.cout; e.bn = bn; e.map = map;
-  next = (next + 1) % kEntries;
-  used = used < kEntries ? used + 1 : kEntries;
-  *out = map;
-  return 0;
-}
-
 template <int BN>
 int launch(const ConvArgs& a, int groups, cudaStream_t st) {
+  // the K-major weight in boxes of 128 K bytes x BN rows (rows past Cout
+  // read as zero)
   CUtensorMap map;
-  const int err = weight_map(a, BN, &map);
+  const int err = cached_u8_map(&map, a.wk, a.k_pad, a.cout, a.k_pad, BN);
   if (err != 0) return err;
   // the shared-memory allowance, set once a device
   static bool allowed[64] = {};

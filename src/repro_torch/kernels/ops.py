@@ -52,11 +52,14 @@ def reset_launch_counts() -> None:
 
 
 def qgemm(x, w, b=None, *, shift, relu: bool = False,
-          shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+          shift_vec: Optional[torch.Tensor] = None,
+          w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``shift`` is an int (per-tensor) or a length-N tuple (per-output-
     channel weight scales — the per-lane shift vector path), which
-    ``shift_vec`` may carry staged on the card."""
-    return _qgemm.qgemm(x, w, b, shift=shift, relu=relu, shift_vec=shift_vec)
+    ``shift_vec`` may carry staged on the card; ``w_k`` is ``w`` staged
+    K-major (:func:`qgemm.stage_kmajor`)."""
+    return _qgemm.qgemm(x, w, b, shift=shift, relu=relu, shift_vec=shift_vec,
+                        w_k=w_k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -16,8 +16,11 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   the tile width and the split.
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
-  Bound by bytes, and at the main path's sizes by launch overhead: a
-  direct conv, one thread per (output pixel, output channel).
+  Bound by bytes, and at the main path's sizes by latency: a block
+  stages its band of input rows (halo included) in shared memory and
+  computes runs of output pixels in 4-channel lanes; a fused pool
+  reduces the band's conv values in shared memory.  :func:`dw_plan`
+  chooses the band.
 * :func:`qgconv2d` — ragged grouped conv, the dense kernel of
   ``csrc/qconv.cu`` with the group on ``gridDim.z``; replaces
   ``qgconv2d`` (``:945``).
@@ -45,23 +48,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, ref
-from .qgemm import shift_args
+from . import _build, qgemm, ref
+from .qgemm import H100_SMS, K_TILE, MAX_SPLITS, k_padded, shift_args
 
 INT8_MIN, INT8_MAX = ref.INT8_MIN, ref.INT8_MAX
 #: The most taps of a fused pool window (8x8).
 MAX_POOL_TAPS = 64
 #: GEMM rows of one block: two warpgroups of 64.
 TILE_M = 128
-#: K bytes of one wgmma step: one 128-byte swizzle row of each operand;
-#: the K-major weight's rows are zero-padded to a multiple of it.
-K_TILE = 128
-#: Streaming multiprocessors the split-K chooser fills when it cannot ask
-#: the card (the H100 SXM's count).
-H100_SMS = 132
-#: The most K splits of one tile: the splits of a tile run as one
-#: thread-block cluster, and 8 is the portable cluster size.
-MAX_SPLITS = 8
+#: Shared memory a depthwise block may take (``csrc/qdwconv.cu``:
+#: kMaxSmem).
+DW_SMEM = 96 * 1024
+#: Depthwise blocks (128 threads, a few KB of shared memory) an SM holds
+#: at once, in the plan's count.
+DW_BLOCKS_PER_SM = 8
+#: Threads of a depthwise block, and output pixels a thread computes
+#: along W (``csrc/qdwconv.cu``: kThreads, kRun).
+DW_THREADS, DW_RUN = 128, 2
 
 #: Launches of each wrapper's kernel (plain-version calls are not counted).
 launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
@@ -70,7 +73,7 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
 _SIGNATURES = {
     "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28
               + [ctypes.c_void_p]},
-    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21
+    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 26
                 + [ctypes.c_void_p]},
 }
 
@@ -147,22 +150,13 @@ def epilogue_plain(acc: torch.Tensor, b: Optional[torch.Tensor], *, shift=0,
     return acc.to(torch.int8)
 
 
-def k_padded(k: int) -> int:
-    """K rounded up to the wgmma kernel's K tile."""
-    return K_TILE * math.ceil(k / K_TILE)
-
-
 def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
     """HWIO (KH, KW, Cin/G, Cout) int8 -> the kernel's K-major
     (Cout, K_pad) int8: row c holds output channel c's weights in the
     contraction order (kh, kw, ci), zero-padded from K = KH*KW*Cin/G to
-    :func:`k_padded` (every row a multiple of 16 bytes, as TMA needs;
-    the padding adds 0 to every sum).  Made once per layer."""
-    kh, kw, cin_g, cout = w.shape
-    k = kh * kw * cin_g
-    wk = torch.zeros((cout, k_padded(k)), dtype=torch.int8, device=w.device)
-    wk[:, :k] = w.reshape(k, cout).t()
-    return wk
+    :func:`k_padded` (:func:`qgemm.stage_kmajor` of the (K, Cout)
+    matrix).  Made once per layer."""
+    return qgemm.stage_kmajor(w.reshape(-1, w.shape[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,21 +223,96 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
                 math.ceil(k_tiles / chunk), chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: Optional[int]) -> int:
-    """SMs of CUDA card ``index``; the H100's count for no card."""
-    if index is None:
-        return H100_SMS
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_of(x: torch.Tensor, w: torch.Tensor, strides, pool,
             groups: int) -> Plan:
     """:func:`plan` of a call, with the SM count of the card it runs on."""
     return plan(*x.shape, w.shape[0], w.shape[1], w.shape[3],
                 tuple(strides), None if pool is None else tuple(pool),
-                groups, _sms(x.device.index if x.device.type == "cuda"
-                             else None))
+                groups, qgemm.sms_of(x.device.index
+                                     if x.device.type == "cuda" else None))
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """How one depthwise call runs: the band of the output a block owns
+    (``csrc/qdwconv.cu``)."""
+
+    rp: int          # output (pooled) rows a band
+    cp: int          # output columns a band
+    cb: int          # output channels a block, a multiple of 4
+    row_bands: int
+    col_bands: int
+    groups: int      # channel groups
+    smem: int        # shared-memory bytes a block
+
+    @property
+    def blocks_per_image(self) -> int:
+        return self.row_bands * self.col_bands * self.groups
+
+
+def _up16(v: int) -> int:
+    return 16 * math.ceil(v / 16)
+
+
+def dw_smem(rp: int, cp: int, cb: int, kh: int, kw: int,
+            strides: Tuple[int, int], pool) -> int:
+    """Shared memory of a depthwise block (``csrc/qdwconv.cu:qdwconv_s8``):
+    the band's input rows and columns, halo included, at ``cb`` bytes a
+    pixel; its filter taps; with a pool, its conv values."""
+    sh, sw = strides
+    pw, ps = pool if pool is not None else (1, 1)
+    rc, wc = (rp - 1) * ps + pw, (cp - 1) * ps + pw
+    return (_up16(((rc - 1) * sh + kh) * ((wc - 1) * sw + kw) * cb)
+            + _up16(kh * kw * cb)
+            + (rc * wc * cb if (pw, ps) != (1, 1) else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def dw_plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
+            strides: Tuple[int, int] = (1, 1),
+            pool: Optional[Tuple[int, int]] = None, sms: int = H100_SMS,
+            smem_cap: int = DW_SMEM) -> DwPlan:
+    """The bands of a depthwise conv, from its shapes alone: 32 channels a
+    block (fewer where Cout is smaller, in 4-channel lanes); whole output
+    rows, as many a band as leave at least ``DW_BLOCKS_PER_SM`` blocks
+    on each of ``sms`` SMs (one row until the batch is large: small
+    blocks keep every SM busy and each block's path short); where that
+    leaves fewer blocks than SMs, narrower column bands, halved until
+    there are as many blocks as SMs or a block's work fits its threads
+    once; then, while a block's shared memory passes ``smem_cap``, fewer
+    rows, then narrower column bands, then fewer channels."""
+    sh, sw = strides
+    pw, ps = pool if pool is not None else (1, 1)
+    ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    oh, ow = (ho - pw) // ps + 1, (wo - pw) // ps + 1
+    cb = min(32, 4 * math.ceil(cout / 4))
+    groups = math.ceil(cout / cb)
+    rp = min(oh, max(1, n * oh * groups // (DW_BLOCKS_PER_SM * sms)))
+    cp = ow
+
+    def blocks(cp):
+        return n * math.ceil(oh / rp) * math.ceil(ow / cp) * groups
+
+    def items(cp):   # (conv row, run, 4 channels) work items of a block
+        rc, wc = (rp - 1) * ps + pw, (cp - 1) * ps + pw
+        return rc * math.ceil(wc / DW_RUN) * (cb // 4)
+
+    while cp > 1 and blocks(cp) < sms and items(cp) > DW_THREADS:
+        cp = math.ceil(cp / 2)
+    while dw_smem(rp, cp, cb, kh, kw, strides, pool) > smem_cap:
+        if rp > 1:
+            rp //= 2
+        elif cp > 1:
+            cp = math.ceil(cp / 2)
+        elif cb > 4:
+            cb = max(4, 4 * (cb // 8))
+        else:
+            raise ValueError(f"qdwconv2d: a {kh}x{kw} window with pool "
+                             f"{pool} needs more than {smem_cap} bytes of "
+                             "shared memory for one output pixel")
+    return DwPlan(rp, cp, cb, math.ceil(oh / rp), math.ceil(ow / cp),
+                  math.ceil(cout / cb),
+                  dw_smem(rp, cp, cb, kh, kw, strides, pool))
 
 
 def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
@@ -258,9 +327,10 @@ class _Geometry:
 
     head: tuple      # n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps
     tail: tuple      # c_tot, out_off
-    plan: Optional[Plan]  # None for the depthwise kernel
-    width: int       # widest A gather load Cin/G allows: 16, 4 or 1
-    wide: bool       # c_tot and out_off allow 16-byte stores
+    plan: object     # Plan, or the depthwise kernel's DwPlan
+    width: int       # widest input load the channels allow: 16, 4 or 1
+    store: int       # output store width: 16 (dense), 4 (depthwise)
+    wide: bool       # c_tot and out_off allow stores of that width
 
 
 @functools.lru_cache(maxsize=4096)
@@ -310,15 +380,21 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
                         "concat_shift"), options):
         if not 0 <= v <= 31:
             raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
-    pl = None
+    pool = None if pool is None else (pw, ps)
     if kernel == "qconv":
-        pl = plan(n, hp, wp, cin, kh, kw, cout, (sh, sw),
-                  None if pool is None else (pw, ps), groups,
-                  _sms(device_index))
+        pl = plan(n, hp, wp, cin, kh, kw, cout, (sh, sw), pool, groups,
+                  qgemm.sms_of(device_index))
+        width = 16 if cin_g % 16 == 0 else 4 if cin_g % 4 == 0 else 1
+        store = 16
+    else:
+        pl = dw_plan(n, hp, wp, cin, kh, kw, cout, (sh, sw), pool,
+                     qgemm.sms_of(device_index))
+        width = (1 if cout != cin else 16 if cin % 16 == 0
+                 and pl.cb % 16 == 0 else 4 if cin % 4 == 0 else 1)
+        store = 4
     return _Geometry((n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps),
-                     (c_tot, out_off), pl,
-                     16 if cin_g % 16 == 0 else 4 if cin_g % 4 == 0 else 1,
-                     c_tot % 16 == 0 and out_off % 16 == 0)
+                     (c_tot, out_off), pl, width, store,
+                     c_tot % store == 0 and out_off % store == 0)
 
 
 def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
@@ -369,18 +445,18 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     lib = _build.load(kernel, _SIGNATURES[kernel])
     p = _build.ptr
     stream = _build.stream(dev)
+    width, xp = geo.width, x.data_ptr()
+    while xp % width:             # 16 -> 4 -> 1
+        width //= 4
+    wide = int(geo.wide and out.data_ptr() % geo.store == 0)
     if kernel == "qdwconv":
         err = lib.qdwconv_s8(p(x), p(w), p(b), p(svec), p(skip), p(out),
-                             *args, stream)
+                             *args, pl.rp, pl.cp, pl.cb, width, wide, stream)
     else:
         if w_k is None:
             w_k = stage_kmajor(w)
         if w_k.data_ptr() % 16:   # TMA reads 16-byte aligned rows
             w_k = w_k.clone()
-        width, xp = geo.width, x.data_ptr()
-        while xp % width:         # 16 -> 4 -> 1
-            width //= 4
-        wide = int(geo.wide and out.data_ptr() % 16 == 0)
         err = lib.qconv_s8(p(x), p(w_k), p(b), p(svec), p(skip), p(out),
                            *args, int(groups), pl.bn, pl.k_pad, pl.splits,
                            pl.chunk, width, wide, stream)

@@ -1,39 +1,132 @@
-"""int8 GEMM + bias + requantize: the FC stage kernel.
+"""int8 GEMM + bias + requant: the FC stage kernel.
 
 ``qgemm`` launches the hand-written CUDA kernel ``csrc/qgemm.cu`` on a
 CUDA tensor and runs the plain version :func:`qgemm_plain` on a CPU
 tensor.  It replaces the Pallas kernel
 ``src/repro/kernels/qgemm.py:qgemm``.  On the H100 the kernel is bound
 by reading the weights once (small batches reuse each weight byte only
-M times); it splits K across blocks so the read spreads over every SM
-(see the note at the top of the source).
+M times): swap-AB ``wgmma`` s8 with the weight staged K-major
+(:func:`stage_kmajor`, once per layer as ``QuantizedLayer.w_k``) and fed
+by TMA through a ring of stages, K split over the blocks of a
+thread-block cluster so that one wave fills the card (:func:`plan`), and
+the split sums reduced through distributed shared memory and
+requantized in the same launch: one launch per call (see the note at the
+top of the source).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, ref
 
-#: K values of one split: the smallest slice a block is given.
-MIN_K_CHUNK = 64
-#: Blocks per SM the split-K heuristic aims for.
-BLOCKS_PER_SM = 4
-_BLOCK_N = 1024
+#: K bytes of one wgmma step: one 128-byte swizzle row of each operand;
+#: K-major weights are zero-padded to a multiple of it.
+K_TILE = 128
+#: Streaming multiprocessors a plan fills when it cannot ask the card
+#: (the H100 SXM's count).
+H100_SMS = 132
+#: The most K splits of one tile: the splits of a tile run as one
+#: thread-block cluster, and 8 is the portable cluster size.
+MAX_SPLITS = 8
 #: Launches of the kernel (plain-version calls are not counted).
 launches = {"qgemm": 0}
 
-_SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+_SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                + [ctypes.c_void_p]}
 
 
+def k_padded(k: int) -> int:
+    """K rounded up to the wgmma kernels' K tile."""
+    return K_TILE * math.ceil(k / K_TILE)
+
+
+def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 -> the kernels' K-major (N, K_pad) int8: row n holds
+    column n of ``w``, zero-padded from K to :func:`k_padded` (every row
+    a multiple of 16 bytes, as TMA needs; the padding adds 0 to every
+    sum).  Made once per layer."""
+    k, n = w.shape
+    wk = torch.zeros((n, k_padded(k)), dtype=torch.int8, device=w.device)
+    wk[:, :k] = w.t()
+    return wk
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one GEMM call runs: its tiles and its K split."""
+
+    bn: int          # output columns a tile (one warpgroup per 64)
+    nw: int          # rows of x a tile: the wgmma N, 8, 16 or 32
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int     # K_TILE steps of the padded K
+    splits: int      # K splits a tile (one cluster)
+    chunk: int       # K tiles a split (the last may hold fewer)
+
+    @property
+    def k_pad(self) -> int:
+        return self.k_tiles * K_TILE
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def split_ranges(self):
+        """The K tiles [start, stop) of each split, in order."""
+        return [(s * self.chunk, min((s + 1) * self.chunk, self.k_tiles))
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, sms: int = H100_SMS) -> Plan:
+    """The tiles and K split of an (M, K) x (K, N) call, from its shapes
+    and the card's SM count alone.  NW is the smallest wgmma N of 8, 16
+    and 32 that holds M (32 and M tiles past it).  For a tile of 128 and
+    of 64 columns, each tile's K tiles are split over
+    ``min(sms // tiles, MAX_SPLITS)`` blocks at most (the smallest chunk
+    that keeps the grid within one wave, and as few splits as that chunk
+    needs); the 64-column tile is taken where it puts more blocks on the
+    card within one wave."""
+    nw = 8 if m <= 8 else 16 if m <= 16 else 32
+    m_tiles = math.ceil(m / nw)
+    k_tiles = k_padded(k) // K_TILE
+
+    def tiled(bn: int) -> Plan:
+        n_tiles = math.ceil(n / bn)
+        most = max(1, min(MAX_SPLITS, sms // (n_tiles * m_tiles)))
+        chunk = math.ceil(k_tiles / most)
+        return Plan(bn, nw, m_tiles, n_tiles, k_tiles,
+                    math.ceil(k_tiles / chunk), chunk)
+
+    wide, narrow = tiled(128), tiled(64)
+    return narrow if wide.blocks < narrow.blocks <= sms else wide
+
+
+@functools.lru_cache(maxsize=None)
+def sms_of(index: Optional[int]) -> int:
+    """SMs of CUDA card ``index``; the H100's count for no card."""
+    if index is None:
+        return H100_SMS
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def qgemm_plain(x, w, b=None, *, shift, relu: bool = False,
-                shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+                shift_vec: Optional[torch.Tensor] = None,
+                w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's semantics in plain PyTorch (any device); the staged
-    ``shift_vec`` is not read: ``shift`` says the same."""
+    ``shift_vec`` and ``w_k`` are not read: ``shift`` and ``w`` say the
+    same."""
     return ref.qgemm_ref(x, w, b, shift, relu)
 
 
@@ -78,30 +171,17 @@ def stage_shift(shift, n: int, device) -> Optional[torch.Tensor]:
     return shift_args(shift, n, device)[1]
 
 
-def _block_m(m: int) -> int:
-    """Rows of y one block owns: one of the kernel's instances 1, 2, 4, 8."""
-    return 8 if m >= 5 else 4 if m >= 3 else m
-
-
-def _splits(m: int, n: int, k: int, bm: int, device) -> tuple:
-    """(splits, k_chunk): enough K slices that the grid fills the card."""
-    tiles = math.ceil(n / _BLOCK_N) * math.ceil(m / bm)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(math.ceil(BLOCKS_PER_SM * sms / tiles),
-                        math.ceil(k / MIN_K_CHUNK)))
-    chunk = 4 * math.ceil(math.ceil(k / splits) / 4)
-    return math.ceil(k / chunk), chunk
-
-
 def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           *, shift, relu: bool = False,
-          shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+          shift_vec: Optional[torch.Tensor] = None,
+          w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``requant(x @ w + b)``: x (M, K) int8, w (K, N) int8, b (N,) int32
     or None; ``shift`` an int or a length-N sequence of per-column
     shifts, ``shift_vec`` the latter staged on the card
-    (:func:`stage_shift`).  Returns (M, N) int8.  On a CPU tensor this is
-    the plain version; on a CUDA tensor it launches the kernel or
-    raises."""
+    (:func:`stage_shift`), ``w_k`` ``w`` staged K-major
+    (:func:`stage_kmajor`; made here when none is given).  Returns
+    (M, N) int8.  On a CPU tensor this is the plain version (the staged
+    copies unused); on a CUDA tensor it launches the kernel or raises."""
     if x.device.type == "cpu":
         return qgemm_plain(x, w, b, shift=shift, relu=relu)
     if x.device.type != "cuda":
@@ -113,7 +193,7 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         raise ValueError(f"qgemm shapes {tuple(x.shape)} x {tuple(w.shape)}")
     m, k = x.shape
     n = w.shape[1]
-    for name, t in (("w", w), ("b", b)):
+    for name, t in (("w", w), ("b", b), ("w_k", w_k)):
         if t is not None and t.device != x.device:
             raise ValueError(f"qgemm: {name} on {t.device}, x on {x.device}")
     if b is not None and (b.dtype != torch.int32 or b.shape != (n,)):
@@ -122,20 +202,31 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if not (x.is_contiguous() and w.is_contiguous()
             and (b is None or b.is_contiguous())):
         raise ValueError("qgemm takes contiguous tensors")
+    if w_k is not None and (w_k.dtype != torch.int8
+                            or w_k.shape != (n, k_padded(k))
+                            or not w_k.is_contiguous()):
+        raise ValueError(f"qgemm: staged weight must be contiguous int8 "
+                         f"({n}, {k_padded(k)}), got {w_k.dtype} "
+                         f"{tuple(w_k.shape)}")
     s, svec = shift_args(shift, n, x.device, shift_vec)
     y = torch.empty((m, n), dtype=torch.int8, device=x.device)
     if m == 0 or n == 0:
         return y
-    bm = _block_m(m)
-    splits, chunk = _splits(m, n, k, bm, x.device)
-    partial = (torch.zeros((m, n), dtype=torch.int32, device=x.device)
-               if splits > 1 else None)
-    vec = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
+    pl = plan(m, n, k, sms_of(x.device.index))
+    if w_k is None:
+        w_k = stage_kmajor(w)
+    if w_k.data_ptr() % 16:      # TMA reads 16-byte aligned rows
+        w_k = w_k.clone()
+    kx = 16 * math.ceil(k / 16)
+    if kx != k:                  # TMA needs rows of x a multiple of 16 bytes
+        x = F.pad(x, (0, kx - k))
+    elif x.data_ptr() % 16:
+        x = x.clone()
     lib = _build.load("qgemm", _SIGNATURES)
     p = _build.ptr
-    err = lib.qgemm_s8(p(x), p(w), p(b), p(svec), p(y), p(partial), m, n, k,
-                       bm, chunk, splits, s, int(relu), vec,
-                       _build.stream(x.device))
+    err = lib.qgemm_s8(p(x), p(w_k), p(b), p(svec), p(y), m, n, kx,
+                       pl.k_pad, pl.bn, pl.nw, pl.splits, pl.chunk, s,
+                       int(relu), _build.stream(x.device))
     _build.check(err, "qgemm")
     launches["qgemm"] += 1
     return y
