@@ -36,6 +36,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.kernels import ops, qconv, qgemm
 from . import parser as P
+from . import verify as V
 from .quantize import QuantSpec, quantize_weights
 
 
@@ -169,17 +170,10 @@ def _check_group(li: P.LayerInfo) -> None:
             "this onto the grouped kernel library")
 
 
-def _negative_alignment(stage: str, shifts: Tuple[int, ...],
-                        m_common: int) -> ValueError:
-    return ValueError(
-        f"QV202 {stage!r}: operand position below the common scale "
-        f"m={m_common} (shifts {shifts}) — shift-only alignment cannot "
-        "scale up")
-
-
 def build_quantized(model: P.ParsedModel,
                     specs: Dict[str, QuantSpec],
                     per_channel: Optional[bool] = None,
+                    verify: bool = True,
                     device: _device.DeviceLike = None) -> QuantizedModel:
     """Apply the user-given (N, m) pairs (the paper: CNN2Gate does not
     *perform* quantization, it *applies* provided values) and stage all
@@ -195,8 +189,16 @@ def build_quantized(model: P.ParsedModel,
         identical numerics, shift-vector datapath);
       * ``False`` — strict per-tensor: a tuple ``m_w`` raises.
 
-    A merge whose operand sits below the common position raises
-    ``ValueError`` (rule QV202: shift-only alignment cannot scale up)."""
+    ``verify`` (default on) runs the static design-rule checks of
+    :mod:`.verify` over the program — the cheap structural rules before
+    staging, the overflow bounds on the staged int8 weights after — and
+    raises :class:`~.verify.VerificationError` (a ``ValueError``) on any
+    error-severity diagnostic, where the JAX package raises.  A merge
+    whose operand sits below the common position raises it whether or
+    not ``verify`` is on (rule QV202: shift-only alignment cannot scale
+    up), and so does a per-channel spec under ``per_channel=False``
+    (QV206).  Verification is pure analysis: the staged program is the
+    same with it on or off."""
     dev = _device.resolve(device)
     if per_channel is not None:
         coerced = {}
@@ -207,13 +209,24 @@ def build_quantized(model: P.ParsedModel,
             weighted = (li is not None and li.name == name
                         and li.kind in (P.CONV, P.FC))
             if not per_channel and spec.per_channel:
-                raise ValueError(
-                    f"QV206 {name!r}: spec is per-channel but "
-                    "per_channel=False was requested")
+                raise V.VerificationError([V.Diagnostic(
+                    "QV206", V.ERROR, stage=name,
+                    detail=f"spec for {name!r} is per-channel but "
+                           "per_channel=False was requested")])
             if per_channel and weighted and not spec.per_channel:
                 coerced[name] = dataclasses.replace(
                     spec, m_w=(spec.m_w,) * li.c_out)
         specs = dict(specs, **coerced)
+    if verify:
+        # cheap structural rules first — spec shapes, shift ranges,
+        # threading conflicts, merge alignment — so an infeasible spec
+        # set fails with structured diagnostics before any staging work
+        pre = V.check_spec_shapes(model, specs)
+        pre += V.check_requant_shifts(model, specs)
+        tm_chk, d_thr = V.thread_scales_checked(model, specs)
+        pre += d_thr
+        pre += V.check_merge_alignment(model, specs, tm_chk)
+        V.VerificationReport(pre).raise_if_errors()
     tensor_m = thread_scales(model, specs)
     layers: List[QuantizedLayer] = []
     for li in model.layers:
@@ -239,8 +252,13 @@ def build_quantized(model: P.ParsedModel,
                 merge_spec = QuantSpec(m_w=0, m_x=m_common, m_y=m_common)
             operand_shifts = tuple(m - merge_spec.m_x for m in m_ops)
             if any(s < 0 for s in operand_shifts):
-                raise _negative_alignment(li.merge.name, operand_shifts,
-                                          merge_spec.m_x)
+                raise V.VerificationError([V.Diagnostic(
+                    "QV202", V.ERROR, stage=li.name,
+                    tensor=li.output,
+                    detail=f"fused merge {li.merge.name!r}: operand "
+                           "position below the common scale "
+                           f"m={merge_spec.m_x} (shifts {operand_shifts})"
+                           " — shift-only alignment cannot scale up")])
         if li.kind in (P.ADD, P.CONCAT):
             m_ops = [tensor_m[t] for t in li.inputs]
             if spec is None:
@@ -248,7 +266,12 @@ def build_quantized(model: P.ParsedModel,
                 spec = QuantSpec(m_w=0, m_x=m_common, m_y=m_common)
             operand_shifts = tuple(m - spec.m_x for m in m_ops)
             if any(s < 0 for s in operand_shifts):
-                raise _negative_alignment(li.name, operand_shifts, spec.m_x)
+                raise V.VerificationError([V.Diagnostic(
+                    "QV202", V.ERROR, stage=li.name, tensor=li.output,
+                    detail=f"merge {li.name!r}: operand position below "
+                           f"the common scale m={spec.m_x} (shifts "
+                           f"{operand_shifts}) — shift-only alignment "
+                           "cannot scale up")])
         w_k = shift_vec = None
         if w is not None:
             w_np, b_np = quantize_weights(w, b, spec)
@@ -265,6 +288,15 @@ def build_quantized(model: P.ParsedModel,
                                           dev)
         layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
                                      merge_spec, w_k, shift_vec))
+    if verify:
+        # the deep rules run on the staged program: overflow bounds on
+        # the actual int8 weights (no re-quantization), alias/liveness of
+        # the schedule, fused/unfused threading identity
+        post = V.check_accumulators(model, specs, quantized_layers=layers)
+        post += V.check_concat_partition(model)
+        post += V.check_liveness(model)
+        post += V.check_threading_identity(model, specs)
+        V.VerificationReport(post).raise_if_errors()
     return QuantizedModel(
         name=model.name,
         layers=layers,

@@ -4,37 +4,139 @@
 
     gate = CNN2Gate.from_graph(vgg16())            # ONNX-lite front end
     gate.calibrate_quantization(x)                  # or apply_quantization
-    run  = gate.build(mode="emulation")             # int8 executor
+    gate.verify()                                   # static design rules
+    fit  = gate.explore("ARRIA10", algo="rl")       # hardware-aware DSE
+    run  = gate.build("fullflow", *fit.best)        # the int8 executor
     y    = run(x)                                   # inference
+    rep  = gate.latency_report("ARRIA10", *fit.best)  # Table-1 model
 
 Everything runs on ``device`` (CUDA unless the caller names another).
+The DSE and the latency report are the JAX package's FPGA models: they
+score the paper's boards, and their figures are modeled FPGA
+utilizations and latencies, not times on the card.
 
 Modes:
-  * ``emulation`` — the int8 executor on the device, ready to call.
-  * ``fullflow``  — the same executor, run once on a zero sample so
-    the kernels are built and loaded before the first request; the
-    time it took is ``synthesis_time_s`` (the stand-in for the
-    bitstream build).  Identical numerics.
+  * ``emulation`` — the int8 executor on the device, ready to call: the
+    stage loop runs on the host, one op after another.
+  * ``fullflow``  — on the card, the executor captured as one CUDA graph
+    per input shape (:class:`CapturedExecutor`), the counterpart of the
+    JAX package's ahead-of-time compiled executable; a call replays the
+    whole network in one launch.  Building it (the stand-in for the
+    bitstream build) warms the executor up and captures the batch-1
+    sample; the time it took is ``synthesis_time_s``.  On the CPU, where
+    there is nothing to capture, it is the executor run once on a zero
+    sample.  Identical numerics in every mode.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
 from repro_torch.models.cnn import collect_activations
+from . import dse as dse_mod
 from . import parser as P
 from . import pipeline as pipe
 from .graph import Graph
 from .quantize import (MAX_SHIFT, QuantSpec, best_pow2_exponent,
                        best_pow2_exponents_per_channel)
+from .resources import FPGA_BOARDS, fpga_layer_time_s
+from .spaces import CNNDesignSpace
+
+
+@dataclasses.dataclass
+class LayerTiming:
+    name: str
+    kind: str
+    time_s: float
+    t_compute: float
+    t_memory: float
+    macs: int
+
+
+@dataclasses.dataclass
+class LatencyReport:
+    """The Table-1 FPGA latency model of one design point: modeled
+    seconds on the named board, not a time on the card."""
+
+    board: str
+    n_i: int
+    n_l: int
+    layers: List[LayerTiming]
+
+    @property
+    def total_s(self) -> float:
+        return sum(l.time_s for l in self.layers)
+
+    @property
+    def gops(self) -> float:
+        total_ops = 2 * sum(l.macs for l in self.layers)
+        return total_ops / self.total_s / 1e9
+
+
+class CapturedExecutor:
+    """The fullflow executor on the card: the eager executor ``run``
+    captured as one ``torch.cuda.CUDAGraph`` per input shape.
+
+    Capturing a shape first runs the executor once on a side stream (the
+    warm-up: every kernel library is built and loaded, shared-memory
+    allowances are set and the weights' TMA descriptors are encoded, all
+    of which happen once), then records one forward into a graph whose
+    input and output are static buffers in the graph's own memory pool.
+    A call copies the request into the static input outside the graph,
+    replays the graph, and returns a clone of the static output (a later
+    call overwrites the static output, never a result already returned).
+    A shape not seen before is captured at its first call.  A capture
+    that fails raises: nothing falls back to the eager executor.
+
+    The kernel wrappers' launch counts (``ops.launch_counts``) move at
+    warm-up and capture only; a replay launches the recorded kernels
+    without calling the wrappers."""
+
+    def __init__(self, run: Callable, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph runs on CUDA, not {device}")
+        self.run = run
+        self.device = device
+        self.design_point = run.design_point
+        #: input shape -> (graph, static input, static output)
+        self.graphs: Dict[Tuple[int, ...], Tuple[torch.cuda.CUDAGraph,
+                                                 torch.Tensor,
+                                                 torch.Tensor]] = {}
+
+    def capture(self, shape: Tuple[int, ...]) -> torch.cuda.CUDAGraph:
+        """Warm up and capture the executor at ``shape``; return the
+        graph."""
+        x = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.run(x)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = self.run(x)
+        self.graphs[shape] = (graph, x, y)
+        return graph
+
+    @torch.no_grad()
+    def __call__(self, x_float) -> torch.Tensor:
+        x = torch.as_tensor(x_float, dtype=torch.float32, device=self.device)
+        shape = tuple(x.shape)
+        if shape not in self.graphs:
+            self.capture(shape)
+        graph, x_static, y_static = self.graphs[shape]
+        x_static.copy_(x)
+        graph.replay()
+        return y_static.clone()
 
 
 class CNN2Gate:
-    """Parse -> (apply quantization) -> build -> run."""
+    """Parse -> (apply quantization) -> verify -> explore -> build -> run."""
 
     def __init__(self, parsed: P.ParsedModel,
                  device: _device.DeviceLike = None):
@@ -193,6 +295,50 @@ class CNN2Gate:
         return bool(self.specs) and any(
             s.per_channel for s in self.specs.values())
 
+    def verify(self, **kw):
+        """Run the static design-rule checks (:mod:`.verify`) over the
+        current program and return the
+        :class:`~.verify.VerificationReport`.  With a built program the
+        staged int8 weights feed the overflow bounds; with only specs
+        applied the verifier re-quantizes from the graph initializers.
+        Keyword args forward to ``verify_program`` (``vmem_budget=``,
+        ``checkpoints=``, ...)."""
+        from . import verify as verify_mod
+        if self.quantized is not None:
+            return verify_mod.verify_quantized(self.quantized, **kw)
+        if self.specs is None:
+            raise RuntimeError("apply_quantization() or "
+                               "calibrate_quantization() first")
+        return verify_mod.verify_program(self.parsed, self.specs, **kw)
+
+    def design_space(self, board: str,
+                     block_h_options: Optional[List[int]] = None
+                     ) -> CNNDesignSpace:
+        return CNNDesignSpace(self.parsed, FPGA_BOARDS[board],
+                              block_h_options=block_h_options,
+                              per_channel=self.per_channel,
+                              specs=self.specs)
+
+    def explore(self, board: str, algo: str = "rl",
+                thresholds: Optional[Dict[str, float]] = None,
+                eval_cost_s: float = 0.0,
+                block_h_options: Optional[List[int]] = None,
+                **kw) -> dse_mod.DSEResult:
+        """Hardware-aware DSE over the paper's board ``board``.  With
+        ``block_h_options`` the space grows a third axis — the conv
+        kernel's row-band height — and options whose row-band working
+        set exceeds the on-chip budget are rejected by the resource
+        model.  The result is an FPGA design point; the executor takes
+        it (``build(mode, *best)``) and leaves its CUDA tiles to the
+        kernels' shape-driven plans."""
+        space = self.design_space(board, block_h_options=block_h_options)
+        if algo == "bf":
+            return dse_mod.brute_force(space, thresholds, eval_cost_s)
+        if algo == "rl":
+            return dse_mod.rl_dse(space, thresholds,
+                                  eval_cost_s=eval_cost_s, **kw)
+        raise ValueError(f"unknown DSE algorithm {algo!r}")
+
     # -------------------------------------------------------------- build
     def build(self, mode: str = "emulation", n_i: int = 16, n_l: int = 32,
               block_h: Optional[int] = None
@@ -200,8 +346,11 @@ class CNN2Gate:
         """Return the whole-network int8 executor on the gate's device.
 
         emulation: the executor, ready to call.
-        fullflow : the executor after one run on a zero sample (kernels
-        built and loaded); ``synthesis_time_s`` records that run.
+        fullflow : on the card, a :class:`CapturedExecutor` with the
+        batch-1 sample captured (``self.compiled`` is its graph); on the
+        CPU, the executor after one run on a zero sample
+        (``self.compiled`` is None).  ``synthesis_time_s`` records the
+        warm-up and capture, or that run.
         """
         if self.quantized is None:
             raise RuntimeError("apply_quantization() or "
@@ -209,15 +358,35 @@ class CNN2Gate:
         if mode not in ("emulation", "fullflow"):
             raise ValueError(f"unknown mode {mode!r}")
         run = pipe.make_executor(self.quantized, n_i, n_l, block_h=block_h)
-        if mode == "fullflow":
-            sample = torch.zeros((1,) + tuple(self.parsed.input_shape[1:]),
-                                 dtype=torch.float32, device=self.device)
-            t0 = time.perf_counter()
-            run(sample)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.synthesis_time_s = time.perf_counter() - t0
+        if mode == "emulation":
+            return run
+        shape = (1,) + tuple(self.parsed.input_shape[1:])
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            run = CapturedExecutor(run, self.device)
+            self.compiled = run.capture(shape)
+            torch.cuda.synchronize(self.device)
+        else:
+            run(torch.zeros(shape, dtype=torch.float32, device=self.device))
+            self.compiled = None
+        self.synthesis_time_s = time.perf_counter() - t0
         return run
+
+    # ------------------------------------------------------ latency model
+    def latency_report(self, board: str, n_i: int, n_l: int) -> LatencyReport:
+        """Analytical Table-1/Fig-6 FPGA latency model (see
+        resources.py): modeled seconds on ``board``, not a time on the
+        card.  Walks the DAG schedule: merge stages are pure memory
+        traffic (both operands stream once, zero MACs), so residual
+        networks report the adder path the FPGA would pay."""
+        profile = FPGA_BOARDS[board]
+        rows: List[LayerTiming] = []
+        for li in self.parsed.layers:
+            in_b, w_b, out_b = pipe.layer_bytes(li)
+            t, tc, tm = fpga_layer_time_s(profile, n_i, n_l, li.macs,
+                                          in_b, w_b, out_b)
+            rows.append(LayerTiming(li.name, li.kind, t, tc, tm, li.macs))
+        return LatencyReport(board=board, n_i=n_i, n_l=n_l, layers=rows)
 
     # ------------------------------------------------------------ summary
     def summary(self) -> str:

@@ -21,10 +21,15 @@ layer's scan, launches ``csrc/ssd_scan.cu``.
 
 Conv pads are zero (the symmetric quantization zero-point) and applied
 here; max-pool pads take INT8_MIN.
+
+Inside :func:`recording`, every entry point of this module notes its
+name and its number of tensor operands: what the static verifier's
+executor probes (``core/verify.py:executor_trace``) read.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +56,34 @@ def reset_launch_counts() -> None:
             c[name] = 0
 
 
+#: The call lists of the :func:`recording` blocks now open.
+_RECORDERS: List[List[Tuple[str, int]]] = []
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Tuple[str, int]]]:
+    """Inside the block, every entry point of this module called appends
+    ``(its name, its number of tensor operands)`` to the list the block
+    yields (a list of tensors counts each).  Nothing is recorded outside
+    such a block."""
+    calls: List[Tuple[str, int]] = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(calls)
+
+
+def _record(name: str, *operands) -> None:
+    if not _RECORDERS:
+        return
+    n = sum(sum(torch.is_tensor(t) for t in v)
+            if isinstance(v, (list, tuple)) else torch.is_tensor(v)
+            for v in operands)
+    for calls in _RECORDERS:
+        calls.append((name, n))
+
+
 def qgemm(x, w, b=None, *, shift, relu: bool = False,
           shift_vec: Optional[torch.Tensor] = None,
           w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -58,6 +91,7 @@ def qgemm(x, w, b=None, *, shift, relu: bool = False,
     channel weight scales — the per-lane shift vector path), which
     ``shift_vec`` may carry staged on the card; ``w_k`` is ``w`` staged
     K-major (:func:`qgemm.stage_kmajor`)."""
+    _record("qgemm", x, w, b, shift_vec, w_k)
     return _qgemm.qgemm(x, w, b, shift=shift, relu=relu, shift_vec=shift_vec,
                         w_k=w_k)
 
@@ -68,6 +102,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """GQA flash attention: q (B, H, Sq, D), k/v (B, HKV, Skv, D).  A
     CUDA tensor launches the kernel, a CPU tensor runs the plain
     version (:mod:`.flash_attention`)."""
+    _record("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
 
@@ -79,6 +114,7 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
     b/c (B, L, G, N); y, and the final state with ``return_state``.  A
     CUDA tensor launches the kernel, a CPU tensor runs the plain version
     (:mod:`.ssd_scan`)."""
+    _record("ssd_scan", x, dt, a, b, c, d, init_state)
     return _ssd.ssd_scan(x, dt, a, b, c, d, chunk=chunk,
                          init_state=init_state, return_state=return_state)
 
@@ -133,6 +169,7 @@ def qconv2d_nhwc(
     :func:`qconv.stage_kmajor`) and ``shift_vec`` (the per-lane shifts
     staged on the card) are what a built layer made once; without them
     a CUDA launch stages its own."""
+    _record("qconv2d_nhwc", x, w, b, skip, out_buf, w_k, shift_vec)
     route = conv_route(groups, x.shape[-1], w.shape)
     x = ref.pad_nhwc(x, pads).contiguous()
     merge_kw = dict(skip=skip, skip_shifts=skip_shifts,
@@ -159,6 +196,7 @@ def qadd_nhwc(xs, align_shifts, *, shift=0,
               relu: bool = False) -> torch.Tensor:
     """Residual-merge stage: align int8 operands to a common fixed-point
     position, add in int32, requantize back to int8."""
+    _record("qadd_nhwc", xs)
     return ref.qadd_ref(xs, align_shifts, shift, relu)
 
 
@@ -167,6 +205,7 @@ def qconcat_nhwc(xs, align_shifts, *, axis: int = -1,
     """Channel-merge stage: align each int8 operand to the common scale,
     then concatenate; ``relu`` is the merge's fused ReLU.  One definition
     of the merge semantics, shared with the conv's concat epilogue."""
+    _record("qconcat_nhwc", xs)
     return ref.qconcat_ref(xs, align_shifts, axis=axis, relu=relu)
 
 
@@ -174,6 +213,7 @@ def maxpool2d_nhwc(x: torch.Tensor, window: int, stride: int,
                    pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
                    ) -> torch.Tensor:
     """Standalone int8 NHWC max-pool; pads take INT8_MIN."""
+    _record("maxpool2d_nhwc", x)
     return ref.maxpool2d_ref(x, window, stride, pads)
 
 
@@ -183,6 +223,7 @@ def avgpool2d_nhwc(x: torch.Tensor, window: int, stride: int,
     """Standalone int8 NHWC average-pool (AveragePool /
     GlobalAveragePool): int32 window sum, round-half-up divide by the
     real window population."""
+    _record("avgpool2d_nhwc", x)
     return ref.avgpool2d_ref(x, window, stride, pads)
 
 

@@ -37,6 +37,13 @@ tensors and launch.
 
 All of them share one epilogue (``csrc/requant.cuh``), in the order
 :func:`qconv2d_plain` spells out.
+
+The functions at the end of the file, from :func:`band_geometry` to
+:func:`gconv_vmem_bytes`, are the design-space exploration's row-band
+working-set model (the paper's FPGA line buffers, the JAX package's
+Pallas VMEM bands), copied from the JAX package for
+``core/resources.py``; they do not describe the CUDA kernels, whose
+shared memory :func:`plan`, :func:`dw_plan` and :func:`dw_smem` size.
 """
 from __future__ import annotations
 
@@ -598,3 +605,167 @@ def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), shift=0, relu=True,
                 skip_shifts=(0, 0), merge_shift=0, merge_relu=False,
                 concat_shift=0, concat_relu=False, w_k=w_k,
                 shift_vec=shift_vec, **kw_)
+
+
+# ------------------------------------ the DSE's row-band working-set model
+#
+# The functions below are the JAX package's FPGA/Pallas row-band model,
+# copied verbatim so that the port's design-space exploration
+# (core/resources.py:conv_band_working_set) scores the paper's boards to
+# the byte as the JAX package does.  They describe the line buffers of
+# the paper's FPGA pipeline and the Pallas kernel's VMEM bands, NOT the
+# CUDA kernels above: those size their shared memory with :func:`plan`,
+# :func:`dw_plan` and :func:`dw_smem`.
+
+def band_geometry(block_h: int, kh: int, sh: int,
+                  pool: Optional[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """Row-band halo arithmetic of the DSE's resource model (the JAX
+    package's Pallas band kernel and the paper's FPGA line buffers; not
+    the CUDA kernels of this module).
+
+    For a band of ``block_h`` *final* output rows (post-pool when a pool
+    is fused) returns ``(conv_rows, in_rows, in_step)``:
+
+      conv_rows — conv output rows the band must compute
+                  (= ``(block_h-1)*ps + pw`` with a fused pool: the last
+                  pool window carries ``pw-ps`` rows past the stride);
+      in_rows   — input rows the band must read (conv halo ``kh-1``);
+      in_step   — input-row distance between consecutive band starts
+                  (< in_rows: the difference is the halo overlap).
+    """
+    if pool is not None:
+        pw, ps = pool
+        conv_rows = (block_h - 1) * ps + pw
+        conv_step = block_h * ps
+    else:
+        conv_rows = block_h
+        conv_step = block_h
+    in_rows = (conv_rows - 1) * sh + kh
+    in_step = conv_step * sh
+    return conv_rows, in_rows, in_step
+
+
+def default_block_h(oh: int, wo: int) -> int:
+    """The JAX package's default row-band height (of the model above,
+    not of the CUDA kernels): enough rows that each band's matmul has a
+    healthy M dimension (targets >= ~1024 conv pixels per band, the MXU
+    sweet spot) without approaching the whole-plane working set."""
+    target_rows = max(1, -(-1024 // max(wo, 1)))
+    return min(oh, target_rows, 32)
+
+
+def band_input_bytes(hp: int, wp: int, cin: int, kh: int, ho: int, *,
+                     sh: int = 1,
+                     block_h: Optional[int] = None,
+                     pool: Optional[Tuple[int, int]] = None,
+                     block_cin: Optional[int] = None) -> int:
+    """int8 bytes of the input halo band one grid step holds in VMEM —
+    the term the Cin contraction tile bounds (``block_cin=None`` means
+    the whole-Cin contraction: the band carries every input channel)."""
+    bh = min(block_h or ho, ho)
+    _conv_rows, band_in_rows, _step = band_geometry(bh, kh, sh, pool)
+    band_in_rows = min(band_in_rows, hp)
+    return band_in_rows * wp * min(block_cin or cin, cin)
+
+
+def vmem_bytes(hp: int, wp: int, cin: int, kh: int, kw: int, bco: int,
+               ho: int, wo: int, *,
+               sh: int = 1,
+               sw: Optional[int] = None,
+               block_h: Optional[int] = None,
+               pool: Optional[Tuple[int, int]] = None,
+               block_cin: Optional[int] = None,
+               skip: bool = False,
+               per_channel: bool = False) -> int:
+    """Per-grid-step working-set estimate used by the DSE resource
+    model: one halo row band (one Cin slice of it when ``block_cin`` is
+    set) + weight tile + int32 accumulator scratch + output band, plus
+    the residual skip band (``skip_vmem_bytes``) when a residual add is
+    fused into the epilogue and the int32 per-lane shift row
+    (``shift_vec_bytes``) when the layer is per-channel quantized.
+    ``ho``/``wo`` are *final* output rows/cols (post-pool when ``pool``
+    is fused); ``block_h=None`` means untiled (the whole plane in one
+    band — the old kernel's working set)."""
+    bh = min(block_h or ho, ho)
+    conv_rows, _band_in_rows, _step = band_geometry(bh, kh, sh, pool)
+    bci = min(block_cin or cin, cin)
+    conv_wo = (wp - kw) // (sw or sh) + 1 if pool is not None else wo
+    return (band_input_bytes(hp, wp, cin, kh, ho, sh=sh, block_h=block_h,
+                             pool=pool, block_cin=block_cin)  # x band int8
+            + kh * kw * bci * bco            # w tile int8
+            + 4 * conv_rows * conv_wo * bco  # acc scratch int32
+            + bh * wo * bco                  # y band int8
+            + skip_vmem_bytes(conv_rows, conv_wo, bco, skip)
+            + shift_vec_bytes(bco, per_channel))
+
+
+def skip_vmem_bytes(conv_rows: int, conv_wo: int, bco: int,
+                    skip: bool = True) -> int:
+    """int8 bytes of the residual skip band a fused-merge grid step
+    holds alongside the conv working set (conv-output geometry,
+    pre-pool)."""
+    return conv_rows * conv_wo * bco if skip else 0
+
+
+def shift_vec_bytes(lanes: int, per_channel: bool = True) -> int:
+    """int32 bytes of the per-lane requant-shift row a per-channel
+    quantized grid step holds next to the bias row (the epilogue's
+    shift-vector operand; zero in per-tensor mode, where the shift is
+    a compile-time constant)."""
+    return 4 * lanes if per_channel else 0
+
+
+def dw_vmem_bytes(wp: int, c: int, kh: int, kw: int, bc: int,
+                  ho: int, wo: int, *,
+                  sh: int = 1,
+                  sw: Optional[int] = None,
+                  block_h: Optional[int] = None,
+                  pool: Optional[Tuple[int, int]] = None,
+                  per_channel: bool = False,
+                  multiplier: int = 1,
+                  skip: bool = False) -> int:
+    """Per-grid-step working set of the depthwise row-band kernel.  The
+    input band is channel-tiled (unlike the dense kernel, which must see
+    every Cin for the contraction), so ``bc`` bounds every term
+    (including the per-channel shift row in per-channel mode).  ``c`` is
+    the *output* channel count; with a channel ``multiplier`` m > 1 the
+    input band carries only ``bc / m`` channels (each feeds m output
+    lanes in-register), and ``skip`` adds the fused residual band in
+    conv-output geometry, as in :func:`vmem_bytes`."""
+    bh = min(block_h or ho, ho)
+    conv_rows, band_in_rows, _step = band_geometry(bh, kh, sh, pool)
+    conv_wo = (wp - kw) // (sw or sh) + 1 if pool is not None else wo
+    bc = min(bc, c)
+    bc_in = -(-bc // multiplier)
+    return (band_in_rows * wp * bc_in        # x band int8 (channel tile)
+            + kh * kw * bc                   # per-channel taps int8
+            + 4 * conv_rows * conv_wo * bc   # acc scratch int32
+            + bh * wo * bc                   # y band int8
+            + skip_vmem_bytes(conv_rows, conv_wo, bc, skip)
+            + shift_vec_bytes(bc, per_channel))
+
+
+def gconv_vmem_bytes(wp: int, cin_g: int, cout_g: int, kh: int, kw: int,
+                     ho: int, wo: int, *,
+                     sh: int = 1,
+                     sw: Optional[int] = None,
+                     block_h: Optional[int] = None,
+                     pool: Optional[Tuple[int, int]] = None,
+                     per_channel: bool = False) -> int:
+    """Per-grid-step working set of the ragged grouped-conv band kernel
+    (:func:`qgconv2d`): one group's input-channel slice of the halo
+    band, its filter tile, the int32 accumulator, and the group's
+    output band — the group axis is a grid axis, so per-step VMEM never
+    scales with the group count."""
+    bh = min(block_h or ho, ho)
+    conv_rows, band_in_rows, _step = band_geometry(bh, kh, sh, pool)
+    conv_wo = (wp - kw) // (sw or sh) + 1 if pool is not None else wo
+    return (band_in_rows * wp * cin_g        # x band int8 (group slice)
+            + kh * kw * cin_g * cout_g       # w tile int8
+            + 4 * conv_rows * conv_wo * cout_g  # acc scratch int32
+            + bh * wo * cout_g               # y band int8
+            + shift_vec_bytes(cout_g, per_channel))
+
+
+def _rup(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
