@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, each printing one JSON line per check:
+Eight phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -63,6 +63,24 @@ Seven phases, each printing one JSON line per check:
    ``build("fullflow", *best)`` serving 8 batch-1 requests and a batch
    of 8 with the checks above, and both executors' walls and the
    fullflow's device busy share;
+4c. resilience, the guarded int8 path and the stage-timed profile:
+   VGG-16 at full width under ``build_guarded(GuardPolicy(margin=0,
+   sat_tol=0), checkpoints=2)`` — a clean request ``torch.equal`` to the
+   unguarded executor, ``build_guarded(policy=None)`` making the ops calls
+   of ``build()``, a weight flip after the first boundary recovered by
+   checkpoint replay, conv1's flip re-flagging on ``reexecute`` and
+   served by ``fallback:unfused``, an fc6 flip (the GEMM's restaged
+   ``w_k``), an activation flip; ResNet-18 per-channel with a shift-lane
+   fault (the restaged ``shift_vec``) down to ``fallback:per_tensor``;
+   googlenet_tiny with faults on a concat-fused producer's slice.  Every
+   report (outcome, flagged stages, actions, ``replayed``) and output
+   equal to the same plan's on the plain path.  SER campaigns (weight
+   bit, dropped tile, activation bit; seed 0, 2 checkpoints): VGG-16, 64
+   trials, and mobilenet_tiny@224, 32, every trial record equal to the
+   plain path's, with counts, Wilson intervals, trials/s and the derived
+   audit set.  The audit's cost (guarded vs unguarded walls, taking
+   turns), the stage-timed VGG-16 ``torch.equal`` to the executor with
+   every stage timed, and ``profile_model`` for VGG-16 and AlexNet;
 5. lm, the dense-LM serving path in bf16 with random weights from a
    seed: the built flash library's SASS must hold HGMMA (wgmma) and
    UTMALDG (TMA loads); the flash-attention kernel held against its
@@ -1439,6 +1457,284 @@ def phase_flow(torch, dev, records):
         fullflow_walls(torch, "flow", name, eager, full, xs)
 
 
+# ------------------------------------- phase 4c: resilience and profiling
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+
+
+def report_key(rep) -> tuple:
+    """What a guarded run decided: outcome, flagged stages, the ladder's
+    actions with their flags, ``replayed`` and ``boundary``."""
+    return (rep.outcome, tuple(rep.flagged), rep.recovered_by,
+            tuple((a.action, tuple(a.flagged), a.replayed, a.boundary)
+                  for a in rep.actions))
+
+
+def record_key(r) -> tuple:
+    return (r.plan, r.stages, r.flagged, r.outcome, r.output_differs,
+            r.recovered, r.escalated, r.replayed)
+
+
+def guarded_run(torch, gx, x, tag, golden=None, **want):
+    """Run the guarded executor ``gx`` on ``x`` on the kernel path, then
+    the same executor on the plain path; the logits must be
+    ``torch.equal`` and the reports the same.  ``golden`` (logits) and
+    ``want`` (outcome, recovered_by, actions) are what the run must
+    give."""
+    y, rep = gx(x)
+    with plain_ops():
+        yp, repp = gx(x)
+    key = report_key(rep)
+    ok = torch.equal(y, yp) and key == report_key(repp)
+    if golden is not None:
+        ok = ok and torch.equal(y, golden)
+    for k, v in want.items():
+        got = ([a.action for a in rep.actions] if k == "actions"
+               else getattr(rep, k))
+        ok = ok and got == v
+    check("resilience", tag, ok, outcome=rep.outcome, flagged=rep.flagged,
+          actions=[dataclasses.asdict(a) for a in rep.actions],
+          recovered_by=rep.recovered_by,
+          plain=report_key(repp) == key, expected=want)
+    return rep
+
+
+def first_upset(gx, qm, faults_mod, candidates):
+    """The guarded executor over the first candidate plan whose run is
+    not clean (a flip can die inside the datapath), and its plan."""
+    for plan in candidates:
+        gxf = gx.with_program(faults_mod.inject(qm, plan))
+        _, rep = gxf(gx.x_cal)
+        if rep.outcome != "clean":
+            return gxf, plan
+    return gxf, plan
+
+
+def campaign_pair(torch, gate, x, tag, trials, card):
+    """One SER campaign on the kernel path and the same on the plain
+    path: every trial record equal; print counts, Wilson intervals and
+    trials/s, and the derived audit set (or the silent trials)."""
+    from repro_torch.core import ser
+
+    kw = dict(trials=trials, kinds=ser.CAMPAIGN_KINDS, seed=SEED,
+              checkpoints=2, chunk=32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    camp = ser.run_campaign(gate, x, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with plain_ops():
+        t0 = time.perf_counter()
+        plain = ser.run_campaign(gate, x, **kw)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    same = [record_key(a) == record_key(b)
+            for a, b in zip(camp.records, plain.records)]
+    s = camp.summary()
+    check("resilience", f"{tag}_campaign_records_equal_plain_path",
+          all(same) and len(same) == trials, trials=trials,
+          differing=[i for i, v in enumerate(same) if not v],
+          kinds=list(kw["kinds"]))
+    emit(phase="resilience", model=tag, what="ser_campaign",
+         trials=trials, counts=s["counts"], rates=s["rates"],
+         mean_replayed_stages=s["mean_replayed_stages"],
+         n_stages=s["n_stages"], boundaries=s["checkpoints"]["stages"],
+         seconds=wall, trials_per_s=trials / wall,
+         plain_seconds=plain_wall, plain_trials_per_s=trials / plain_wall,
+         card=card)
+    silent = [dict(plan=[dataclasses.asdict(f) for f in r.plan.faults],
+                   flagged=r.flagged) for r in camp.records
+              if r.outcome == "silent"]
+    if silent:
+        emit(phase="resilience", model=tag, what="silent_trials",
+             trials=silent)
+    else:
+        pol = ser.derive_guard_policy([camp], gate.parsed)
+        emit(phase="resilience", model=tag, what="derived_audit_set",
+             audit_stages=list(pol.audit_stages),
+             n_audited=len(pol.audit_stages),
+             n_stages=len(gate.parsed.layers))
+    return camp
+
+
+def phase_resilience(torch, dev, records):
+    """The resilience layer and the stage-timed profile on the int8 CNN
+    path: guarded VGG-16 at full width (clean, a weight flip replayed
+    from a checkpoint, conv1's flip through the unfused fallback, fc6's
+    flip through the GEMM's restaged weight, an activation flip),
+    ResNet-18 per-channel (a shift-lane fault to the per-tensor rung),
+    googlenet_tiny (faults on a concat-fused producer's slice), each
+    report and output equal to the same plan's on the plain path; SER
+    campaigns on VGG-16 and mobilenet_tiny@224 with every trial record
+    equal to the plain path's; the audit's cost beside the unguarded
+    executor; the stage-timed VGG-16 and ``profile_model`` for VGG-16 and
+    AlexNet.  The launch counts are set to 0 before the phase's kernel
+    runs and read after them."""
+    from repro_torch.core import faults as F
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core.guard import GuardPolicy
+    from repro_torch.core.synthesis import CNN2Gate
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile
+    from repro_torch.models import cnn
+
+    card = card_line()
+    strict = GuardPolicy(margin=0.0, sat_tol=0.0)
+    t0 = time.perf_counter()
+    gate = CNN2Gate.from_graph(cnn.vgg16(batch=1, seed=SEED))
+    rng = np.random.default_rng(SEED + 5)
+    shape = gate.parsed.input_shape   # (1, 3, 224, 224)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                        device=dev)
+    gate.calibrate_quantization(x)
+    qm = gate.quantized
+    eager = gate.build()
+    emit(phase="resilience", model="vgg16",
+         setup_s=time.perf_counter() - t0)
+    ops.reset_launch_counts()
+    golden = eager(x)
+
+    # guards off: the same ops calls as build()
+    with ops.recording() as a:
+        eager(x)
+    with ops.recording() as b:
+        off_y = gate.build_guarded(policy=None)(x)
+    check("resilience", "vgg16_guards_off_makes_the_ops_calls_of_build",
+          a == b and torch.equal(off_y, golden), calls=len(a))
+
+    t0 = time.perf_counter()
+    gx = gate.build_guarded(x_cal=x, policy=strict, checkpoints=2)
+    emit(phase="resilience", model="vgg16", what="guard_build",
+         seconds=time.perf_counter() - t0, boundaries=list(gx._boundaries))
+    guarded_run(torch, gx, x, "vgg16_clean", golden, outcome="clean")
+
+    names = [ql.info.name for ql in qm.layers]
+    convs = [i for i, ql in enumerate(qm.layers) if ql.info.kind == "conv"]
+    fcs = [ql.info.name for ql in qm.layers if ql.info.kind == "fc"]
+    after = next(i for i in convs if i > gx._boundaries[0])
+    gxf, plan = first_upset(gx, qm, F, [F.FaultPlan((F.Fault(
+        F.WEIGHT_BIT, names[after], index=i, bit=7),)) for i in range(8)])
+    rep = guarded_run(torch, gxf, x, "vgg16_weight_bit_after_a_boundary",
+                      golden, outcome="checkpoint_replayed")
+    check("resilience", "vgg16_checkpoint_replay_reruns_fewer_stages",
+          bool(rep.actions) and 0 < (rep.actions[0].replayed or 0)
+          < len(names), replayed=rep.actions[0].replayed if rep.actions
+          else None, stages=len(names), fault=dataclasses.asdict(
+              plan.faults[0]))
+    t0 = time.perf_counter()
+    gx1 = gx.with_program(F.inject(qm, F.FaultPlan((F.Fault(
+        F.WEIGHT_BIT, names[convs[0]], index=0, bit=6),))))
+    guarded_run(torch, gx1, x, "vgg16_conv1_weight_bit_falls_back_unfused",
+                golden, outcome="fell_back", recovered_by="unfused",
+                actions=["reexecute", "fallback:unfused"])
+    emit(phase="resilience", model="vgg16", what="unfused_rung_first_use",
+         seconds=time.perf_counter() - t0)
+    k = qm.layers[names.index(fcs[0])].w_q.shape[0]
+    gxf, plan = first_upset(gx, qm, F, [F.FaultPlan((F.Fault(
+        F.WEIGHT_BIT, fcs[0], index=int(i), bit=7),))
+        for i in rng.integers(0, k * 4096, 8)])
+    guarded_run(torch, gxf, x, "vgg16_fc6_weight_bit_reaches_the_gemm",
+                golden, outcome="checkpoint_replayed")
+    li = qm.layers[convs[1]].info
+    act = F.FaultPlan((F.Fault(F.ACTIVATION_BIT, li.name, bit=6,
+                               index=int(np.prod(li.out_shape)) // 3,
+                               tensor=li.output),))
+    gxa = gx.with_program(qm, faults=act.activation_faults())
+    rep = guarded_run(torch, gxa, x, "vgg16_activation_bit_detected", golden,
+                      ok=True)
+    check("resilience", "vgg16_activation_bit_flags_its_stage",
+          names[convs[1]] in rep.flagged, flagged=rep.flagged)
+
+    # ResNet-18 per-channel: the restaged shift_vec, to the per-tensor rung
+    rg = CNN2Gate.from_graph(cnn.resnet18(batch=1, seed=SEED))
+    xr = torch.as_tensor(rng.standard_normal(rg.parsed.input_shape)
+                         .astype(np.float32), device=dev)
+    rg.calibrate_quantization(xr, per_channel=True)
+    conv2 = [ql.info.name for ql in rg.quantized.layers
+             if ql.info.kind == "conv"][1]
+    gxr = rg.build_guarded(
+        x_cal=xr, policy=GuardPolicy(margin=0.0, sat_tol=0.0,
+                                     fallback_unfused=False),
+        qm=F.inject(rg.quantized, F.FaultPlan((F.Fault(
+            F.SHIFT_LANE, conv2, lane=3, delta=2),))))
+    guarded_run(torch, gxr, xr, "resnet18_per_channel_shift_lane_per_tensor",
+                outcome="fell_back", recovered_by="per_tensor",
+                actions=["reexecute", "fallback:per_tensor"])
+
+    # googlenet_tiny: faults on a concat-fused producer's slice
+    gg = CNN2Gate.from_graph(cnn.googlenet_tiny(batch=1, seed=SEED))
+    xg = torch.as_tensor(rng.standard_normal(gg.parsed.input_shape)
+                         .astype(np.float32), device=dev)
+    gg.calibrate_quantization(xg)
+    prod = next(ql.info for ql in gg.quantized.layers
+                if ql.info.concat is not None)
+    gxg = gg.build_guarded(x_cal=xg, policy=strict, checkpoints=2)
+    g_golden = gg.build()(xg)
+    guarded_run(torch, gxg, xg, "googlenet_tiny_clean", g_golden,
+                outcome="clean")
+    rep = guarded_run(torch, gxg.with_program(
+        gg.quantized, faults=F.FaultPlan((F.Fault(
+            F.ACTIVATION_BIT, prod.name, index=5, bit=6,
+            tensor=prod.output),)).activation_faults()), xg,
+        "googlenet_tiny_concat_producer_activation_bit", g_golden, ok=True)
+    check("resilience", "googlenet_tiny_producer_slice_flagged",
+          prod.name in rep.flagged, flagged=rep.flagged, producer=prod.name)
+    gxf, plan = first_upset(gxg, gg.quantized, F, [F.FaultPlan((F.Fault(
+        F.WEIGHT_BIT, prod.name, index=i, bit=7),)) for i in range(8)])
+    guarded_run(torch, gxf, xg, "googlenet_tiny_concat_producer_weight_bit",
+                g_golden, ok=True)
+
+    # SER campaigns
+    campaign_pair(torch, gate, x, "vgg16", 64, card)
+    gm = CNN2Gate.from_graph(cnn.mobilenet_tiny(batch=1, in_hw=224,
+                                                seed=SEED))
+    xm = torch.as_tensor(rng.standard_normal(gm.parsed.input_shape)
+                         .astype(np.float32), device=dev)
+    gm.calibrate_quantization(xm)
+    campaign_pair(torch, gm, xm, "mobilenet_tiny_224", 32, card)
+    counts = ops.launch_counts()
+    check("resilience", "every_kernel_of_the_path_launched",
+          all(counts[k] > 0 for k in ("qconv2d", "qconv2d_into", "qgemm",
+                                      "qdwconv2d")), counts=counts)
+
+    # the audit's cost: guarded clean runs beside the unguarded executor,
+    # on 8 requests near the calibration input (each one clean under the
+    # default margins, so the guarded wall is the audit's, not a rung's)
+    reqs = [x + 0.01 * torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=dev) for _ in range(8)]
+    gxt = gate.build_guarded(x_cal=x, policy=GuardPolicy(), checkpoints=2)
+    outcomes = [gxt(r)[1].outcome for r in reqs]
+    w = walls(torch, {"eager": eager, "guarded": lambda v: gxt(v)[0]}, reqs)
+    e, g = statistics.median(w["eager"]), statistics.median(w["guarded"])
+    emit(phase="resilience", model="vgg16", what="audit_overhead",
+         policy="GuardPolicy() (margin 0.25, sat_tol 0.02), 2 checkpoints",
+         outcomes=outcomes, all_clean=set(outcomes) == {"clean"},
+         eager_median_ms=e, guarded_median_ms=g, guarded_over_eager=g / e,
+         eager_ms=w["eager"], guarded_ms=w["guarded"], card=card)
+
+    # the stage-timed executor and the attribution profile
+    timed = pipe.make_executor(qm, stage_timed=True)
+    yt, timings = timed(x)
+    stages = [t["stage"] for t in timings]
+    check("resilience", "vgg16_stage_timed_equals_the_executor",
+          torch.equal(yt, golden), stages=len(stages))
+    check("resilience", "vgg16_stage_timed_measures_every_stage",
+          stages == ["ingress"] + names + ["egress"], stages=stages)
+    for name in ("vgg16", "alexnet"):
+        doc = profile.profile_model(name, device=dev)
+        emit(phase="resilience", model=name, what="attribution_profile",
+             summary=doc["summary"], overhead_us=doc["overhead_us"],
+             rows=[{k: r[k] for k in ("stage", "kind", "wall_us",
+                                      "model_us", "macs", "ddr_bytes")}
+                   for r in doc["stages"]], card=card)
+
+
 # ---------------------------------------------- phase 5: the dense-LM path
 
 def bf16_ulp(torch, x):
@@ -2511,7 +2807,8 @@ def main() -> int:
     records: dict = {}
     for phase, fn in (("kernels", phase_kernels), ("vgg16", phase_vgg),
                       ("mobilenet", phase_mobilenet), ("paths", phase_paths),
-                      ("flow", phase_flow), ("lm", phase_lm),
+                      ("flow", phase_flow), ("resilience", phase_resilience),
+                      ("lm", phase_lm),
                       ("ssm", phase_ssm)):
         t0 = time.perf_counter()
         with guarded(phase):
@@ -2537,11 +2834,7 @@ def main() -> int:
                             library_ms=r["library_ms"],
                             **r.get("extra", {})))
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    print(card_line(), flush=True)
     if FAILED:
         print(f"chip_smoke.py: {len(FAILED)} check(s) failed: {FAILED}",
               file=sys.stderr)

@@ -28,6 +28,7 @@ stage loop eagerly; each stage is one op of
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,7 +38,7 @@ from repro_torch import device as _device
 from repro_torch.kernels import ops, qconv, qgemm
 from . import parser as P
 from . import verify as V
-from .quantize import QuantSpec, quantize_weights
+from .quantize import INT8_MAX, INT8_MIN, QuantSpec, quantize_weights
 
 
 @dataclasses.dataclass
@@ -170,6 +171,30 @@ def _check_group(li: P.LayerInfo) -> None:
             "this onto the grouped kernel library")
 
 
+def stage_kmajor(li: P.LayerInfo,
+                 w_q: torch.Tensor) -> Optional[torch.Tensor]:
+    """The K-major copy of a staged weight that the wgmma kernels read
+    (``QuantizedLayer.w_k``): a dense or grouped conv's
+    (:func:`qconv.stage_kmajor`) and an FC's (:func:`qgemm.stage_kmajor`);
+    None for a depthwise conv, whose kernel reads the HWIO weight.  Every
+    copy of a weight the kernels see is staged here (the build, a fault
+    injection, a call-time weight), so a kernel never reads a stale copy
+    of a corrupted ``w_q``."""
+    if li.kind == P.CONV and ops.conv_route(
+            li.group, li.c_in, w_q.shape) != "depthwise":
+        return qconv.stage_kmajor(w_q)
+    if li.kind == P.FC:
+        return qgemm.stage_kmajor(w_q)
+    return None
+
+
+def stage_shift_vec(w_q: torch.Tensor,
+                    spec: QuantSpec) -> Optional[torch.Tensor]:
+    """A per-channel spec's int32 per-lane shifts on the weight's device
+    (``QuantizedLayer.shift_vec``), None for a per-tensor spec."""
+    return qgemm.stage_shift(spec.requant_shift, w_q.shape[-1], w_q.device)
+
+
 def build_quantized(model: P.ParsedModel,
                     specs: Dict[str, QuantSpec],
                     per_channel: Optional[bool] = None,
@@ -279,13 +304,8 @@ def build_quantized(model: P.ParsedModel,
             w_np = np.ascontiguousarray(_stage_weights(li, prev_info, w_np))
             w_q = torch.from_numpy(w_np).to(dev)
             b_q = torch.from_numpy(b_np).to(dev) if b_np is not None else None
-            if li.kind == P.CONV and ops.conv_route(
-                    li.group, li.c_in, w_q.shape) != "depthwise":
-                w_k = qconv.stage_kmajor(w_q)
-            elif li.kind == P.FC:
-                w_k = qgemm.stage_kmajor(w_q)
-            shift_vec = qgemm.stage_shift(spec.requant_shift, w_q.shape[-1],
-                                          dev)
+            w_k = stage_kmajor(li, w_q)
+            shift_vec = stage_shift_vec(w_q, spec)
         layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
                                      merge_spec, w_k, shift_vec))
     if verify:
@@ -314,8 +334,102 @@ def _concat_axis(axis: int, ndim: int) -> int:
     return axis
 
 
+def _xor_payload(idx, mask) -> Tuple[np.ndarray, np.ndarray]:
+    """Host side of an activation-fault XOR: ``(flat indices, int8
+    masks)`` with the masks of a repeated index XOR-combined (two upsets
+    of one bit cancel) and zero masks dropped (a zero mask is the
+    identity), so the device scatter sees each index once."""
+    merged: Dict[int, int] = {}
+    for i, m in zip(np.asarray(idx, np.int64).reshape(-1).tolist(),
+                    np.asarray(mask).astype(np.int8).reshape(-1).tolist()):
+        merged[i] = merged.get(i, 0) ^ (m & 0xFF)
+    keep = [(i, m) for i, m in merged.items() if m]
+    return (np.asarray([i for i, _ in keep], np.int64),
+            np.asarray([m for _, m in keep], np.uint8).astype(np.int8))
+
+
+def _corrupt(h: torch.Tensor, idx: np.ndarray, mask: np.ndarray,
+             zero: Optional[np.ndarray] = None) -> torch.Tensor:
+    """A corrupted copy of ``h``: ``mask[k]`` XORed into flat element
+    ``idx[k]`` (unique indices, :func:`_xor_payload`), then the flat
+    indices ``zero`` cleared.  Flat order is ``h``'s logical order (NHWC,
+    batch included).  ``h`` itself is never written: a snapshot or the
+    caller may hold it."""
+    n = h.numel()
+    for name, ix in (("xor", idx), ("zero", zero)):
+        if ix is not None and len(ix) and not (0 <= ix.min()
+                                               and ix.max() < n):
+            raise IndexError(f"activation fault {name} index outside the "
+                             f"{n} elements of a {tuple(h.shape)} tensor")
+    flat = h.reshape(-1).clone()
+    if len(idx):
+        ji = torch.as_tensor(idx, device=h.device)
+        flat[ji] = torch.bitwise_xor(
+            flat[ji], torch.as_tensor(mask, device=h.device))
+    if zero is not None and len(zero):
+        flat[torch.as_tensor(zero, device=h.device)] = 0
+    return flat.view(h.shape)
+
+
+def _apply_tensor_faults(h: torch.Tensor, f: Dict) -> torch.Tensor:
+    """Apply a static activation-fault payload (``core/faults.py``:
+    ``FaultPlan.activation_faults``) to one named tensor: XOR bit masks
+    at flat indices (SEU bit flips) and zeroed flat ranges (dropped
+    bursts)."""
+    idx, mask = (_xor_payload(f["xor_idx"], f["xor_mask"])
+                 if f.get("xor_idx") is not None
+                 else (np.zeros(0, np.int64), np.zeros(0, np.int8)))
+    z = f.get("zero_idx")
+    return _corrupt(h, idx, mask,
+                    None if z is None else np.asarray(z, np.int64))
+
+
+def _apply_arg_faults(h: torch.Tensor, entry) -> torch.Tensor:
+    """Apply a *call-time* activation-fault payload ``(idx, mask)`` (host
+    arrays) to one tensor: XOR ``mask[k]`` into flat element ``idx[k]``.
+    A zero mask is the identity, which is how the padded slots of a
+    campaign's fixed-shape payload ride along (``core/ser.py``)."""
+    return _corrupt(h, *_xor_payload(*entry))
+
+
+def _stage_stats(h: torch.Tensor) -> torch.Tensor:
+    """int8-domain audit statistics of one stage output, on its device:
+    ``[saturation fraction, max |value|, mean |value|]`` (float32).  The
+    saturation count and ``sum |h|`` are exact integers, scaled once at
+    the end by the float32 reciprocal of the element count (the product
+    XLA makes of the JAX package's float32 mean), so the result does
+    not depend on a reduction order: it is the same on the CPU and the
+    card, and equals the JAX package's wherever that is exact (sums
+    below 2^24).  The guard (``core/guard.py``) dequantizes these
+    host-side with the tensor's fixed-point position."""
+    inv_n = float(np.float32(1) / np.float32(h.numel()))
+    sat = ((h == INT8_MAX) | (h == INT8_MIN)).sum()
+    a = h.to(torch.int32).abs()
+    return torch.stack([sat.to(torch.float32) * inv_n,
+                        a.max().to(torch.float32),
+                        a.sum().to(torch.float32) * inv_n])
+
+
+def stats_to_host(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """An audited run's statistics on the host, read back with one copy:
+    ``{tensor: [sat_frac, max_abs, mean_abs]}`` in the run's order."""
+    if not stats:
+        return {}
+    rows = torch.stack(list(stats.values())).cpu().numpy()
+    return dict(zip(stats, rows))
+
+
 def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
-                  block_h: Optional[int] = None
+                  block_h: Optional[int] = None,
+                  *,
+                  audit=False,
+                  faults: Optional[Dict[str, Dict]] = None,
+                  checkpoints=None,
+                  weight_args=(),
+                  fault_args=(),
+                  replay_from: Optional[int] = None,
+                  stage_timed: bool = False,
+                  tracer=None
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the whole-network executor: a closure that interprets the
     DAG stage program over a tensor environment on ``qm.device``.  Its
@@ -343,7 +457,54 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
 
     Buffer release is liveness-based: the stage index of each tensor's
     last consumer is precomputed, and the environment drops a tensor as
-    soon as the schedule passes it."""
+    soon as the schedule passes it.
+
+    Resilience hooks (the JAX package's, with its names, checks and
+    messages; all default off, and when off the executor makes exactly
+    the ops calls it makes without them):
+
+      * ``audit`` — ``True`` makes the closure also return per-stage
+        int8 audit statistics (``{tensor: [sat_frac, max_abs,
+        mean_abs]}`` on the device, :func:`_stage_stats`;
+        :func:`stats_to_host` reads them back with one copy); a
+        *collection* of tensor names audits only those stages.
+      * ``faults`` — a static in-flight activation-fault payload
+        (``core/faults.py``: ``FaultPlan.activation_faults``).
+      * ``checkpoints`` — stage indices at which the closure snapshots
+        the live int8 tensor environment (after the liveness release:
+        exactly what a replay needs).  The closure then also returns
+        ``{stage_name: {tensor: int8 tensor}}``.  Boundaries inside a
+        fused-concat group are rejected (verifier rule QV304).  No stage
+        writes into a tensor a snapshot holds.
+      * ``replay_from`` — build a *replay* closure instead: it takes a
+        checkpoint environment and runs only the stages after the given
+        boundary index, leaving the snapshot as it was.
+      * ``weight_args`` — stage names whose weights become a call-time
+        argument (``ex(x, {stage: w_q})``): a campaign runs every
+        trial's corrupted weights through one executor.  The kernels'
+        K-major operand is staged from the call-time weight
+        (:func:`stage_kmajor`), never taken from the build.
+      * ``fault_args`` — tensor names whose activation-fault payload
+        ``(idx, mask)`` becomes a call-time argument (``ex(x, ...,
+        {tensor: (idx, mask)})``); a zero mask is a no-op slot.
+
+    Flat fault indices address a tensor in NHWC order with the batch
+    included; a fused concat producer's output tensor is its channel
+    slice of the shared buffer, which faults and audits address as if
+    it stood alone (the corrupted slice is written back into the
+    buffer).
+
+    ``stage_timed=True`` builds the **stage-timed executor** instead:
+    ingress, every DAG stage and egress run in schedule order, with
+    ``torch.cuda.synchronize()`` after each on the card, and the closure
+    returns ``(logits, timings)`` where ``timings`` is a schedule-order
+    list of ``{"stage", "kind", "wall_us"}`` rows (host wall time); an
+    optional ``tracer`` (:class:`.telemetry.Tracer`) records each as a
+    span.  Same stage program, same kernels, same logits.  Exclusive
+    with every other hook.
+
+    Return value composition (fixed order): ``logits``, then ``stats``
+    when auditing, then ``ckpts`` when checkpointing."""
     stages = qm.layers
     out_name = qm.parsed.output_name
     in_name = qm.parsed.input_name
@@ -356,6 +517,50 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             last_use[t] = idx
     last_use[out_name] = len(stages)  # the egress reads it
 
+    # ---- resilience-hook configuration (all fixed at build time) ----
+    audit_sel = None if isinstance(audit, bool) else frozenset(audit)
+    want_stats = audit is not False
+    if stage_timed and (want_stats or faults or checkpoints
+                        or weight_args or fault_args
+                        or replay_from is not None):
+        raise ValueError(
+            "stage_timed is exclusive with the audit/faults/checkpoints/"
+            "weight_args/fault_args/replay_from hooks: the stage-timed "
+            "executor measures the plain program")
+
+    def _audited(t: str) -> bool:
+        return audit is True or (audit_sel is not None and t in audit_sel)
+
+    weight_arg_set = frozenset(weight_args or ())
+    weighted_names = {ql.info.name for ql in stages if ql.w_q is not None}
+    unknown_w = weight_arg_set - weighted_names
+    if unknown_w:
+        raise ValueError("weight_args name stages without staged "
+                         f"weights: {sorted(unknown_w)}")
+    fault_arg_set = frozenset(fault_args or ())
+    known_tensors = {ql.info.output for ql in stages} | {in_name}
+    unknown_f = fault_arg_set - known_tensors
+    if unknown_f:
+        raise ValueError("fault_args name unknown tensors: "
+                         f"{sorted(unknown_f)}")
+
+    ckpt_idx = tuple(sorted({int(c) for c in (checkpoints or ())}))
+    if ckpt_idx and replay_from is not None:
+        raise ValueError("checkpoints and replay_from are exclusive: a "
+                         "replay closure never snapshots")
+    # boundary legality (range + never inside a fused-concat group) is
+    # the verifier's QV304 rule — one shared implementation with the
+    # checkpoint planner, so executor and planner can never disagree
+    bad = V.check_checkpoint_boundaries(qm.parsed, ckpt_idx)
+    if bad:
+        raise V.VerificationError(bad)
+    if replay_from is not None and not -1 <= replay_from < len(stages):
+        raise ValueError(f"replay_from={replay_from} outside [-1, "
+                         f"{len(stages)})")
+    ckpt_set = frozenset(ckpt_idx)
+    has_w_arg = bool(weight_arg_set)
+    has_f_arg = bool(fault_arg_set)
+
     # concat fusion: producers need their merge's alignment shifts and
     # relu flag, which live on the (still-scheduled) Concat stage
     concat_ql = {ql.info.name: ql for ql in stages
@@ -364,7 +569,40 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
     def _cbuf_key(cc: P.LayerInfo) -> str:
         return "\x00cbuf:" + cc.name
 
-    def _conv(ql: QuantizedLayer, env: Dict[str, torch.Tensor]):
+    def _extra(extra):
+        """Split the optional positional tail into (weights, payload)."""
+        i = 0
+        weights = None
+        payload = None
+        if has_w_arg:
+            weights = extra[i]
+            i += 1
+        if has_f_arg:
+            payload = extra[i]
+            i += 1
+        if i != len(extra):
+            raise TypeError(f"executor expected {i} extra argument(s) "
+                            f"(weights={has_w_arg}, faults={has_f_arg}), "
+                            f"got {len(extra)}")
+        return weights, payload
+
+    def _pack(logits, stats, ckpts):
+        out = (logits,)
+        if want_stats:
+            out += (stats,)
+        if ckpt_set:
+            out += (ckpts,)
+        return out if len(out) > 1 else logits
+
+    def _weights(ql: QuantizedLayer, weights):
+        """(w_q, w_k) of a weighted stage: the build's, or a call-time
+        weight with its K-major copy staged from it."""
+        if weights is not None and ql.info.name in weight_arg_set:
+            w = torch.as_tensor(weights[ql.info.name], device=dev)
+            return w, stage_kmajor(ql.info, w)
+        return ql.w_q, ql.w_k
+
+    def _conv(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights):
         li = ql.info
         pool = None
         if li.pool is not None:
@@ -390,16 +628,17 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                             concat_shift=cq.operand_shifts[
                                 cc.inputs.index(li.output)],
                             concat_relu=cc.relu)
+        w_q, w_k = _weights(ql, weights)
         return ops.qconv2d_nhwc(
-            env[li.inputs[0]], ql.w_q, ql.b_q, strides=li.strides,
+            env[li.inputs[0]], w_q, ql.b_q, strides=li.strides,
             pads=li.pads, shift=ql.spec.requant_shift, relu=li.relu,
-            pool=pool, groups=li.group, w_k=ql.w_k,
+            pool=pool, groups=li.group, w_k=w_k,
             shift_vec=ql.shift_vec, **merge_kw)
 
-    def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor]):
+    def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights):
         li = ql.info
         if li.kind == P.CONV:
-            return _conv(ql, env)
+            return _conv(ql, env, weights)
         if li.kind == P.POOL:
             pool_fn = (ops.avgpool2d_nhwc if li.pool_type == "avg"
                        else ops.maxpool2d_nhwc)
@@ -410,9 +649,9 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             if h.ndim > 2:
                 # NHWC flatten: rows were permuted at staging time
                 h = h.reshape(h.shape[0], -1)
-            return ops.qgemm(h, ql.w_q, ql.b_q, shift=ql.spec.requant_shift,
-                             relu=li.relu, shift_vec=ql.shift_vec,
-                             w_k=ql.w_k)
+            w_q, w_k = _weights(ql, weights)
+            return ops.qgemm(h, w_q, ql.b_q, shift=ql.spec.requant_shift,
+                             relu=li.relu, shift_vec=ql.shift_vec, w_k=w_k)
         if li.kind == P.ADD:
             return ops.qadd_nhwc([env[t] for t in li.inputs],
                                  ql.operand_shifts,
@@ -429,23 +668,51 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                                     relu=li.relu)
         raise ValueError(li.kind)  # the parser only emits the five kinds
 
-    @torch.no_grad()
-    def forward(x_float) -> torch.Tensor:
-        x = torch.as_tensor(x_float, dtype=torch.float32, device=dev)
-        h = torch.clamp(torch.round(x * (2.0 ** qm.input_m)), -128, 127)
-        h = h.to(torch.int8)
-        if h.ndim == 4:
-            h = h.permute(0, 2, 3, 1).contiguous()  # single ingress NCHW->NHWC
-        env: Dict[str, torch.Tensor] = {in_name: h}
-        for idx, ql in enumerate(stages):
+    def _resilience(h: torch.Tensor, t: str, payload, stats):
+        """The hooks on one stage output ``h`` named ``t``: static and
+        call-time faults, then the audit."""
+        if faults and t in faults:
+            h = _apply_tensor_faults(h, faults[t])
+        if t in fault_arg_set:
+            h = _apply_arg_faults(h, payload[t])
+        if _audited(t):
+            stats[t] = _stage_stats(h)
+        return h
+
+    def _exec_stages(env: Dict[str, torch.Tensor], weights, payload,
+                     start: int, stop: int, stats, ckpts) -> None:
+        """Interpret stages ``[start, stop)`` over a live tensor
+        environment, updating ``env``/``stats``/``ckpts`` in place — the
+        shared core of the forward, replay and stage-timed paths."""
+        for idx in range(start, stop):
+            ql = stages[idx]
             li = ql.info
-            h = _stage(ql, env)
-            key = (_cbuf_key(li.concat) if li.kind == P.CONV
-                   and li.concat is not None else li.output)
-            env[key] = h
+            h = _stage(ql, env, weights)
+            if li.kind == P.CONV and li.concat is not None:
+                # h IS the shared buffer; the producer's own output
+                # tensor exists only as a channel slice of it, which the
+                # hooks address (a corrupted slice is written back)
+                t = li.output
+                if (faults and t in faults) or t in fault_arg_set \
+                        or _audited(t):
+                    off = li.concat_offset
+                    sl = h[..., off:off + li.c_out]
+                    new = _resilience(sl, t, payload, stats)
+                    if new is not sl:
+                        sl.copy_(new)
+                env[_cbuf_key(li.concat)] = h
+            else:
+                env[li.output] = _resilience(h, li.output, payload, stats)
             for t in li.inputs:     # liveness-based buffer release
                 if last_use.get(t) == idx:
                     env.pop(t, None)  # pop: an operand may repeat (x + x)
+            if idx in ckpt_set:
+                # snapshot AFTER the liveness release: the environment
+                # holds exactly the live set — what a replay from this
+                # boundary needs, and nothing more
+                ckpts[li.name] = dict(env)
+
+    def _egress(env: Dict[str, torch.Tensor]) -> torch.Tensor:
         h = env[out_name]
         if h.ndim == 4:
             h = h.permute(0, 3, 1, 2)              # single egress NHWC->NCHW
@@ -454,8 +721,96 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             logits = torch.softmax(logits, dim=-1)
         return logits
 
-    forward.design_point = (n_i, n_l, block_h)
-    return forward
+    def _ingress(x_float, payload) -> torch.Tensor:
+        x = torch.as_tensor(x_float, dtype=torch.float32, device=dev)
+        h = torch.clamp(torch.round(x * (2.0 ** qm.input_m)), -128, 127)
+        h = h.to(torch.int8)
+        if h.ndim == 4:
+            h = h.permute(0, 2, 3, 1).contiguous()  # single ingress NCHW->NHWC
+        if faults and in_name in faults:
+            h = _apply_tensor_faults(h, faults[in_name])
+        if in_name in fault_arg_set:
+            h = _apply_arg_faults(h, payload[in_name])
+        return h
+
+    def _run(env: Dict[str, torch.Tensor], weights, payload, start: int):
+        stats: Dict[str, torch.Tensor] = {}
+        ckpts: Dict[str, Dict[str, torch.Tensor]] = {}
+        _exec_stages(env, weights, payload, start, len(stages), stats, ckpts)
+        return _egress(env), stats, ckpts
+
+    if stage_timed:
+        run = _make_stage_timed(qm, in_name, _ingress, _exec_stages,
+                                _egress, tracer)
+    elif replay_from is not None:
+        @torch.no_grad()
+        def run(env: Dict[str, torch.Tensor], *extra):
+            weights, payload = _extra(extra)
+            logits, stats, _ = _run(dict(env), weights, payload,
+                                    replay_from + 1)
+            return _pack(logits, stats, {})
+    else:
+        @torch.no_grad()
+        def run(x_float, *extra):
+            weights, payload = _extra(extra)
+            env: Dict[str, torch.Tensor] = {in_name: _ingress(x_float,
+                                                              payload)}
+            logits, stats, ckpts = _run(env, weights, payload, 0)
+            return _pack(logits, stats, ckpts)
+
+    run.design_point = (n_i, n_l, block_h)
+    return run
+
+
+def _make_stage_timed(qm: QuantizedModel, in_name: str, ingress: Callable,
+                      exec_stages: Callable, egress: Callable,
+                      tracer) -> Callable:
+    """Assemble the stage-timed executor (``make_executor(
+    stage_timed=True)``): ingress, each DAG stage and egress in schedule
+    order, the device synchronized after each so that each one's host
+    wall time is attributable.  Ingress (quantize + layout) and egress
+    (dequant + softmax) are timed as their own pseudo-stages: real work
+    the plain executor also pays, so the attribution sees all of the
+    wall."""
+    stages = qm.layers
+    if qm.device.type == "cuda":
+        def sync() -> None:
+            torch.cuda.synchronize(qm.device)
+    else:
+        def sync() -> None:
+            pass
+
+    @torch.no_grad()
+    def timed(x_float):
+        timings: List[Dict[str, object]] = []
+
+        def _t0():
+            return (time.perf_counter(),
+                    tracer.now_us() if tracer is not None else 0.0)
+
+        def _rec(name: str, kind: str, t0, ts_us) -> None:
+            dur_us = (time.perf_counter() - t0) * 1e6
+            timings.append({"stage": name, "kind": kind, "wall_us": dur_us})
+            if tracer is not None:
+                tracer.add_span(name, ts_us, dur_us, cat="stage",
+                                args={"kind": kind, "model": qm.name})
+
+        t0, ts = _t0()
+        env: Dict[str, torch.Tensor] = {in_name: ingress(x_float, None)}
+        sync()
+        _rec("ingress", "ingress", t0, ts)
+        for idx, ql in enumerate(stages):
+            t0, ts = _t0()
+            exec_stages(env, None, None, idx, idx + 1, {}, {})
+            sync()
+            _rec(ql.info.name, ql.info.kind, t0, ts)
+        t0, ts = _t0()
+        logits = egress(env)
+        sync()
+        _rec("egress", "egress", t0, ts)
+        return logits, timings
+
+    return timed
 
 
 def run_int8(qm: QuantizedModel, x_float) -> torch.Tensor:

@@ -372,6 +372,42 @@ class CNN2Gate:
         self.synthesis_time_s = time.perf_counter() - t0
         return run
 
+    def build_guarded(self, x_cal=None, policy=None,
+                      qm: Optional[pipe.QuantizedModel] = None,
+                      faults: Optional[Dict] = None, n_i: int = 16,
+                      n_l: int = 32, block_h: Optional[int] = None,
+                      checkpoints=None):
+        """Guarded-execution build, on the gate's device.
+
+        With ``policy=None`` guards are OFF and this returns the plain
+        :func:`pipeline.make_executor` closure — the eager executor of
+        ``build("emulation")``, making the same ops calls.
+
+        With a :class:`~.guard.GuardPolicy`, returns a
+        :class:`~.guard.GuardedExecutor` whose calls yield ``(logits,
+        GuardReport)``: per-stage dequant audits against envelopes
+        calibrated on ``x_cal`` from the *golden* program, plus the
+        checkpoint-replay → reexecute → unfused → per-tensor degradation
+        ladder.  ``qm``/``faults`` deploy a fault-injected program under
+        the guard (defaults: the golden program, no faults);
+        ``checkpoints`` (an int K or explicit boundary indices) arms the
+        stage-boundary recovery rung.  A guarded executor reads its
+        audit back after every run, so it is never captured as a CUDA
+        graph."""
+        if self.quantized is None:
+            raise RuntimeError("apply_quantization() or "
+                               "calibrate_quantization() first")
+        if policy is None:
+            return pipe.make_executor(qm or self.quantized, n_i, n_l,
+                                      block_h=block_h)
+        if x_cal is None:
+            raise ValueError("guarded mode needs a calibration input "
+                             "(x_cal) to record audit envelopes")
+        from . import guard as guard_mod
+        return guard_mod.GuardedExecutor(
+            self, x_cal, policy=policy, qm=qm, faults=faults,
+            n_i=n_i, n_l=n_l, block_h=block_h, checkpoints=checkpoints)
+
     # ------------------------------------------------------ latency model
     def latency_report(self, board: str, n_i: int, n_l: int) -> LatencyReport:
         """Analytical Table-1/Fig-6 FPGA latency model (see

@@ -1,54 +1,31 @@
 """The port's int8 executor end to end against the JAX package's.
 
-The JAX package's int8 executor does not run under jax >= 0.9 (its
-Pallas conv kernels use APIs that release removed), so the reference is
-run through a shim scoped to each test with ``monkeypatch``: the renamed
-``pltpu.TPUCompilerParams`` is restored, which brings the reference
-``qgemm`` kernel back, and ``ops.qconv2d_nhwc`` becomes "pad, then the
-``ref.qconv2d_ref`` oracle".  The reference program is the **unfused**
-one (``fuse_skip=False, fuse_concat=False``), since the oracle has no
-fused epilogues; its own contract is fused == unfused bit for bit.
+The JAX package's int8 executor runs through the shim of
+``tests/torch_reference_shim.py`` (scoped to each test with
+``monkeypatch``), on the **unfused** program (``fuse_skip=False,
+fuse_concat=False``), since the shim's conv oracle has no fused
+epilogues; the reference's own contract is fused == unfused bit for bit.
 
 Tolerance ``atol=1e-6, rtol=0``: the int8 egress is exact and the only
 float step after it is the softmax, which one int8 step would move by
 far more than 1e-6.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import onnx_lite as r_onnx
 from repro.core.synthesis import CNN2Gate as RGate
-from repro.kernels import ops as r_ops
-from repro.kernels import ref as r_ref
 from repro.models import cnn as r_cnn
 from repro_torch import convert
 from repro_torch.core import pipeline as t_pipe
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.core.synthesis import CNN2Gate as TGate
 from repro_torch.models import cnn as t_cnn
+from torch_reference_shim import shimmed_reference  # noqa: F401
 
 NETS = ["tiny_cnn", "tiny_cnn_gap", "resnet_tiny", "googlenet_tiny",
         "squeezenet_tiny", "mobilenet_tiny"]
-
-
-def _oracle_conv(x, w, b, *, strides=(1, 1), pads=(0, 0, 0, 0), shift=0,
-                 relu=True, pool=None, groups=1, **merge):
-    assert merge.get("skip") is None and merge.get("out_buf") is None
-    if any(pads):
-        x = jnp.pad(x, ((0, 0), (pads[0], pads[2]), (pads[1], pads[3]),
-                        (0, 0)))
-    s = jnp.asarray(shift, jnp.int32) if isinstance(shift, tuple) else shift
-    return r_ref.qconv2d_ref(x, w, b, strides, s, relu, pool, groups)
-
-
-@pytest.fixture
-def shimmed_reference(monkeypatch):
-    from jax.experimental.pallas import tpu as pltpu
-    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
-                        raising=False)
-    monkeypatch.setattr(r_ops, "qconv2d_nhwc", _oracle_conv)
 
 
 def _spec_tuples(specs):

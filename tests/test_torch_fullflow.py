@@ -4,7 +4,7 @@ package's.
 
 The DSE is host arithmetic, so the port's best design point must equal
 the JAX package's.  The reference executor runs through the shim of
-``tests/test_torch_e2e.py`` (its int8 Pallas conv kernels do not build
+``tests/torch_reference_shim.py`` (its int8 Pallas conv kernels do not build
 under this jax): the unfused reference program with the conv oracle.
 Its output and the port's fullflow output agree within ``atol=1e-6,
 rtol=0``, the tolerance of ``tests/test_torch_e2e.py``: the int8 egress
@@ -21,33 +21,13 @@ import torch
 
 from repro.core import onnx_lite as r_onnx
 from repro.core.synthesis import CNN2Gate as RGate
-from repro.kernels import ops as r_ops
-from repro.kernels import ref as r_ref
 from repro.models import cnn as r_cnn
 from repro_torch import convert
 from repro_torch.core.synthesis import CapturedExecutor
 from repro_torch.core.synthesis import CNN2Gate as TGate
 from repro_torch.kernels import ops as t_ops
 from repro_torch.models import cnn as t_cnn
-
-
-def _oracle_conv(x, w, b, *, strides=(1, 1), pads=(0, 0, 0, 0), shift=0,
-                 relu=True, pool=None, groups=1, **merge):
-    import jax.numpy as jnp
-    assert merge.get("skip") is None and merge.get("out_buf") is None
-    if any(pads):
-        x = jnp.pad(x, ((0, 0), (pads[0], pads[2]), (pads[1], pads[3]),
-                        (0, 0)))
-    s = jnp.asarray(shift, jnp.int32) if isinstance(shift, tuple) else shift
-    return r_ref.qconv2d_ref(x, w, b, strides, s, relu, pool, groups)
-
-
-@pytest.fixture
-def shimmed_reference(monkeypatch):
-    from jax.experimental.pallas import tpu as pltpu
-    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
-                        raising=False)
-    monkeypatch.setattr(r_ops, "qconv2d_nhwc", _oracle_conv)
+from torch_reference_shim import shimmed_reference  # noqa: F401
 
 
 def _spec_tuples(specs):

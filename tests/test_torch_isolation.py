@@ -28,12 +28,14 @@ _IMPORT_ALL = """
 import sys, pkgutil, importlib
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["benchmarks"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+assert not any(k in ("jax", "benchmarks")
+               or k.startswith(("jax.", "repro.", "benchmarks."))
                for k, v in sys.modules.items() if v is not None)
 print(" ".join(names))
 """
@@ -48,12 +50,14 @@ def test_port_imports_without_jax_or_the_jax_package():
     names = out.stdout.split()
     assert len(names) >= 16
     assert {"repro_torch.kernels.ssd_scan",
-            "repro_torch.models.mamba2"} <= set(names)
+            "repro_torch.models.mamba2", "repro_torch.core.faults",
+            "repro_torch.core.guard", "repro_torch.core.ser",
+            "repro_torch.launch.profile"} <= set(names)
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)(\.|\s|$|,)|from\s+(jax|repro)(\.|\s))",
-    re.M)
+    r"^\s*(import\s+(jax|repro|benchmarks)(\.|\s|$|,)"
+    r"|from\s+(jax|repro|benchmarks)(\.|\s))", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(
