@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, each printing one JSON line per check:
+Nine phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -119,7 +119,37 @@ Eight phases, each printing one JSON line per check:
    then zamba2-2.7b at full width and 12 of its 54 layers (two
    applications of its shared attention block): a 4096-token prefill
    and 8 decode steps.  It prints the same times as phase 5 and the
-   kernel's time per launch beside the plain version's and the bound.
+   kernel's time per launch beside the plain version's and the bound;
+7. families, the MoE, VLM-input and encoder-decoder serving paths in
+   bf16 on the flash kernel, random weights from a seed:
+   granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
+   top-8, capacity factor 1.25, GQA 16:8 at D 64, tied head, 1.33 B
+   parameters): ``Model.prefill`` of 2 x 4096 tokens launching flash 24
+   times, 16 decode steps, ``Server`` answering 8 requests of 16 + 16
+   tokens; llama4-scout-17b-a16e at full width and 4 of its 48 layers
+   (16 experts top-1, GQA 40:8 at D 128, 10.4 B parameters; all 48 are
+   101.7 B, more than one card holds): prefill 1 x 4096 (4 launches), 8
+   decode steps; qwen2-vl-2b at full width and depth: prefill of 2 x
+   4096 seeded embeddings on M-RoPE ids laid out as text, one 48 x 64
+   image and text again (28 launches; a check that the ids exercise the
+   three sections), 16 decode steps fed embeddings; whisper-large-v3 at
+   full width and depth (32 + 32 layers, MHA 20:20 at D 64): 1500
+   seeded audio frames a row and a 448-token decoder prefill, 96
+   launches (32 non-causal 1500 x 1500, 32 causal 448 x 448, 32 cross
+   448 x 1500), then 16 decode steps of 32 cross-attention launches (Sq
+   1 over 1500 keys), each call held against the plain version.  Every
+   flash call is checked as in phase 5 and the logits by phase 5's
+   float32-distance criterion; for MoE the plain and float32 runs replay
+   the kernel path's routing decisions, after the plain path's own
+   routing is compared with it (dropped slots per layer, differing
+   decisions, rows whose routing agreed in every layer).  Both paths'
+   routing of every layer is rechecked on the card by independent means
+   (``torch.topk``, ties to the lower expert, the capacity, and the JAX
+   package's cumsum over one-hots for queue positions and drops), and
+   every token whose experts differ between the paths must sit at a
+   near-tie of the plain path's probabilities.  It prints the
+   times of phase 5 and flash's time per launch at each new shape beside
+   SDPA's and the bound.
 
 Before the last line it prints the kernels' record (launches, error,
 times, bounds; for the dense conv, the GEMM, flash_attention and
@@ -804,9 +834,14 @@ def fullflow_checks(torch, gate, eager, xs, want, expect, phase, name,
             if n:
                 wanted[KERNEL_OF[k]] = wanted.get(KERNEL_OF[k], 0) + n
         replay = device_kernels(torch, lambda: full(x))
-        kernel_path = device_kernels(torch, lambda: eager(x))
+        # only the eager paths' kernel names are read, so each trace
+        # holds two forwards: the profiler has dropped a window's first
+        # kernels, the ingress's, which the replay then shows alone
+        # (VGG-16's int8 cast in the flow phase, PR 21)
+        kernel_path = device_kernels(torch, lambda: (eager(x), eager(x)))
         with plain_ops():
-            plain_path = device_kernels(torch, lambda: eager(x))
+            plain_path = device_kernels(torch,
+                                        lambda: (eager(x), eager(x)))
         got = {k: sum(n for key, n in replay.items() if k in key)
                for k in wanted}
         plain_only = set(plain_path) - set(kernel_path)
@@ -2081,32 +2116,44 @@ def logits_agreement(torch, got, plain, ref32) -> dict:
                 argmax_equal=same, plain_top2_gap=gap)
 
 
-def float32_logits(torch, model, params, batch, cache_len):
+def float32_logits(torch, model, params, batch, cache_len, routes=None):
     """Prefill logits of the same weights in float32 (TF32 off) on the
-    plain attention."""
-    import copy
+    plain attention; a MoE model replays ``routes`` (see
+    :func:`replayed_routing`).  The weights go to float32 in place and
+    back to their own dtypes after (bf16 -> float32 -> bf16 is exact), so
+    a 10 B-parameter model needs no second copy on the card."""
     from repro_torch.models.model import Model
     m32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
                 device=model.device)
-    p32 = copy.deepcopy(params).float()
-    with plain_ops():
-        logits, _ = m32.prefill(p32, batch, cache_len)
-    del p32
+    dtypes = {n: p.dtype for n, p in params.named_parameters()}
     torch.cuda.empty_cache()
+    params.float()
+    try:
+        with plain_ops(), replayed_routing(routes):
+            logits, _ = m32.prefill(params, batch, cache_len)
+    finally:
+        for n, p in params.named_parameters():
+            p.data = p.data.to(dtypes[n])
+        torch.cuda.empty_cache()
     return logits
 
 
 def prefill_path(torch, dev, cfg, batch, cache_len, runs: int,
                  kernel: str = "flash_attention", phase: str = "lm",
-                 prepare=None):
+                 prepare=None, per_prefill=None):
     """Prefill through ``Model.prefill``: one run with every call of
     ``kernel`` held against the plain version, ``runs`` timed runs that
-    must each launch the kernel once per layer, and one run on the plain
-    version.  ``prepare(params)`` edits the random weights first.
-    Returns (model, params, logits, cache, kernel calls, launches)."""
+    must each launch the kernel ``per_prefill`` times (default once per
+    layer), and one run on the plain version.  ``prepare(params)`` edits
+    the random weights first.  A MoE model's plain and float32 runs
+    replay the kernel path's routing decisions (:func:`replayed_routing`)
+    for the logits criterion; its own plain routing is compared with the
+    kernel path's first (:func:`moe_routing_report`).  Returns (model,
+    params, logits, cache, kernel calls, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     tag = cfg.name
+    per_prefill = per_prefill or cfg.n_layers
     model = Model(cfg, device=dev)
     params, init_ms = timed(torch, lambda: model.init(
         torch.Generator(device=dev).manual_seed(SEED)))
@@ -2121,26 +2168,37 @@ def prefill_path(torch, dev, cfg, batch, cache_len, runs: int,
     torch.cuda.synchronize()
     agree = [c[2] for c in calls]
     check(phase, f"{tag}_every_prefill_call_agrees_with_plain",
-          len(calls) == cfg.n_layers and all(a[0] for a in agree),
+          len(calls) == per_prefill and all(a[0] for a in agree),
           calls=len(calls), max_abs_err=max(a[1] for a in agree),
           max_share_of_tolerance=max(a[2] for a in agree))
-    times, launches = [], 0
+    times, launches, routes = [], 0, []
     for i in range(runs):
         ops.reset_launch_counts()
-        (logits, cache), ms = timed(
-            torch, lambda: model.prefill(params, batch, cache_len))
+        routes.clear()          # the last run's routing, one a MoE layer
+        with recorded_routing(routes):
+            (logits, cache), ms = timed(
+                torch, lambda: model.prefill(params, batch, cache_len))
         launches = ops.launch_counts()[kernel]
-        check(phase, f"{tag}_prefill{i}_launches_{cfg.n_layers}",
-              launches == cfg.n_layers, launches=launches)
+        check(phase, f"{tag}_prefill{i}_launches_{per_prefill}",
+              launches == per_prefill, launches=launches)
         times.append(ms)
-    with plain_ops():
+    replay = None
+    if cfg.family == "moe":
+        moe_routing_report(torch, cfg, phase, routes, lambda: model.prefill(
+            params, batch, cache_len))
+        replay = routes
+    with plain_ops(), replayed_routing(replay):
         (plain_logits, _), plain_ms = timed(
             torch, lambda: model.prefill(params, batch, cache_len))
     agreement = logits_agreement(torch, logits, plain_logits, float32_logits(
-        torch, model, params, batch, cache_len))
+        torch, model, params, batch, cache_len, replay))
     check(phase, f"{tag}_prefill_logits_match_plain_path",
-          agreement.pop("ok"), shape=list(logits.shape), **agreement)
-    tokens = batch["tokens"].numel()
+          agreement.pop("ok"), shape=list(logits.shape),
+          routing=None if replay is None else "kernel path's, replayed",
+          **agreement)
+    del routes, replay
+    inputs = batch["tokens"] if "tokens" in batch else batch["embeds"][..., 0]
+    tokens = inputs.numel()
     emit(phase=phase, model=tag, prefill_tokens=tokens, cache_len=cache_len,
          prefill_ms_median=statistics.median(times), prefill_ms_all=times,
          prefill_tokens_per_s=tokens / statistics.median(times) * 1e3,
@@ -2152,19 +2210,43 @@ def prefill_path(torch, dev, cfg, batch, cache_len, runs: int,
 
 
 def decode_path(torch, model, params, logits, cache, start: int,
-                steps: int, per_step=None, phase: str = "lm") -> None:
+                steps: int, per_step=None, phase: str = "lm",
+                feed=None, checked=False):
     """Greedy ``decode_step``s from a prefilled cache, finite logits,
     launching each kernel ``per_step[kernel]`` times a step (default: no
-    flash launch); records the host ms of each synchronized step."""
+    flash launch); records the host ms of each synchronized step.
+    ``feed(i, tok)`` gives step i's input (default: the greedy tokens).
+    With ``checked``, the same steps first run on a copy of the cache
+    with every flash call held against the plain version.  Returns
+    (those calls, the launch counts of the timed steps)."""
     from repro_torch.kernels import ops
     per_step = per_step or {"flash_attention": 0}
+    feed = feed or (lambda i, tok: {"tokens": tok})
     tag = model.cfg.name
-    tok = logits[:, -1].argmax(-1, keepdim=True)
+    first = logits[:, -1].argmax(-1, keepdim=True)
+    calls: list = []
+    if checked:
+        shadow, tok = {k: v.clone() for k, v in cache.items()}, first
+        with checked_kernel(torch, calls, "flash_attention"):
+            for i in range(steps):
+                out, _ = model.decode_step(
+                    params, {**feed(i, tok), "lengths": start + i}, shadow)
+                tok = out[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        del shadow
+        agree = [c[2] for c in calls]
+        check(phase, f"{tag}_every_decode_call_agrees_with_plain",
+              len(calls) == per_step["flash_attention"] * steps
+              and all(a[0] for a in agree), calls=len(calls),
+              max_abs_err=max((a[1] for a in agree), default=0.0),
+              max_share_of_tolerance=max((a[2] for a in agree),
+                                         default=0.0))
+    tok = first
     times, finite = [], True
     ops.reset_launch_counts()
     for i in range(steps):
         (logits, cache), ms = timed(torch, lambda: model.decode_step(
-            params, {"tokens": tok, "lengths": start + i}, cache))
+            params, {**feed(i, tok), "lengths": start + i}, cache))
         finite &= bool(torch.isfinite(logits).all())
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times.append(ms)
@@ -2178,8 +2260,9 @@ def decode_path(torch, model, params, logits, cache, start: int,
          decode_ms_all=times)
     emit(phase=phase, model=tag, what="decode_step", **device_time(
         torch, lambda: model.decode_step(
-            params, {"tokens": tok, "lengths": start + steps}, cache),
+            params, {**feed(steps, tok), "lengths": start + steps}, cache),
         statistics.median(times)))
+    return calls, counts
 
 
 def serve_path(torch, model, params, per_call=None, phase: str = "lm") -> None:
@@ -2244,9 +2327,9 @@ def flash_record(torch, dev, calls, launches) -> dict:
                      flush=flush)
         plain_ms = time_ms(torch, lambda: fa[2](q, k, v, **kw), reps=2,
                            flush=flush)
-        # the same function in one call: causal, or a band mask built
-        # outside the timed call for a window
-        lib_kw = dict(is_causal=True)
+        # the same function in one call: causal or not, or a band mask
+        # built outside the timed call for a window
+        lib_kw = dict(is_causal=kw["causal"])
         if kw["window"] is not None:
             qpos = kw["q_offset"] + torch.arange(q.shape[2], device=dev)
             kpos = torch.arange(k.shape[2], device=dev)
@@ -2766,6 +2849,321 @@ def phase_ssm(torch, dev, records):
             torch, dev)
 
 
+# ------------------------- phase 7: the MoE, VLM and enc-dec serving paths
+
+@contextlib.contextmanager
+def recorded_routing(routes: list):
+    """Keep every MoE layer's ``Routing`` computed inside the block, in
+    call order (one a layer)."""
+    from repro_torch.models import layers
+    fn = layers.moe_routing
+
+    def rec(*a, **kw):
+        r = fn(*a, **kw)
+        routes.append(r)
+        return r
+    layers.moe_routing = rec
+    try:
+        yield
+    finally:
+        layers.moe_routing = fn
+
+
+@contextlib.contextmanager
+def replayed_routing(routes):
+    """Inside the block, MoE layer i routes as ``routes[i]`` did: the
+    same experts, queue positions and drops, with the gates taken from
+    this run's own router probabilities at those experts and
+    renormalised.  Every recorded layer must be replayed once.  ``None``
+    changes nothing."""
+    if routes is None:
+        yield
+        return
+    from repro_torch.models import layers
+    fn, it, used = layers.moe_routing, iter(routes), [0]
+
+    def replay(cfg, router, xt):
+        own, r = fn(cfg, router, xt), next(it)
+        used[0] += 1
+        gate = own.probs.gather(-1, r.idx)
+        return r._replace(probs=own.probs, gate=gate / gate.sum(-1, True))
+    layers.moe_routing = replay
+    try:
+        yield
+    finally:
+        layers.moe_routing = fn
+    if used[0] != len(routes):
+        raise RuntimeError(f"replayed {used[0]} of {len(routes)} MoE "
+                           f"layers' routing")
+
+
+def routing_recheck(torch, cfg, r) -> dict:
+    """One layer's routing ``r`` held against its own router
+    probabilities by means independent of ``layers.moe_routing`` (its
+    stable sort, ``searchsorted`` and ``scatter_``): the chosen experts
+    are distinct, their probabilities are ``torch.topk``'s k largest in
+    order, ties go to the lower expert (within the chosen slots, and
+    against any expert left out at the k-th value), the capacity is
+    ``min(Tg k, max(1, int(cf k Tg / E)))``, and the queue positions and
+    drops are the JAX package's: a cumsum over the (Tg k, E) one-hots of
+    each group, token-major, kept where below the capacity.  Returns the
+    count of (token, slot)s at fault under each rule."""
+    g, tg, k = r.idx.shape
+    e = cfg.n_experts
+    hot = torch.nn.functional.one_hot(r.idx, e)              # (G, Tg, k, E)
+    chosen = hot.sum(2)                                      # (G, Tg, E)
+    vals = r.probs.gather(-1, r.idx)
+    top = torch.topk(r.probs, k, dim=-1).values
+    expert = torch.arange(e, device=r.idx.device)
+    kth = vals[..., -1:]
+    last_tie = torch.where(hot.bool().any(2) & (r.probs == kth), expert,
+                           -1).amax(-1, keepdim=True)
+    left_out_lower = ((chosen == 0) & (r.probs == kth)
+                      & (expert < last_tie))
+    order = vals[..., 1:] < vals[..., :-1]
+    order |= (vals[..., 1:] == vals[..., :-1]) & (r.idx[..., 1:]
+                                                  > r.idx[..., :-1])
+    flat = hot.reshape(g, tg * k, e).int()
+    pos = ((flat.cumsum(1) * flat).sum(-1) - 1).reshape(g, tg, k)
+    cap = min(tg * k, max(1, int(cfg.capacity_factor * k * tg / e)))
+    return dict(
+        repeated_expert=int((chosen > 1).sum()),
+        not_the_top_k=int((vals != top).sum()),
+        slot_order=int((~order).sum()),
+        tie_to_a_higher_expert=int(left_out_lower.sum()),
+        capacity=int(r.capacity != cap),
+        queue_position=int((r.pos != pos).sum()),
+        kept=int((r.kept != (pos < cap)).sum()))
+
+
+def moe_routing_report(torch, cfg, phase: str, kern: list, run) -> None:
+    """The kernel path's routing against the plain path's own (``run``
+    on the plain ops), layer by layer: each layer's dropped (token,
+    slot)s, and the (layer, token, slot) decisions that differ: the
+    expert chosen, kept or dropped, and the queue position of a slot
+    both keep.  A one-ulp difference in attention can flip a top-k
+    choice near a tie, and a flip moves the queue positions of every
+    later token of its group (here a batch row), so the rows whose every
+    decision agreed are counted too.  Both paths' routing of every layer
+    is rechecked on the card (:func:`routing_recheck`), and every token
+    whose chosen experts differ must sit at a near-tie: the plain path's
+    gap between its k-th and (k+1)-th probabilities at most the token's
+    largest probability difference between the paths (what the hidden
+    states' difference does to the router's output) times two, the
+    most gap that a swap of two experts can bridge."""
+    tag = cfg.name
+    plain: list = []
+    with plain_ops(), recorded_routing(plain):
+        run()
+    check(phase, f"{tag}_routing_recorded_per_layer",
+          len(kern) == len(plain) > 0, kernel_layers=len(kern),
+          plain_layers=len(plain))
+    faults: dict = {}
+    for r in kern + plain:
+        for rule, n in routing_recheck(torch, cfg, r).items():
+            faults[rule] = faults.get(rule, 0) + n
+    check(phase, f"{tag}_routing_equals_topk_and_cumsum_queues_on_card",
+          not any(faults.values()), layers=len(kern) + len(plain),
+          faults=faults)
+    bsz = kern[0].idx.shape[0]
+    same = torch.ones(bsz, dtype=torch.bool, device=kern[0].idx.device)
+    experts, kept, pos, differ = 0, 0, 0, []
+    flipped, far, share = 0, 0, 0.0
+    for rk, rp in zip(kern, plain):
+        e, k = rk.idx != rp.idx, rk.kept != rp.kept
+        p = rk.kept & rp.kept & (rk.pos != rp.pos)
+        d = e | k | p
+        experts, kept, pos = (experts + int(e.sum()), kept + int(k.sum()),
+                              pos + int(p.sum()))
+        differ.append(int(d.sum()))
+        same &= ~d.reshape(bsz, -1).any(-1)
+        two = torch.topk(rp.probs, cfg.top_k + 1, dim=-1).values
+        gap = two[..., -2] - two[..., -1]
+        bound = 2 * (rk.probs - rp.probs).abs().amax(-1)
+        flip = (torch.sort(rk.idx, -1).values
+                != torch.sort(rp.idx, -1).values).any(-1)
+        flipped += int(flip.sum())
+        far += int((flip & ((gap > bound) | (bound == 0))).sum())
+        if (flip & (bound > 0)).any():
+            at = flip & (bound > 0)
+            share = max(share, (gap[at] / bound[at]).max().item())
+    check(phase, f"{tag}_every_expert_flip_is_at_a_near_tie", far == 0,
+          tokens_flipped=flipped, tokens_beyond_bound=far,
+          max_gap_share_of_bound=share)
+    emit(phase=phase, model=tag, what="moe_routing", capacity=kern[0].capacity,
+         slots_per_layer=kern[0].idx.numel(),
+         dropped_per_layer=[int((~r.kept).sum()) for r in kern],
+         plain_dropped_per_layer=[int((~r.kept).sum()) for r in plain],
+         decisions_differing=sum(differ), differing_per_layer=differ,
+         experts_differing=experts, kept_differing=kept,
+         queue_positions_differing=pos,
+         rows_with_equal_routing=int(same.sum()), rows=bsz)
+
+
+def mrope_positions(torch, dev, bsz: int, seq: int, text: int = 512,
+                    grid=(48, 64)):
+    """(3, B, S) M-RoPE ids as qwen2-vl lays out a prompt: ``text`` ids
+    with all three components equal, one image of ``grid`` patches at
+    t = ``text`` with h and w running from ``text`` over the grid, then
+    the text resuming one past the largest id."""
+    gh, gw = grid
+    pos = np.empty((3, seq), np.int64)
+    pos[:, :text] = np.arange(text)
+    end = text + gh * gw
+    hh, ww = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    pos[0, text:end] = text
+    pos[1, text:end] = text + hh.ravel()
+    pos[2, text:end] = text + ww.ravel()
+    pos[:, end:] = pos[:, :end].max() + 1 + np.arange(seq - end)
+    return torch.as_tensor(np.ascontiguousarray(
+        np.broadcast_to(pos[:, None], (3, bsz, seq))), device=dev)
+
+
+def mrope_sections_check(torch, dev, cfg, positions) -> None:
+    """The ids take three different values at some token, and M-RoPE on
+    them rotates q differently from RoPE on the temporal ids alone (an
+    ``arange`` broadcast to three components would not)."""
+    from repro_torch.models import layers
+    pos = positions[:, :1]
+    x = torch.randn((1, pos.shape[2], 1, cfg.hd), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    diff = (layers.apply_mrope(x, pos, cfg.rope_theta)
+            - layers.apply_rope(x, pos[0], cfg.rope_theta)).abs().max()
+    distinct = ((pos[0] != pos[1]) & (pos[1] != pos[2])).sum()
+    check("families", f"{cfg.name}_positions_exercise_three_mrope_sections",
+          bool(distinct > 0) and bool(diff > 0),
+          tokens_with_three_distinct_ids=int(distinct),
+          mrope_vs_rope_max_abs=diff.item(),
+          max_id=[int(p.max()) for p in pos])
+
+
+def flash_shape_time(torch, dev, label: str, call) -> dict:
+    """The kernel's, the plain version's, SDPA's and the bound's ms of
+    one recorded flash call (``flash_record`` on that call alone)."""
+    r = flash_record(torch, dev, [call], 1)
+    (q, k, _v), kw, _ = call
+    row = dict(shape=label, q=list(q.shape), kv=list(k.shape),
+               causal=kw["causal"], ms=r["ms"], plain_ms=r["plain_ms"],
+               library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+               bound_by=r["bound_by"])
+    emit(phase="families", what="flash_time_per_launch", **row)
+    return row
+
+
+def phase_families(torch, dev, records):
+    """The MoE, VLM-input and encoder-decoder serving paths, bf16, flash
+    attention, random weights from the seed: granite-moe-1b-a400m at full
+    width and depth (prefill 2 x 4096, 16 decode steps, Server),
+    llama4-scout-17b-a16e at full width and 4 of its 48 layers (prefill
+    1 x 4096, 8 decode steps), qwen2-vl-2b at full width and depth
+    (prefill of 2 x 4096 embeddings on M-RoPE ids of text and an image,
+    16 decode steps fed embeddings), whisper-large-v3 at full width and
+    depth (1500 audio frames a row, a 448-token decoder prefill of 96
+    flash launches, 16 decode steps of 32).  Each path's flash launches
+    are counted from 0 just before it and read just after."""
+    from repro_torch import configs
+    from repro_torch import device as tdevice
+
+    rng = np.random.default_rng(SEED + 9)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    def flash(name):
+        return dataclasses.replace(configs.get(name), attention_impl="flash")
+    launches, shapes = {}, []
+    with tdevice.full_float32():
+        cfg = flash("granite-moe-1b-a400m")
+        emit(phase="families", model=cfg.name,
+             param_count=cfg.param_count(),
+             active_param_count=cfg.active_param_count(),
+             capacity_factor=cfg.capacity_factor)
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 4096)), device=dev)}
+        model, params, logits, cache, calls, n = prefill_path(
+            torch, dev, cfg, batch, 4112, runs=2, phase="families")
+        launches[f"{cfg.name} prefill"] = n
+        shapes.append(flash_shape_time(torch, dev, "granite prefill, GQA "
+                                       "16:8, D 64, causal", calls[0]))
+        decode_path(torch, model, params, logits, cache, 4096, 16,
+                    phase="families")
+        del cache, calls
+        torch.cuda.empty_cache()
+        serve_path(torch, model, params, phase="families")
+        del model, params
+        torch.cuda.empty_cache()
+
+        full = configs.get("llama4-scout-17b-a16e")
+        cfg = dataclasses.replace(flash(full.name), n_layers=4)
+        emit(phase="families", model=cfg.name, reduced="n_layers 48 -> 4",
+             param_count=cfg.param_count(),
+             full_depth_param_count=full.param_count(),
+             full_depth_bf16_gb=2 * full.param_count() / 1e9)
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, 4096)), device=dev)}
+        model, params, logits, cache, calls, n = prefill_path(
+            torch, dev, cfg, batch, 4104, runs=2, phase="families")
+        launches[f"{cfg.name} prefill (4 layers)"] = n
+        shapes.append(flash_shape_time(torch, dev, "scout prefill, GQA 40:8, "
+                                       "D 128, causal", calls[0]))
+        decode_path(torch, model, params, logits, cache, 4096, 8,
+                    phase="families")
+        del model, params, cache, calls
+        torch.cuda.empty_cache()
+
+        cfg = flash("qwen2-vl-2b")
+        positions = mrope_positions(torch, dev, 2, 4096)
+        mrope_sections_check(torch, dev, cfg, positions)
+        batch = {"embeds": (torch.randn((2, 4096, cfg.d_model), device=dev,
+                                        generator=gen) * 0.02).bfloat16(),
+                 "positions": positions}
+        model, params, logits, cache, calls, n = prefill_path(
+            torch, dev, cfg, batch, 4112, runs=2, phase="families")
+        launches[f"{cfg.name} prefill"] = n
+        steps = (torch.randn((16, 2, 1, cfg.d_model), device=dev,
+                             generator=gen) * 0.02).bfloat16()
+        decode_path(torch, model, params, logits, cache, 4096, 16,
+                    phase="families",
+                    feed=lambda i, tok: {"embeds": steps[min(i, 15)]})
+        del model, params, cache, calls
+        torch.cuda.empty_cache()
+
+        cfg = flash("whisper-large-v3")
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 448)), device=dev),
+            "audio_embeds": torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model), device=dev,
+                generator=gen).bfloat16()}
+        emit(phase="families", model=cfg.name, encoder_frames=2
+             * cfg.encoder_seq, decoder_tokens=2 * 448,
+             flash_per_prefill=3 * cfg.n_layers,
+             flash_per_decode_step=cfg.n_layers)
+        model, params, logits, cache, calls, n = prefill_path(
+            torch, dev, cfg, batch, 464, runs=2, phase="families",
+            per_prefill=3 * cfg.n_layers)
+        launches[f"{cfg.name} prefill"] = n
+        kinds = {"encoder": calls[0], "decoder self": calls[cfg.n_layers],
+                 "cross": calls[cfg.n_layers + 1]}
+        check("families", f"{cfg.name}_prefill_calls_in_layer_order",
+              [tuple(c[0][0].shape[2:3]) + tuple(c[0][1].shape[2:3])
+               + (c[1]["causal"],) for c in kinds.values()]
+              == [(1500, 1500, False), (448, 448, True), (448, 1500, False)],
+              calls=len(calls))
+        for label, call in kinds.items():
+            shapes.append(flash_shape_time(torch, dev, f"whisper {label}, "
+                                           "MHA 20:20, D 64", call))
+        dcalls, counts = decode_path(
+            torch, model, params, logits, cache, 448, 16,
+            per_step={"flash_attention": cfg.n_layers}, phase="families",
+            checked=True)
+        launches[f"{cfg.name} 16 decode steps"] = counts["flash_attention"]
+        shapes.append(flash_shape_time(torch, dev, "whisper decode cross, "
+                                       "Sq 1 over 1500, D 64", dcalls[0]))
+        del model, params, cache, calls, dcalls
+        torch.cuda.empty_cache()
+    if "flash_attention" in records:
+        records["flash_attention"].setdefault("extra", {})["families"] = \
+            dict(launches=launches, per_shape=shapes)
+
+
 SOURCES = {
     "qgemm": ("src/repro_torch/csrc/qgemm.cu",
               "src/repro/kernels/qgemm.py:60"),
@@ -2809,7 +3207,7 @@ def main() -> int:
                       ("mobilenet", phase_mobilenet), ("paths", phase_paths),
                       ("flow", phase_flow), ("resilience", phase_resilience),
                       ("lm", phase_lm),
-                      ("ssm", phase_ssm)):
+                      ("ssm", phase_ssm), ("families", phase_families)):
         t0 = time.perf_counter()
         with guarded(phase):
             if phase == "kernels":

@@ -4,10 +4,9 @@ The inputs are plain data only — an ONNX-lite model dict (the format of
 ``onnx_lite.to_model_dict``), its initializers as numpy arrays, and
 quantization specs as ``{layer: (m_w, m_x, m_y)}`` with ints or int
 tuples — so any exporter that writes that format, the JAX package's
-included, hands the port the same weights and the same specs.  A dense
-LM's parameters come across as the JAX package's parameter tree with
-numpy leaves (:func:`lm_params_from_numpy`), for the dense, ``ssm`` and
-``hybrid`` families.
+included, hands the port the same weights and the same specs.  An LM's
+parameters come across as the JAX package's parameter tree with numpy
+leaves (:func:`lm_params_from_numpy`), for every family.
 """
 from __future__ import annotations
 
@@ -74,11 +73,15 @@ def _fill(module: torch.nn.Module, tree: Mapping, layer=None) -> None:
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping,
                          device: tdevice.DeviceLike = None):
     """The port's parameters of an LM from the JAX package's
-    ``Model.init`` tree with numpy leaves: ``embed``, ``final_norm``,
-    ``lm_head`` when the head is untied, and ``stack``, whose leaves are
-    stacked over layers as (L, ...) (dense and ``ssm``), or for a
+    ``Model.init`` tree with numpy leaves: ``embed`` (none with input
+    embeddings), ``final_norm``, ``lm_head`` when the head is untied, and
+    ``stack``, whose leaves are stacked over layers as (L, ...) (dense,
+    ``moe`` with its ``moe`` subtree, ``vlm`` and ``ssm``), or for a
     ``hybrid`` model ``stack.mamba_stack`` stacked so and
-    ``stack.shared_attn`` unstacked."""
+    ``stack.shared_attn`` unstacked, or for an ``encdec`` model
+    ``stack.encoder`` and ``stack.decoder`` stacked so, ``stack.enc_norm``
+    and ``dec_pos``.  Each leaf takes its parameter's dtype: an MoE
+    router stays float32 in a bf16 model."""
     from repro_torch.models.model import Model
     params = Model(cfg, device).empty_params()
     _fill(params, tree)

@@ -74,8 +74,14 @@ class QuantizedModel:
     output_m: int
     parsed: P.ParsedModel
     device: torch.device
-    _executor: Optional[Callable] = dataclasses.field(default=None,
-                                                      repr=False)
+    _executors: Dict[Tuple, Callable] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def hardware_options(self):
+        """The parsed model's ``hardware_options`` method, as the JAX
+        package exposes it: callers write ``qm.hardware_options()``."""
+        return self.parsed.hardware_options
 
 
 def thread_scales(model: P.ParsedModel,
@@ -813,12 +819,17 @@ def _make_stage_timed(qm: QuantizedModel, in_name: str, ingress: Callable,
     return timed
 
 
-def run_int8(qm: QuantizedModel, x_float) -> torch.Tensor:
-    """Full pipelined inference through the executor, which is built
-    once and cached on the model."""
-    if qm._executor is None:
-        qm._executor = make_executor(qm)
-    return qm._executor(x_float)
+def run_int8(qm: QuantizedModel, x_float, n_i: int = 16, n_l: int = 32,
+             block_h: Optional[int] = None) -> torch.Tensor:
+    """Full pipelined inference through the executor.  Executors are
+    cached per (N_i, N_l, block_h) on the model, so repeated calls reuse
+    one."""
+    key = (n_i, n_l, block_h)
+    ex = qm._executors.get(key)
+    if ex is None:
+        ex = qm._executors[key] = make_executor(qm, n_i, n_l,
+                                                block_h=block_h)
+    return ex(x_float)
 
 
 def layer_bytes(li: P.LayerInfo) -> Tuple[int, int, int]:

@@ -97,14 +97,15 @@ def qgemm(x, w, b=None, *, shift, relu: bool = False,
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """GQA flash attention: q (B, H, Sq, D), k/v (B, HKV, Skv, D).  A
-    CUDA tensor launches the kernel, a CPU tensor runs the plain
-    version (:mod:`.flash_attention`)."""
+                    window: Optional[int] = None, q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """GQA flash attention: q (B, H, Sq, D), k/v (B, HKV, Skv, D); the
+    scores are scaled by ``scale`` (default D ** -0.5).  A CUDA tensor
+    launches the kernel, a CPU tensor runs the plain version
+    (:mod:`.flash_attention`)."""
     _record("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset)
+                                  q_offset=q_offset, scale=scale)
 
 
 def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,

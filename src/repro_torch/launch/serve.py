@@ -14,8 +14,10 @@ sharding policy; each decode step is an eager call of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --preset smoke --slots 4 --requests 8 --max-new 16 [--device cpu]
 
-``--arch`` takes any dense, ssm or hybrid config (mamba2-2.7b,
-zamba2-2.7b).
+``--arch`` takes any config that reads tokens: dense, ``moe``
+(granite-moe-1b-a400m, llama4-scout-17b-a16e), ``ssm`` (mamba2-2.7b) and
+``hybrid`` (zamba2-2.7b).  A MoE model routes each decode row as a group
+of one token, as the JAX package's server does.
 """
 from __future__ import annotations
 

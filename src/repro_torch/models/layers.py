@@ -1,15 +1,15 @@
-"""Transformer building blocks of the dense LMs, in PyTorch.
+"""Transformer building blocks of the LMs, in PyTorch.
 
-The counterpart of ``repro.models.layers`` less MoE.  Parameters live in
-small ``nn.Module``s (:class:`Norm`, :class:`Attention`, :class:`MLP`)
-whose attribute names are the JAX package's parameter keys, so a
-parameter tree converts key for key; the math is in free functions with
-the JAX package's names, taking those modules.  Parameters do not
-require grad: this is the serving path.
+The counterpart of ``repro.models.layers``.  Parameters live in small
+``nn.Module``s (:class:`Norm`, :class:`Attention`, :class:`MLP`,
+:class:`MoE`) whose attribute names are the JAX package's parameter
+keys, so a parameter tree converts key for key; the math is in free
+functions with the JAX package's names, taking those modules.
+Parameters do not require grad: this is the serving path.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -309,3 +309,123 @@ def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p.w_up + p.b_up, approximate="tanh") @ p.w_down \
         + p.b_down
+
+
+# -------------------------------------------------------------------- moe
+
+class MoE(nn.Module):
+    """``router`` (d, E), float32 whatever the model's dtype; the
+    experts' gated-SiLU weights ``w_gate``, ``w_up`` (E, d, f) and
+    ``w_down`` (E, f, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        dt = dtype_of(cfg)
+        self.router = _param((d, e), torch.float32, device)
+        self.w_gate = _param((e, d, f), dt, device)
+        self.w_up = _param((e, d, f), dt, device)
+        self.w_down = _param((e, f, d), dt, device)
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device=None) -> MoE:
+    p = MoE(cfg, device)
+    d, f = cfg.d_model, cfg.d_ff
+    fill_normal_(p.router, d ** -0.5, gen)
+    fill_normal_(p.w_gate, d ** -0.5, gen)
+    fill_normal_(p.w_up, d ** -0.5, gen)
+    fill_normal_(p.w_down, f ** -0.5, gen)
+    return p
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of G groups of Tg tokens: the router's
+    softmax ``probs`` (G, Tg, E) float32; per (token, slot) the chosen
+    expert ``idx`` (G, Tg, k), its renormalised gate ``gate`` (float32),
+    its place ``pos`` in that expert's queue and whether it was ``kept``
+    (pos < capacity); and the ``capacity`` C of every queue."""
+
+    probs: torch.Tensor
+    idx: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    kept: torch.Tensor
+    capacity: int
+
+
+def moe_group_size(cfg: ModelConfig, seq: int) -> int:
+    """Tokens per routing group: ``moe_group_size`` where it divides the
+    sequence, else the whole row (a decode step's row is one token)."""
+    g = cfg.moe_group_size
+    return g if g and seq % g == 0 else seq
+
+
+def moe_routing(cfg: ModelConfig, router: torch.Tensor,
+                xt: torch.Tensor) -> Routing:
+    """Capacity-limited top-k routing of xt (G, Tg, D), as the JAX
+    package routes: the router in float32, softmax, the k largest
+    probabilities with ties to the lower expert (``jax.lax.top_k``'s
+    rule: a stable descending sort), the k gates renormalised to sum to
+    1, and each (token, slot) queued at its expert in token-major order
+    within its group, dropped at position >= C."""
+    g, tg, _ = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[..., :k], order[..., :k]
+    gate = gate / gate.sum(-1, keepdim=True)
+    # capacity_factor >= e / k makes the routing dropless
+    capacity = min(tg * k, max(1, int(cfg.capacity_factor * k * tg / e)))
+    # a slot's queue position is the count of earlier (token, slot)s of
+    # its group at its expert: its rank among them in a stable sort by
+    # expert (the JAX package takes a cumsum over (Tg * k, E) one-hots)
+    flat = idx.reshape(g, tg * k)
+    by_expert, order = torch.sort(flat, dim=1, stable=True)
+    first = torch.searchsorted(by_expert, torch.arange(
+        e, device=xt.device).expand(g, e).contiguous())
+    rank = torch.arange(tg * k, device=xt.device) - first.gather(1, by_expert)
+    pos = torch.empty_like(flat).scatter_(1, order, rank).reshape(g, tg, k)
+    return Routing(probs, idx, gate, pos, pos < capacity, capacity)
+
+
+def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's group-wise capacity MoE on x (B, S, D); returns
+    (y, the Switch load-balancing aux loss, float32).
+
+    The JAX package dispatches with (G, Tg, E, C) one-hot einsums; here
+    the kept tokens are gathered into each expert's (C, D) queue and the
+    experts' outputs gathered back, weighted by the gates rounded to x's
+    dtype and summed in float32.  A queue slot holds at most one token,
+    so the gathered queues equal the einsum's exactly; an empty slot is
+    zeros, as there.  Only the combine's summation order differs."""
+    b0, s0, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tg = moe_group_size(cfg, s0)
+    xt = x.reshape(b0 * s0 // tg, tg, d)
+    g = xt.shape[0]
+    r = moe_routing(cfg, p.router, xt)
+    cap = r.capacity
+    # each kept (token, slot)'s queue slot; dropped ones to a spare slot
+    dest = torch.where(r.kept, r.idx * cap + r.pos,
+                       torch.full_like(r.idx, e * cap)).reshape(g, tg * k)
+    rows = torch.arange(g, device=x.device)[:, None]
+    src = torch.full((g, e * cap + 1), tg, dtype=torch.long,
+                     device=x.device)
+    src[rows, dest] = torch.arange(tg, device=x.device).repeat_interleave(
+        k)[None].expand(g, -1)
+    xpad = torch.nn.functional.pad(xt, (0, 0, 0, 1))     # row tg: zeros
+    xe = xpad[rows, src[:, :e * cap]]                    # (G, E*C, D)
+    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    hidden = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
+    ye = torch.bmm(hidden, p.w_down)                     # (E, G*C, D)
+    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    ye = torch.nn.functional.pad(ye, (0, 0, 0, 1))       # the spare slot
+    w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(x.dtype)
+    y = (w.float()[..., None] * ye[rows, dest].reshape(g, tg, k, d).float())
+    y = y.sum(2).to(x.dtype)
+    # Switch aux loss: e * sum(mean prob * share of kept slots), per e
+    me = r.probs.mean((0, 1))
+    ce = torch.zeros(e, device=x.device).scatter_add_(
+        0, r.idx.reshape(-1), r.kept.reshape(-1).float()) / (g * tg)
+    return y.reshape(b0, s0, d), e * torch.sum(me * ce)

@@ -1,4 +1,4 @@
-"""The Model API over the dense, SSM and hybrid LMs, in PyTorch.
+"""The Model API over the LM fleet, in PyTorch.
 
     model = Model(cfg)                         # on CUDA; device="cpu" asks for the CPU
     params = model.init(torch.Generator(model.device).manual_seed(0))
@@ -6,13 +6,17 @@
     logits, cache = model.prefill(params, batch, cache_len)
     logits, cache = model.decode_step(params, batch, cache)
 
-The counterpart of ``repro.models.model.Model`` for the ``dense``,
-``ssm`` (mamba2) and ``hybrid`` (zamba2) families.  Batches are dicts:
-``tokens`` (B, S) (``positions`` optional) for forward and prefill,
-``tokens`` (B, 1) and ``lengths`` (B,) or a scalar (the current cache
-fill) for decode.  ``decode_step`` writes into the cache it is given
-(see :mod:`.transformer`).  The training loss and the dry-run input
-specs are not ported yet.
+The counterpart of ``repro.models.model.Model`` for every family:
+``dense``, ``moe`` (granite-moe, llama4-scout), ``vlm`` (qwen2-vl),
+``ssm`` (mamba2), ``hybrid`` (zamba2) and ``encdec`` (whisper).
+Batches are dicts: ``tokens`` (B, S), or ``embeds`` (B, S, D) for a
+model with ``input_embeds``, with ``positions`` optional ((3, B, S) with
+M-RoPE) and ``audio_embeds`` (B, encoder_seq, D) for an encoder-decoder,
+for forward and prefill; ``tokens`` (B, 1) or ``embeds`` (B, 1, D) and
+``lengths`` (B,) or a scalar (the current cache fill) for decode.
+``decode_step`` writes into the cache it is given (see
+:mod:`.transformer`).  The training loss and the dry-run input specs are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -27,13 +31,9 @@ from . import layers as L
 from . import mamba2 as M
 from . import transformer as T
 
-#: Families the port does not run yet, and the ROADMAP item that brings
-#: each one.
-UNPORTED_FAMILIES = {
-    "moe": "Queue 1 item 9a (MoE layers)",
-    "vlm": "Queue 1 item 9b (VLM embeddings input and M-RoPE positions)",
-    "encdec": "Queue 1 item 9d (encoder-decoder stacks)",
-}
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+#: Rows of the encoder-decoder's learned decoder position table.
+DEC_POS_ROWS = 8192
 
 
 def _vocab_pad(v: int, mult: int = 256) -> int:
@@ -41,30 +41,34 @@ def _vocab_pad(v: int, mult: int = 256) -> int:
     return -(-v // mult) * mult
 
 
-class LMParams(nn.Module):
-    """An LM's parameters: ``embed`` (padded vocab, d), ``stack`` (one
-    :class:`~.transformer.DecoderLayer` or
-    :class:`~.transformer.MambaLayer` per layer, or a hybrid's
-    :class:`~.transformer.HybridStack`), ``final_norm``, and ``lm_head``
-    (d, padded vocab) unless the embeddings are tied."""
+def _frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
+    return None if t is None else nn.Parameter(t, requires_grad=False)
 
-    def __init__(self, embed: torch.Tensor, stack: nn.Module,
-                 final_norm: L.Norm, lm_head: Optional[torch.Tensor]):
+
+class LMParams(nn.Module):
+    """An LM's parameters: ``embed`` (padded vocab, d) unless the model
+    takes input embeddings, ``stack`` (one
+    :class:`~.transformer.DecoderLayer` or
+    :class:`~.transformer.MambaLayer` per layer, a hybrid's
+    :class:`~.transformer.HybridStack` or an encoder-decoder's
+    :class:`~.transformer.EncDecStack`), ``final_norm``, ``lm_head``
+    (d, padded vocab) unless the head is tied to ``embed``, and an
+    encoder-decoder's learned decoder positions ``dec_pos`` (8192, d)."""
+
+    def __init__(self, embed: Optional[torch.Tensor], stack: nn.Module,
+                 final_norm: L.Norm, lm_head: Optional[torch.Tensor],
+                 dec_pos: Optional[torch.Tensor] = None):
         super().__init__()
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = _frozen(embed)
         self.stack = stack
         self.final_norm = final_norm
-        self.lm_head = (None if lm_head is None
-                        else nn.Parameter(lm_head, requires_grad=False))
+        self.lm_head = _frozen(lm_head)
+        self.dec_pos = _frozen(dec_pos)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: tdevice.DeviceLike = None):
-        if cfg.family in UNPORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported to "
-                f"PyTorch yet (ROADMAP {UNPORTED_FAMILIES[cfg.family]})")
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         self.device = tdevice.resolve(device)
@@ -72,41 +76,69 @@ class Model:
         self.padded_vocab = _vocab_pad(cfg.vocab_size)
 
     # ------------------------------------------------------------- init
+    @property
+    def _has_embed(self) -> bool:
+        """An ``embed`` table, as the JAX package keeps one: for token
+        input, and always for an encoder-decoder."""
+        return not self.cfg.input_embeds or self.cfg.family == "encdec"
+
+    @property
+    def _tied(self) -> bool:
+        return self.cfg.tie_embeddings and self._has_embed
+
+    def _empty(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
+
     def empty_params(self) -> LMParams:
         """Uninitialised parameters of this model's shapes, on its device."""
         cfg, dev = self.cfg, self.device
-        shape = (self.padded_vocab, cfg.d_model)
+        vd = (self.padded_vocab, cfg.d_model)
+        stack = {"hybrid": T.empty_hybrid,
+                 "encdec": T.empty_encdec}.get(cfg.family)
         return LMParams(
-            torch.empty(shape, dtype=self.dtype, device=dev),
-            T.empty_hybrid(cfg, dev) if cfg.family == "hybrid" else
+            self._empty(vd) if self._has_embed else None,
+            stack(cfg, dev) if stack else
             T.empty_stack(cfg, cfg.n_layers, dev),
             L.Norm(cfg, cfg.d_model, dev),
-            None if cfg.tie_embeddings else
-            torch.empty(shape[::-1], dtype=self.dtype, device=dev))
+            None if self._tied else self._empty(vd[::-1]),
+            self._empty((DEC_POS_ROWS, cfg.d_model))
+            if cfg.family == "encdec" else None)
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> LMParams:
         """Random parameters from ``gen`` (a generator on the model's
         device), with the JAX package's distributions and scales: normal
-        embeddings * 0.02, projections * fan_in ** -0.5, zero biases,
-        unit norms; a mamba layer's as :func:`.mamba2.init_mamba2`
-        draws them (its B and C conv taps are zeros)."""
+        embeddings and decoder positions * 0.02, projections and the
+        router * fan_in ** -0.5, zero biases, unit norms; a mamba layer's
+        as :func:`.mamba2.init_mamba2` draws them (its B and C conv taps
+        are zeros)."""
         cfg, dev = self.cfg, self.device
-        embed = torch.empty((self.padded_vocab, cfg.d_model),
-                            dtype=self.dtype, device=dev)
-        L.fill_normal_(embed, 0.02, gen)
-        stack = (T.init_hybrid(cfg, gen, dev) if cfg.family == "hybrid"
-                 else T.init_stack(cfg, gen, cfg.n_layers, dev))
-        lm_head = None
-        if not cfg.tie_embeddings:
-            lm_head = torch.empty((cfg.d_model, self.padded_vocab),
-                                  dtype=self.dtype, device=dev)
+        embed = dec_pos = lm_head = None
+        if self._has_embed:
+            embed = self._empty((self.padded_vocab, cfg.d_model))
+            L.fill_normal_(embed, 0.02, gen)
+        if cfg.family == "hybrid":
+            stack = T.init_hybrid(cfg, gen, dev)
+        elif cfg.family == "encdec":
+            stack = T.init_encdec(cfg, gen, dev)
+            dec_pos = self._empty((DEC_POS_ROWS, cfg.d_model))
+            L.fill_normal_(dec_pos, 0.02, gen)
+        else:
+            stack = T.init_stack(cfg, gen, cfg.n_layers, dev)
+        if not self._tied:
+            lm_head = self._empty((cfg.d_model, self.padded_vocab))
             L.fill_normal_(lm_head, cfg.d_model ** -0.5, gen)
         return LMParams(embed, stack, L.init_norm(cfg, cfg.d_model, dev),
-                        lm_head)
+                        lm_head, dec_pos)
 
     # ----------------------------------------------------------- embed/out
     def _embed(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
+        if self.cfg.input_embeds and "embeds" in batch:
+            return torch.as_tensor(batch["embeds"],
+                                   device=self.device).to(self.dtype)
+        if params.embed is None:
+            raise KeyError(f"{self.cfg.name} takes 'embeds' and has no "
+                           f"'embed' table for tokens")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         return params.embed[tokens.long()]
 
@@ -118,22 +150,50 @@ class Model:
             logits = x @ params.lm_head
         return logits[..., :self.cfg.vocab_size]
 
+    def _dec_pos(self, params: LMParams, seq: int) -> torch.Tensor:
+        """The learned decoder positions of 0..seq-1, zeros past the
+        table (the backbone run beyond its design length, as in the JAX
+        package; a decode step clamps to the last row instead)."""
+        table = params.dec_pos
+        if seq <= table.shape[0]:
+            return table[:seq]
+        return torch.nn.functional.pad(table, (0, 0, 0, seq - table.shape[0]))
+
     def _positions(self, batch: Dict[str, Any], seq: int,
                    bsz: int) -> torch.Tensor:
         if "positions" in batch:
             return torch.as_tensor(batch["positions"], device=self.device)
-        return torch.arange(seq, dtype=torch.int32,
+        base = torch.arange(seq, dtype=torch.int32,
                             device=self.device)[None].expand(bsz, seq)
+        return base[None].expand(3, bsz, seq) if self.cfg.mrope else base
+
+    def _encode(self, params: LMParams, batch: Dict[str, Any],
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An encoder-decoder's encoder output, and x with the decoder
+        positions added."""
+        enc = torch.as_tensor(batch["audio_embeds"],
+                              device=self.device).to(x.dtype)
+        enc_out = T.encoder_forward(self.cfg, params.stack, enc)
+        return enc_out, x + self._dec_pos(params, x.shape[1])[None]
 
     # ------------------------------------------------------------ forward
     @torch.no_grad()
     def forward(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
+        """Logits of every position.  A stack's summed MoE aux loss (0.0
+        without experts) is kept as ``_last_aux``, as the JAX package's
+        ``forward`` keeps it for the training loss."""
+        cfg = self.cfg
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], x.shape[0])
-        if self.cfg.family == "hybrid":
-            x = T.hybrid_forward(self.cfg, params.stack, x, positions)
+        if cfg.family == "encdec":
+            enc_out, x = self._encode(params, batch, x)
+            x = T.decoder_forward_encdec(cfg, params.stack, x, positions,
+                                         enc_out)
+        elif cfg.family == "hybrid":
+            x = T.hybrid_forward(cfg, params.stack, x, positions)
         else:
-            x = T.stack_forward(self.cfg, params.stack, x, positions)
+            x, self._last_aux = T.stack_forward(cfg, params.stack, x,
+                                                positions)
         return self._logits(params, x)
 
     # ------------------------------------------------------------ serving
@@ -142,9 +202,18 @@ class Model:
         the window's size when ``cache_len`` exceeds it.  An ``ssm``
         model's is its layers' zero states (``cache_len`` unused); a
         ``hybrid`` model's nests the states of its mamba layers, grouped
-        (groups, every, ...), and the shared block's k/v per group."""
+        (groups, every, ...), and the shared block's k/v per group; an
+        ``encdec`` model's adds the cross-attention's ``xk``/``xv`` (L, B,
+        HKV, encoder_seq, hd), which a prefill fills."""
         cfg = self.cfg
         dev = self.device
+        if cfg.family == "encdec":
+            lead = (cfg.n_layers, batch, cfg.n_kv_heads)
+            return {k: torch.zeros(lead + (n, cfg.hd), dtype=self.dtype,
+                                   device=dev)
+                    for k, n in (("k", cache_len), ("v", cache_len),
+                                 ("xk", cfg.encoder_seq),
+                                 ("xv", cfg.encoder_seq))}
         if cfg.family in T.MAMBA_FAMILIES:
             st = M.init_mamba_state(cfg, batch, self.dtype, dev)
             if cfg.family == "ssm":
@@ -170,7 +239,11 @@ class Model:
         final states, whatever ``cache_len`` is)."""
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], x.shape[0])
-        if self.cfg.family == "hybrid":
+        if self.cfg.family == "encdec":
+            enc_out, x = self._encode(params, batch, x)
+            x, cache = T.decoder_prefill_encdec(self.cfg, params.stack, x,
+                                                positions, enc_out, cache_len)
+        elif self.cfg.family == "hybrid":
             x, cache = T.hybrid_prefill(self.cfg, params.stack, x, positions,
                                         cache_len)
         else:
@@ -181,12 +254,19 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params: LMParams, batch: Dict[str, Any],
                     cache: T.Cache) -> Tuple[torch.Tensor, T.Cache]:
-        """One new token per sequence: tokens (B, 1); lengths (B,) or a
-        scalar, the current cache fill.  Writes the cache in place."""
+        """One new token per sequence: tokens (B, 1) or embeds (B, 1, D);
+        lengths (B,) or a scalar, the current cache fill.  Writes the
+        cache in place.  An encoder-decoder adds the decoder position of
+        each row's fill, clamped to the table's last row."""
         x = self._embed(params, batch)
         lengths = torch.as_tensor(batch["lengths"],
                                   device=self.device).to(torch.int32)
-        if self.cfg.family == "hybrid":
+        if self.cfg.family == "encdec":
+            pos = lengths.expand(x.shape[0]).clamp(max=DEC_POS_ROWS - 1)
+            x = x + params.dec_pos[pos.long()][:, None]
+            x, cache = T.decoder_decode_encdec(self.cfg, params.stack, x,
+                                               cache, lengths)
+        elif self.cfg.family == "hybrid":
             x, cache = T.hybrid_decode(self.cfg, params.stack, x, cache,
                                        lengths)
         else:

@@ -1,15 +1,17 @@
-"""Decoder stacks over the layer library, in PyTorch.
+"""Decoder and encoder-decoder stacks over the layer library, in
+PyTorch.
 
-The counterpart of ``repro.models.transformer`` for the dense, ``ssm``
-and ``hybrid`` families: the JAX package scans stacked per-layer
-parameters with ``lax.scan``; here the layers are an ``nn.ModuleList``
-and the stacks loop over it.
+The counterpart of ``repro.models.transformer`` for every family: the
+JAX package scans stacked per-layer parameters with ``lax.scan``; here
+the layers are an ``nn.ModuleList`` and the stacks loop over it.
 
 Cache convention, as in the JAX package: every attention layer owns
 ``k``/``v`` of shape (L, B, HKV, S, hd); mamba layers own ``conv_x``,
 ``conv_b``, ``conv_c`` (L, B, K-1, C) and ``ssm`` (L, B, H, P, N);
 a hybrid cache is ``{"mamba": <mamba cache, (groups, every, ...)>,
-"attn": <k/v cache, (groups, ...)>}``.  ``lengths`` (B,) or a scalar
+"attn": <k/v cache, (groups, ...)>}``; an encoder-decoder cache adds
+the cross-attention's ``xk``/``xv`` (L, B, HKV, encoder_seq, hd),
+computed once from the encoder's output.  ``lengths`` (B,) or a scalar
 tracks the valid entries, and a decode step writes at position
 ``lengths``.  Unlike the JAX package, which returns a new cache, a decode
 step writes into the cache it is given and returns that same cache: a
@@ -19,7 +21,7 @@ traffic.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,12 +58,14 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
 # -------------------------------------------------------- decoder layers
 
 class DecoderLayer(nn.Module):
-    """``norm1``, ``attn``, ``norm2``, ``mlp``: one dense decoder layer."""
+    """``norm1``, ``attn``, ``norm2`` and either ``mlp`` or, in the
+    ``moe`` family, ``moe``: one attention layer (an encoder layer too)."""
 
     def __init__(self, norm1: L.Norm, attn: L.Attention, norm2: L.Norm,
-                 mlp: L.MLP):
+                 mlp: Optional[L.MLP] = None, moe: Optional[L.MoE] = None):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp
+        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
+        self.mlp, self.moe = mlp, moe
 
 
 class MambaLayer(nn.Module):
@@ -77,10 +81,11 @@ def empty_decoder_layer(cfg: ModelConfig, device=None) -> nn.Module:
     if cfg.family in MAMBA_FAMILIES:
         return MambaLayer(L.Norm(cfg, cfg.d_model, device),
                           M.Mamba2(cfg, device))
+    ffn = ({"moe": L.MoE(cfg, device)} if cfg.family == "moe"
+           else {"mlp": L.MLP(cfg, device)})
     return DecoderLayer(L.Norm(cfg, cfg.d_model, device),
                         L.Attention(cfg, device),
-                        L.Norm(cfg, cfg.d_model, device),
-                        L.MLP(cfg, device))
+                        L.Norm(cfg, cfg.d_model, device), **ffn)
 
 
 def init_decoder_layer(cfg: ModelConfig, gen: torch.Generator,
@@ -88,10 +93,12 @@ def init_decoder_layer(cfg: ModelConfig, gen: torch.Generator,
     if cfg.family in MAMBA_FAMILIES:
         return MambaLayer(L.init_norm(cfg, cfg.d_model, device),
                           M.init_mamba2(cfg, gen, device))
-    return DecoderLayer(L.init_norm(cfg, cfg.d_model, device),
-                        L.init_attention(cfg, gen, device),
-                        L.init_norm(cfg, cfg.d_model, device),
-                        L.init_mlp(cfg, gen, device))
+    norm1 = L.init_norm(cfg, cfg.d_model, device)
+    attn = L.init_attention(cfg, gen, device)
+    ffn = ({"moe": L.init_moe(cfg, gen, device)} if cfg.family == "moe"
+           else {"mlp": L.init_mlp(cfg, gen, device)})
+    return DecoderLayer(norm1, attn, L.init_norm(cfg, cfg.d_model, device),
+                        **ffn)
 
 
 def attn_block_full(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
@@ -136,20 +143,26 @@ def attn_block_decode(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
     return x + o @ p.attn.wo, (k_cache, v_cache)
 
 
-def mlp_block(cfg: ModelConfig, p: DecoderLayer,
-              x: torch.Tensor) -> torch.Tensor:
-    return x + L.mlp(cfg, p.mlp, L.apply_norm(cfg, p.norm2, x))
+def mlp_block(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor):
+    """The feed-forward half of a layer.  Returns (x, aux): the MoE's
+    load-balancing loss (float32), or 0.0 without experts."""
+    h = L.apply_norm(cfg, p.norm2, x)
+    if cfg.family == "moe":
+        y, aux = L.moe(cfg, p.moe, h)
+        return x + y, aux
+    return x + L.mlp(cfg, p.mlp, h), 0.0
 
 
 def decoder_layer_full(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
                        positions: torch.Tensor, q_offset: int = 0):
-    """Full-sequence pass of one layer.  Returns (x, (k, v)), or (x,
-    None) for a mamba layer."""
+    """Full-sequence pass of one layer.  Returns (x, (k, v), aux), or
+    (x, None, 0.0) for a mamba layer."""
     if cfg.family in MAMBA_FAMILIES:
         h = L.apply_norm(cfg, p.norm1, x)
-        return x + M.mamba2_forward(cfg, p.mamba, h), None
+        return x + M.mamba2_forward(cfg, p.mamba, h), None, 0.0
     x, kv = attn_block_full(cfg, p, x, positions, q_offset)
-    return mlp_block(cfg, p, x), kv
+    x, aux = mlp_block(cfg, p, x)
+    return x, kv, aux
 
 
 def decoder_layer_full_with_state(cfg: ModelConfig, p: MambaLayer,
@@ -164,14 +177,16 @@ def decoder_layer_full_with_state(cfg: ModelConfig, p: MambaLayer,
 
 def decoder_layer_decode(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
                          cache: Cache, lengths: torch.Tensor):
-    """One-token step of one layer against its cache, written in place."""
+    """One-token step of one layer against its cache, written in place.
+    Returns (x, the layer's cache, aux)."""
     if cfg.family in MAMBA_FAMILIES:
         h = L.apply_norm(cfg, p.norm1, x)
         y, state = M.mamba2_decode_step(cfg, p.mamba, h, cache)
-        return x + y, state
+        return x + y, state, 0.0
     x, (kc, vc) = attn_block_decode(cfg, p, x, cache["k"], cache["v"],
                                     lengths)
-    return mlp_block(cfg, p, x), {"k": kc, "v": vc}
+    x, aux = mlp_block(cfg, p, x)
+    return x, {"k": kc, "v": vc}, aux
 
 
 # ----------------------------------------------------------------- stacks
@@ -190,11 +205,15 @@ def empty_stack(cfg: ModelConfig, n_layers: int,
 
 
 def stack_forward(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence pass over all layers."""
+                  positions: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """Full-sequence pass over all layers.  Returns (x, the sum of the
+    layers' aux losses): a float32 scalar tensor, or 0.0 without
+    experts."""
+    total = 0.0
     for p in stack:
-        x, _kv = decoder_layer_full(cfg, p, x, positions)
-    return x
+        x, _kv, aux = decoder_layer_full(cfg, p, x, positions)
+        total = total + aux
+    return x, total
 
 
 def stack_prefill(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
@@ -217,7 +236,7 @@ def stack_prefill(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
     shape = (len(stack), b, cfg.n_kv_heads, cache_len, cfg.hd)
     cache = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
     for i, p in enumerate(stack):
-        x, (k, v) = decoder_layer_full(cfg, p, x, positions)
+        x, (k, v), _aux = decoder_layer_full(cfg, p, x, positions)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
     return x, cache
@@ -227,7 +246,7 @@ def stack_decode(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
                  cache: Cache, lengths: torch.Tensor
                  ) -> Tuple[torch.Tensor, Cache]:
     for i, p in enumerate(stack):
-        x, _ = decoder_layer_decode(
+        x, _, _aux = decoder_layer_decode(
             cfg, p, x, {k: v[i] for k, v in cache.items()}, lengths)
     return x, cache
 
@@ -280,8 +299,9 @@ def hybrid_forward(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
     dense_cfg = _as_dense(cfg)
     for gi in range(hybrid_groups(cfg)[0]):
-        x = stack_forward(cfg, _group(cfg, p, gi), x, positions)
-        x, _kv = decoder_layer_full(dense_cfg, p.shared_attn, x, positions)
+        x, _aux = stack_forward(cfg, _group(cfg, p, gi), x, positions)
+        x, _kv, _aux = decoder_layer_full(dense_cfg, p.shared_attn, x,
+                                          positions)
     return x
 
 
@@ -303,8 +323,8 @@ def hybrid_prefill(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
         x, st = stack_prefill(cfg, _group(cfg, p, gi), x, positions,
                               cache_len)
         states.append(st)
-        x, (k, v) = decoder_layer_full(dense_cfg, p.shared_attn, x,
-                                       positions)
+        x, (k, v), _aux = decoder_layer_full(dense_cfg, p.shared_attn, x,
+                                             positions)
         attn["k"][gi, :, :, :s] = k
         attn["v"][gi, :, :, :s] = v
     mamba = {k: torch.stack([st[k] for st in states]) for k in states[0]}
@@ -319,7 +339,163 @@ def hybrid_decode(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
         x, _ = stack_decode(cfg, _group(cfg, p, gi), x,
                             {k: v[gi] for k, v in cache["mamba"].items()},
                             lengths)
-        x, _ = decoder_layer_decode(
+        x, _, _aux = decoder_layer_decode(
             dense_cfg, p.shared_attn, x,
             {k: v[gi] for k, v in cache["attn"].items()}, lengths)
+    return x, cache
+
+
+# ------------------------------------------------------ enc-dec (whisper)
+
+class CrossLayer(DecoderLayer):
+    """A decoder layer of an encoder-decoder model: a
+    :class:`DecoderLayer` (``norm1``, ``attn``, ``norm2``, ``mlp``) plus
+    ``norm_x`` and ``xattn``, the cross-attention over the encoder's
+    output."""
+
+    def __init__(self, norm1: L.Norm, attn: L.Attention, norm2: L.Norm,
+                 mlp: L.MLP, norm_x: L.Norm, xattn: L.Attention):
+        super().__init__(norm1, attn, norm2, mlp)
+        self.norm_x, self.xattn = norm_x, xattn
+
+
+class EncDecStack(nn.Module):
+    """``encoder`` (one :class:`DecoderLayer` a layer, run without the
+    causal mask), ``decoder`` (one :class:`CrossLayer` a layer) and
+    ``enc_norm``, the norm after the encoder."""
+
+    def __init__(self, encoder: nn.ModuleList, decoder: nn.ModuleList,
+                 enc_norm: L.Norm):
+        super().__init__()
+        self.encoder, self.decoder, self.enc_norm = encoder, decoder, enc_norm
+
+
+def init_encdec_layer(cfg: ModelConfig, gen: torch.Generator, cross: bool,
+                      device=None) -> DecoderLayer:
+    d = cfg.d_model
+    parts = (L.init_norm(cfg, d, device), L.init_attention(cfg, gen, device),
+             L.init_norm(cfg, d, device), L.init_mlp(cfg, gen, device))
+    if not cross:
+        return DecoderLayer(*parts)
+    return CrossLayer(*parts, L.init_norm(cfg, d, device),
+                      L.init_attention(cfg, gen, device))
+
+
+def _empty_encdec_layer(cfg: ModelConfig, cross: bool,
+                        device=None) -> DecoderLayer:
+    d = cfg.d_model
+    parts = (L.Norm(cfg, d, device), L.Attention(cfg, device),
+             L.Norm(cfg, d, device), L.MLP(cfg, device))
+    if not cross:
+        return DecoderLayer(*parts)
+    return CrossLayer(*parts, L.Norm(cfg, d, device),
+                      L.Attention(cfg, device))
+
+
+def init_encdec(cfg: ModelConfig, gen: torch.Generator,
+                device=None) -> EncDecStack:
+    return EncDecStack(
+        nn.ModuleList(init_encdec_layer(cfg, gen, False, device)
+                      for _ in range(cfg.encoder_layers)),
+        nn.ModuleList(init_encdec_layer(cfg, gen, True, device)
+                      for _ in range(cfg.n_layers)),
+        L.init_norm(cfg, cfg.d_model, device))
+
+
+def empty_encdec(cfg: ModelConfig, device=None) -> EncDecStack:
+    return EncDecStack(
+        nn.ModuleList(_empty_encdec_layer(cfg, False, device)
+                      for _ in range(cfg.encoder_layers)),
+        nn.ModuleList(_empty_encdec_layer(cfg, True, device)
+                      for _ in range(cfg.n_layers)),
+        L.Norm(cfg, cfg.d_model, device))
+
+
+def encoder_forward(cfg: ModelConfig, p: EncDecStack,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over precomputed frame embeddings x (B, Se,
+    D), positions 0..Se-1."""
+    positions = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[:2])
+    for layer in p.encoder:
+        x, _kv = attn_block_full(cfg, layer, x, positions, causal=False)
+        x, _aux = mlp_block(cfg, layer, x)
+    return L.apply_norm(cfg, p.enc_norm, x)
+
+
+def cross_attention(cfg: ModelConfig, p: CrossLayer, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (B, HKV,
+    Se, hd): q's bias only, no mask."""
+    b, s, _ = x.shape
+    hn = L.apply_norm(cfg, p.norm_x, x)
+    q = hn @ p.xattn.wq
+    if cfg.qkv_bias:
+        q = q + p.xattn.bq
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    k, v = enc_kv
+    o = L.run_attention(cfg, q, k, v, causal=False)
+    return x + o.transpose(1, 2).reshape(b, s, -1) @ p.xattn.wo
+
+
+def encoder_kv(cfg: ModelConfig, decoder: nn.ModuleList,
+               enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross K/V from the encoder's output, stacked
+    (L, B, HKV, Se, hd)."""
+    b, se, _ = enc_out.shape
+    shape = (len(decoder), b, cfg.n_kv_heads, se, cfg.hd)
+    xk, xv = enc_out.new_empty(shape), enc_out.new_empty(shape)
+    for i, layer in enumerate(decoder):
+        k = enc_out @ layer.xattn.wk
+        v = enc_out @ layer.xattn.wv
+        if cfg.qkv_bias:
+            k, v = k + layer.xattn.bk, v + layer.xattn.bv
+        xk[i] = k.reshape(b, se, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+        xv[i] = v.reshape(b, se, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    return xk, xv
+
+
+def decoder_forward_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
+                           positions: torch.Tensor,
+                           enc_out: torch.Tensor) -> torch.Tensor:
+    xk, xv = encoder_kv(cfg, p.decoder, enc_out)
+    for i, layer in enumerate(p.decoder):
+        x, _kv = attn_block_full(cfg, layer, x, positions)
+        x = cross_attention(cfg, layer, x, (xk[i], xv[i]))
+        x, _aux = mlp_block(cfg, layer, x)
+    return x
+
+
+def decoder_prefill_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
+                           positions: torch.Tensor, enc_out: torch.Tensor,
+                           cache_len: int) -> Tuple[torch.Tensor, Cache]:
+    """Full decoder pass returning the cache: the self-attention's
+    ``k``/``v`` padded with zeros to ``cache_len``, and ``xk``/``xv``."""
+    b, s, _ = x.shape
+    if cache_len < s:
+        raise ValueError(f"cache_len {cache_len} is shorter than the "
+                         f"{s}-token sequence")
+    xk, xv = encoder_kv(cfg, p.decoder, enc_out)
+    shape = (len(p.decoder), b, cfg.n_kv_heads, cache_len, cfg.hd)
+    cache = {"k": x.new_zeros(shape), "v": x.new_zeros(shape),
+             "xk": xk, "xv": xv}
+    for i, layer in enumerate(p.decoder):
+        x, (k, v) = attn_block_full(cfg, layer, x, positions)
+        cache["k"][i, :, :, :s] = k
+        cache["v"][i, :, :, :s] = v
+        x = cross_attention(cfg, layer, x, (xk[i], xv[i]))
+        x, _aux = mlp_block(cfg, layer, x)
+    return x, cache
+
+
+def decoder_decode_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
+                          cache: Cache, lengths: torch.Tensor
+                          ) -> Tuple[torch.Tensor, Cache]:
+    """One-token step: the causal self-attention cache, written in place,
+    and the static cross K/V."""
+    for i, layer in enumerate(p.decoder):
+        x, _ = attn_block_decode(cfg, layer, x, cache["k"][i],
+                                 cache["v"][i], lengths)
+        x = cross_attention(cfg, layer, x, (cache["xk"][i], cache["xv"][i]))
+        x, _aux = mlp_block(cfg, layer, x)
     return x, cache

@@ -179,6 +179,48 @@ def test_fullflow_runs_once_and_matches_emulation():
     assert "resnet_tiny" in gate.summary()
 
 
+@pytest.mark.parametrize("kw", [dict(n_i=4), dict(block_h=4),
+                                dict(n_i=8, n_l=8, block_h=2)],
+                         ids=["n_i4", "block_h4", "n_i8_n_l8_block_h2"])
+def test_run_int8_takes_the_reference_design_point(shimmed_reference, kw):
+    """``run_int8(qm, x, n_i=, n_l=, block_h=)`` as the reference's callers
+    write it: the same logits as the reference's ``run_int8``, and one
+    executor cached per (n_i, n_l, block_h), beside the default's."""
+    import jax.numpy as jnp
+    from repro.core import pipeline as r_pipe
+    graph = r_cnn.tiny_cnn(batch=2)
+    x = np.random.default_rng(3).standard_normal(
+        graph.inputs[0].shape).astype(np.float32)
+    rgate = RGate.from_graph(graph, fuse_skip=False, fuse_concat=False)
+    specs = _spec_tuples(rgate.calibrate_quantization(x))
+    want = np.asarray(r_pipe.run_int8(rgate.quantized, jnp.asarray(x), **kw))
+    qm = _port_gate(graph, specs).quantized
+    got = t_pipe.run_int8(qm, x, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert torch.equal(t_pipe.run_int8(qm, x), got)
+    key = (kw.get("n_i", 16), kw.get("n_l", 32), kw.get("block_h"))
+    assert sorted(qm._executors, key=str) == sorted({key, (16, 32, None)},
+                                                    key=str)
+    ex = qm._executors[key]
+    t_pipe.run_int8(qm, x, **kw)
+    assert qm._executors[key] is ex
+    assert ex.design_point == key
+
+
+def test_hardware_options_is_the_parsed_models_method():
+    """``qm.hardware_options()`` as in the reference: a property that
+    returns the parsed model's method."""
+    graph = r_cnn.resnet_tiny(batch=1)
+    x = np.random.default_rng(0).standard_normal(
+        graph.inputs[0].shape).astype(np.float32)
+    rgate = RGate.from_graph(graph)
+    specs = _spec_tuples(rgate.calibrate_quantization(x))
+    qm = _port_gate(graph, specs).quantized
+    assert qm.hardware_options()[:4] == [(1, 1), (1, 2), (1, 4), (1, 8)]
+    assert qm.hardware_options() == rgate.quantized.hardware_options()
+    assert qm.hardware_options(8) == rgate.quantized.hardware_options(8)
+
+
 def test_build_quantized_rejects_what_the_reference_rejects():
     g = t_cnn.resnet_tiny()
     gate = TGate.from_graph(g, device="cpu")

@@ -113,6 +113,22 @@ def test_plain_version_matches_the_oracle_where_every_row_sees_a_key():
         t_ref.attention_ref(tq, tk, tv, **kw).numpy(), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_flash_attention_passes_scale_on(dtype):
+    """``ops.flash_attention(..., scale=)`` as the reference's
+    ``ops.flash_attention`` takes it, against that op in interpret mode."""
+    from repro.kernels import ops as r_ops
+    q, k, v = _inputs(1, 2, 2, 8, 8, 16, seed=11)
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    want = np.asarray(r_ops.flash_attention(
+        *(jnp.asarray(a).astype(jd) for a in (q, k, v)), scale=0.5,
+        interpret=True).astype(jnp.float32))
+    got = _torch(ops.flash_attention, q, k, v, dtype, scale=0.5)
+    _assert_close(got, want, dtype)
+    default = _torch(ops.flash_attention, q, k, v, dtype)
+    assert np.abs(got - default).max() > 0.1
+
+
 def _meta(shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 

@@ -60,6 +60,26 @@ def test_campaign_matches_the_reference(shimmed_reference, name, trials,
                                   TF.ACTIVATION_BIT)
 
 
+def test_two_flip_campaign_matches_the_reference(shimmed_reference):
+    """Two flips a trial: each plan carries two faults, and an activation
+    payload two (index, mask) slots.  Records and summary equal the
+    reference's.  (The port XOR-combines repeated indices where the
+    reference's scatter keeps the last; the two differ only on a no-op
+    slot after a fault on element 0, ROADMAP Queue 3.)"""
+    rg, tg, x = calibrated_pair("resnet_tiny", seed=0)
+    kw = dict(trials=24, flips=2, kinds=(RF.WEIGHT_BIT, RF.DROPPED_TILE,
+                                         RF.ACTIVATION_BIT),
+              seed=3, checkpoints=2, chunk=8)
+    want = r_ser.run_campaign(rg, x, **kw)
+    got = ser.run_campaign(tg, x, **kw)
+    assert [_record(r) for r in got.records] == \
+        [_record(r) for r in want.records]
+    assert all(len(r.plan.faults) == 2 for r in got.records)
+    assert json.dumps(got.summary(), sort_keys=True) == \
+        json.dumps(want.summary(), sort_keys=True)
+    assert got.counts()["detected"]
+
+
 @pytest.mark.parametrize("k,n", [(0, 0), (5, 10), (10, 10), (0, 100),
                                  (50, 100), (3, 64), (63, 64), (1, 1)])
 def test_wilson_matches_the_reference(k, n):
