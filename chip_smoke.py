@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, each printing one JSON line per check:
+Ten phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -149,7 +149,28 @@ Nine phases, each printing one JSON line per check:
    every token whose experts differ between the paths must sit at a
    near-tie of the plain path's probabilities.  It prints the
    times of phase 5 and flash's time per launch at each new shape beside
-   SDPA's and the bound.
+   SDPA's and the bound;
+8. train, training on the card, which launches neither kernel: the
+   flash and SSD kernels have no backward (nor have the JAX package's),
+   so both refuse inputs that require grad, checked on the card.
+   qwen2-1.5b at full width and depth (bf16, chunked attention, remat
+   "full", AdamW, 2 x 4096 ``SyntheticLM`` tokens): step 1's gradient
+   against a float32 run of the same weights and batch (whole-gradient
+   cosine >= 0.99, loss within 1 %), 4 timed steps with no flash or SSD
+   launch (ms a step, tokens/s, peak memory, model-FLOPs share, the busy
+   share of a step), then the trained weights served by
+   ``Model.prefill`` on the flash kernel (1 x 4096: 28 launches, each
+   held against the plain version, logits by phase 5's criterion);
+   remat "none", "full" and "dots" giving equal gradients under
+   deterministic algorithms (4 layers, 2 x 4096; CUBLAS_WORKSPACE_CONFIG
+   is set at the top of this script for it); lm100m at full width
+   through ``launch/train.py``: 60 steps whose loss falls by 10 %, 6
+   steps against 3 + resume + 3, int8 error feedback, and step 1 in
+   float32 against the port on the CPU; mamba2-2.7b (4 of 64 layers,
+   1 x 2048) against float32 with no ``ssd_scan`` launch, its serving
+   prefill then launching it once a layer; one step each of
+   granite-moe (4 layers), qwen2-vl (4) and whisper (4 + 4), every
+   gradient leaf nonzero but the key biases.
 
 Before the last line it prints the kernels' record (launches, error,
 times, bounds; for the dense conv, the GEMM, flash_attention and
@@ -168,6 +189,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -180,6 +202,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+#: cuBLAS computes deterministically under
+#: ``torch.use_deterministic_algorithms(True)`` (the remat and resume
+#: checks of the train phase) only with a fixed workspace, set before its
+#: first handle; it raises otherwise.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 #: Float kernel tolerances against the plain version.  float32: both sum
 #: in float32 in other orders.  bfloat16: both compute in float32 and
 #: round once, so a result may land one bf16 ulp away where the float32
@@ -941,10 +968,12 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
     return out
 
 
-def device_time(torch, fn, wall_ms: float) -> dict:
+def device_time(torch, fn, wall_ms: float, kinds=None) -> dict:
     """Device time of one call by kernel name, from ``torch.profiler``,
     and its share of the call's wall time measured without the
-    profiler (the device's busy share; the rest is idle)."""
+    profiler (the device's busy share; the rest is idle).  ``kinds``
+    ((label, regex) pairs, the first match wins) adds every kernel's time
+    summed by kind, ``other`` for the rest."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -970,9 +999,18 @@ def device_time(torch, fn, wall_ms: float) -> dict:
         return dict(device_ms="not measured",
                     profiler_error="no device time in the trace")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return dict(device_ms=device_ms, wall_ms=wall_ms,
-                device_busy_share=device_ms / wall_ms,
-                top_device_ms=dict(top))
+    out = dict(device_ms=device_ms, wall_ms=wall_ms,
+               device_busy_share=device_ms / wall_ms,
+               top_device_ms=dict(top))
+    if kinds:
+        by_kind: dict = {}
+        for key, ms in per_kernel.items():
+            label = next((lb for lb, rx in kinds if re.search(rx, key)),
+                         "other")
+            by_kind[label] = by_kind.get(label, 0.0) + ms
+        out["device_ms_by_kind"] = dict(sorted(by_kind.items(),
+                                               key=lambda kv: -kv[1]))
+    return out
 
 
 def launch_split(torch, fn, calls: int = 5) -> dict:
@@ -3164,6 +3202,497 @@ def phase_families(torch, dev, records):
             dict(launches=launches, per_shape=shapes)
 
 
+# ------------------------------------------------- phase 8: training
+
+#: A bf16 step's gradient against a float32 run of the same weights and
+#: batch on the card: whole-gradient cosine at least GRAD_COSINE, the
+#: loss within LOSS_REL of the float32 loss.
+GRAD_COSINE = 0.99
+LOSS_REL = 0.01
+#: A float32 step on the card against the port on the CPU (lm100m): the
+#: CPU parity tests' tolerances (tests/test_torch_train.py): the loss
+#: within 1e-5 relative, each leaf within 1e-4 of its own largest |g|
+#: plus 1e-6 of the whole gradient's.
+CPU_LOSS_RTOL, LEAF_RTOL, WHOLE_RTOL = 1e-5, 1e-4, 1e-6
+#: Kernel kinds of a train step's profile, by name: cuBLAS float32 GEMMs
+#: on the CUDA cores (the chunked attention's einsums, float32 without
+#: TF32), the bf16 tensor-core products, the optimizer's multi-tensor
+#: passes, reductions, copies and casts, the rest of the elementwise
+#: passes.
+TRAIN_KINDS = (("float32 GEMM", r"f32f32|sgemm"),
+               ("bf16 GEMM", r"nvjet|bf16.*(gemm|xmma)|(gemm|xmma).*bf16"
+                r"|cutlass"),
+               ("optimizer foreach", r"multi_tensor_apply"),
+               ("reductions", r"reduce_kernel|softmax|norm"),
+               ("copies and casts", r"Memcpy|Memset|copy"),
+               ("elementwise", r"elementwise|index|scatter|gather"))
+
+
+def synthetic_batch(torch, dev, cfg, bsz: int, seq: int, step: int = 0):
+    """``SyntheticLM`` tokens and labels of ``cfg``'s vocabulary, on the
+    card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=bsz, seed=SEED))
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in src.batch_at(step).items()}
+
+
+def float32_grads(torch, model, params, batch) -> tuple:
+    """The loss and gradient of the same weights and batch in float32
+    (TF32 off), on the plain attention the model trains on.  The weights
+    go to float32 in place and back to their own dtypes after (bf16 ->
+    float32 -> bf16 is exact); the gradient stays float32."""
+    from repro_torch import device as tdevice
+    from repro_torch import optim
+    from repro_torch.models.model import Model
+    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                device=model.device, remat=model.remat)
+    dtypes = {n: p.dtype for n, p in params.named_parameters()}
+    torch.cuda.empty_cache()
+    params.float()
+    try:
+        with tdevice.full_float32():
+            return optim.value_and_grad(m32.loss, params, batch)
+    finally:
+        for n, p in params.named_parameters():
+            p.data = p.data.to(dtypes[n])
+        torch.cuda.empty_cache()
+
+
+def grad_agreement(torch, got: dict, ref: dict) -> dict:
+    """The whole-gradient cosine of ``got`` against ``ref`` (gradients by
+    parameter name), summed in float64; the smallest per-leaf cosine and
+    its leaf; the whole gradient's relative L2 distance."""
+    dot = gg = rr = 0.0
+    leaf_min, leaf_name = 2.0, None
+    for n, r in ref.items():
+        g, r = got[n].float(), r.float()
+        d = (g * r).sum(dtype=torch.float64).item()
+        a = (g * g).sum(dtype=torch.float64).item()
+        b = (r * r).sum(dtype=torch.float64).item()
+        dot, gg, rr = dot + d, gg + a, rr + b
+        if a > 0 and b > 0 and d / math.sqrt(a * b) < leaf_min:
+            leaf_min, leaf_name = d / math.sqrt(a * b), n
+    return dict(cosine=dot / math.sqrt(gg * rr),
+                rel_l2=math.sqrt(max(gg - 2 * dot + rr, 0.0) / rr),
+                min_leaf_cosine=leaf_min, min_leaf=leaf_name)
+
+
+def step_against_float32(torch, tag, model, params, batch) -> tuple:
+    """The bf16 gradient of one batch against a float32 run of the same
+    weights and batch (GRAD_COSINE, LOSS_REL).  Returns (the bf16 loss,
+    the bf16 grads)."""
+    from repro_torch import optim
+    (loss, grads), ms = timed(torch, lambda: optim.value_and_grad(
+        model.loss, params, batch))
+    loss32, grads32 = float32_grads(torch, model, params, batch)
+    agree = grad_agreement(torch, grads, grads32)
+    del grads32
+    loss, loss32 = float(loss), float(loss32)
+    check("train", f"{tag}_step1_gradient_matches_float32",
+          math.isfinite(loss) and agree["cosine"] >= GRAD_COSINE
+          and abs(loss - loss32) <= LOSS_REL * abs(loss32),
+          loss=loss, loss_float32=loss32, grad_ms=ms,
+          cosine_min=GRAD_COSINE, loss_rel_max=LOSS_REL, **agree)
+    return loss, grads
+
+
+def refuses_a_gradient(fn) -> bool:
+    """Whether ``fn`` raises the kernels' no-backward error."""
+    try:
+        fn()
+    except RuntimeError as e:
+        return "has no backward" in str(e)
+    return False
+
+
+def train_guards(torch, dev) -> None:
+    """On the card, both kernels refuse inputs that require grad while
+    grad mode is on, and launch on the same inputs with it off."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+
+    def rand(*shape, dtype=torch.bfloat16, grad=False):
+        return torch.randn(shape, device=dev, generator=gen, dtype=dtype
+                           ).requires_grad_(grad)
+    q, kv = rand(1, 4, 256, 64, grad=True), rand(1, 2, 256, 64)
+    x, bc = rand(1, 256, 8, 64), rand(1, 256, 1, 128, grad=True)
+    dt = torch.rand((1, 256, 8), device=dev, generator=gen) * 0.1
+    a = -torch.rand(8, device=dev, generator=gen)
+    ops.reset_launch_counts()
+    flash = refuses_a_gradient(lambda: ops.flash_attention(q, kv, kv))
+    ssd = refuses_a_gradient(lambda: ops.ssd_scan(x, dt, a, bc, bc))
+    refused = ops.launch_counts()
+    with torch.no_grad():
+        ops.flash_attention(q, kv, kv)
+        ops.ssd_scan(x, dt, a, bc, bc)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check("train", "flash_attention_refuses_a_gradient_on_the_card",
+          flash and refused["flash_attention"] == 0
+          and counts["flash_attention"] == 1, launches=counts)
+    check("train", "ssd_scan_refuses_a_gradient_on_the_card",
+          ssd and refused["ssd_scan"] == 0 and counts["ssd_scan"] == 1,
+          launches=counts)
+
+
+def train_qwen2(torch, dev) -> None:
+    """qwen2-1.5b at full width and depth, bf16, chunked attention,
+    remat "full", AdamW: step 1's gradient against float32; 4 timed steps
+    on 2 x 4096 SyntheticLM tokens (flash and SSD launches counted from 0
+    before them: 0 expected), a fifth and sixth under the profiler; then
+    the trained weights served through ``Model.prefill`` on the flash
+    kernel (1 x 4096: 28 launches, each held against the plain version,
+    the logits by phase 5's criterion)."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    cfg = configs.get("qwen2-1.5b")
+    tag = cfg.name
+    model = Model(cfg, dev, remat="full")
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    params.requires_grad_(True)
+    n_params = sum(p.numel() for p in params.parameters())
+    batches = [synthetic_batch(torch, dev, cfg, 2, 4096, s)
+               for s in range(5)]
+    emit(phase="train", model=tag, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, dtype=cfg.dtype, attention=cfg.attention_impl,
+         remat=model.remat, batch=[2, 4096], optimizer="adamw")
+    _, grads = step_against_float32(torch, tag, model, params, batches[0])
+    del grads
+    torch.cuda.empty_cache()
+
+    opt_cfg = optim.OptimizerConfig()
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg),
+             "step": 0}
+    step_fn = optim.make_train_step(model, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for i in range(4):
+        (_, m), ms = timed(torch, lambda: step_fn(state, batches[i]))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check("train", f"{tag}_4_steps_finite_and_no_kernel_launch",
+          all(math.isfinite(v) for v in losses)
+          and counts["flash_attention"] == 0 and counts["ssd_scan"] == 0,
+          losses=losses, launches=counts)
+    step_ms = statistics.median(times[1:])
+    tokens = 2 * 4096
+    emit(phase="train", model=tag, card=card_line(),
+         ms_per_step_median_2_4=step_ms, ms_per_step_all=times,
+         tokens_per_s=tokens / step_ms * 1e3,
+         max_memory_allocated_bytes=peak,
+         model_flops_share=6 * n_params * tokens
+         / (step_ms / 1e3 * card().peak_bf16_flops),
+         model_flops_per_step=6 * n_params * tokens)
+    emit(phase="train", model=tag, what="train_step", **device_time(
+        torch, lambda: step_fn(state, batches[4]), step_ms, TRAIN_KINDS))
+    del state["opt"], state, step_fn, batches
+    torch.cuda.empty_cache()
+    train_then_serve(torch, dev, model, params)
+
+
+def train_then_serve(torch, dev, model, params) -> None:
+    """The trained weights through ``Model.prefill`` on the flash kernel."""
+    from repro_torch import device as tdevice
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(model.cfg, attention_impl="flash")
+    tag = f"{cfg.name}_trained"
+    serving = Model(cfg, dev)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(SEED + 22)
+                                       .integers(0, cfg.vocab_size,
+                                                 (1, 4096)), device=dev)}
+    with tdevice.full_float32():
+        calls: list = []
+        with checked_kernel(torch, calls, "flash_attention"):
+            serving.prefill(params, batch, 4096)
+        torch.cuda.synchronize()
+        agree = [c[2] for c in calls]
+        check("train", f"{tag}_every_prefill_call_agrees_with_plain",
+              len(calls) == cfg.n_layers and all(a[0] for a in agree),
+              calls=len(calls), max_abs_err=max(a[1] for a in agree),
+              max_share_of_tolerance=max(a[2] for a in agree))
+        del calls
+        ops.reset_launch_counts()
+        (logits, _), ms = timed(torch, lambda: serving.prefill(
+            params, batch, 4096))
+        launches = ops.launch_counts()["flash_attention"]
+        check("train", f"{tag}_prefill_launches_{cfg.n_layers}",
+              launches == cfg.n_layers, launches=launches, prefill_ms=ms)
+        with plain_ops():
+            plain, _ = serving.prefill(params, batch, 4096)
+        agreement = logits_agreement(torch, logits, plain, float32_logits(
+            torch, serving, params, batch, 4096))
+        check("train", f"{tag}_prefill_logits_match_plain_path",
+              agreement.pop("ok"), shape=list(logits.shape), **agreement)
+
+
+def train_remat(torch, dev) -> None:
+    """qwen2-1.5b at full width and 4 of its 28 layers, 2 x 4096: the
+    gradients under remat "none", "full" and "dots" equal
+    (``torch.equal``) under ``torch.use_deterministic_algorithms(True)``,
+    set for this check only (cuBLAS needs CUBLAS_WORKSPACE_CONFIG, set at
+    the top of the script); each policy's ms (the second of two runs)
+    and peak memory."""
+    from repro_torch import configs, optim
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), n_layers=4)
+    emit(phase="train", model=cfg.name, reduced="n_layers 28 -> 4",
+         what="remat")
+    params = Model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED + 23))
+    params.requires_grad_(True)
+    batch = synthetic_batch(torch, dev, cfg, 2, 4096)
+    out, stats = {}, {}
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in ("none", "full", "dots"):
+            model = Model(cfg, dev, remat=remat)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # the second of two runs is timed (the first warms up)
+            runs = [timed(torch, lambda: optim.value_and_grad(
+                model.loss, params, batch)) for _ in range(2)]
+            out[remat] = runs[-1][0]
+            stats[remat] = dict(ms=runs[-1][1], first_ms=runs[0][1],
+                                peak_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    loss0, g0 = out["none"]
+    for remat in ("full", "dots"):
+        loss, g = out[remat]
+        differ = [n for n in g0 if not torch.equal(g[n], g0[n])]
+        check("train", f"remat_{remat}_gradients_equal_none",
+              torch.equal(loss, loss0) and not differ, leaves=len(g0),
+              differing=differ[:8], loss=float(loss))
+    emit(phase="train", model=cfg.name, what="remat_cost", **stats)
+
+
+def train_lm100m(torch, dev) -> None:
+    """lm100m at full width and depth (12 x 768, float32, naive
+    attention) through ``launch/train.py``: 60 steps (the JAX launcher
+    test's lr 5e-3, warm-up 5: the mean of the last 5 losses below 0.9x
+    the first 5'), resume equivalence (6 steps against 3 + restore + 3,
+    under deterministic algorithms, the JAX resume test's tolerances),
+    int8 error feedback (the last loss below the first), the ms of a
+    step, and step 1 in float32 against the port on the CPU."""
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs, convert, optim
+    from repro_torch import device as tdevice
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import Model
+    args = ["--arch", "lm100m", "--preset", "full", "--seq-len", "256",
+            "--global-batch", "8", "--lr", "5e-3", "--warmup", "5",
+            "--log-every", "20"]
+    cfg = configs.get("lm100m")
+
+    def run(*extra):
+        with tempfile.NamedTemporaryFile(suffix=".json") as f:
+            rc, ms = timed(torch, lambda: train_mod.main(
+                args + ["--metrics-out", f.name] + list(extra)))
+            return rc, [m["loss"] for m in json.load(open(f.name))], ms
+
+    rc, losses, ms = run("--steps", "60")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check("train", "lm100m_60_steps_loss_decreases",
+          rc == 0 and last < 0.9 * first, first5=float(first),
+          last5=float(last), losses=losses[::10], wall_ms=ms)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, res_dir = f"{tmp}/full", f"{tmp}/resumed"
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            _, full, _ = run("--steps", "6", "--ckpt-dir", full_dir)
+            run("--steps", "3", "--ckpt-dir", res_dir)
+            _, resumed, _ = run("--steps", "6", "--ckpt-dir", res_dir)
+        finally:
+            torch.use_deterministic_algorithms(prev)
+        meta = Model(cfg, "meta").empty_params()
+        skel = convert.train_state_to_tree(cfg, {
+            "params": meta, "step": 0, "opt": optim.init_opt_state(
+                meta, optim.OptimizerConfig())}, "meta")
+        a, step_a, _ = ckpt.restore(full_dir, skel)
+        b, step_b, _ = ckpt.restore(res_dir, skel)
+        leaves_a = ckpt._flatten(a["params"])
+        leaves_b = ckpt._flatten(b["params"])
+        worst = max(((leaves_b[n] - t).abs()
+                     - 2e-5 * t.abs()).max().item()
+                    for n, t in leaves_a.items())
+        equal = all(torch.equal(leaves_b[n], t) for n, t in leaves_a.items())
+        check("train", "lm100m_resume_equals_uninterrupted",
+              step_a == step_b == 6 and len(resumed) == 3
+              and abs(full[-1] - resumed[-1]) < 1e-5 and worst <= 2e-6,
+              loss_full=full[-1], loss_resumed=resumed[-1],
+              params_bit_equal=equal, worst_excess_over_rtol=worst)
+
+    rc, losses, _ = run("--steps", "30", "--grad-compression", "int8_ef")
+    check("train", "lm100m_int8_ef_loss_decreases",
+          rc == 0 and losses[-1] < losses[0], first=losses[0],
+          last=losses[-1])
+
+    model = Model(cfg, dev)
+    opt_cfg = optim.OptimizerConfig(lr=5e-3, warmup_steps=5)
+    state = optim.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(SEED), opt_cfg)
+    step_fn = optim.make_train_step(model, opt_cfg)
+    batch = synthetic_batch(torch, dev, cfg, 8, 256)
+    times = [timed(torch, lambda: step_fn(state, batch))[1]
+             for _ in range(6)]
+    emit(phase="train", model=cfg.name, batch=[8, 256], card=card_line(),
+         ms_per_step_median=statistics.median(times[1:]),
+         ms_per_step_all=times)
+    del state, step_fn
+
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 24))
+    params.requires_grad_(True)
+    batch = synthetic_batch(torch, dev, cfg, 2, 256, 1)
+    with tdevice.full_float32():
+        loss, grads = optim.value_and_grad(model.loss, params, batch)
+    cpu = Model(cfg, "cpu")
+    cpu_params = cpu.empty_params()
+    cpu_params.load_state_dict(params.state_dict())
+    cpu_params.requires_grad_(True)
+    (loss_c, grads_c), cpu_ms = timed(torch, lambda: optim.value_and_grad(
+        cpu.loss, cpu_params, {k: v.cpu() for k, v in batch.items()}))
+    whole = max(g.abs().max().item() for g in grads_c.values())
+    worst, worst_leaf = 0.0, None
+    for n, gc in grads_c.items():
+        share = ((grads[n].cpu() - gc).abs().max().item()
+                 / (LEAF_RTOL * gc.abs().max().item() + WHOLE_RTOL * whole))
+        if share > worst:
+            worst, worst_leaf = share, n
+    loss, loss_c = float(loss), float(loss_c)
+    check("train", "lm100m_float32_step1_matches_the_cpu",
+          abs(loss - loss_c) <= CPU_LOSS_RTOL * abs(loss_c) and worst <= 1,
+          loss=loss, loss_cpu=loss_c, max_share_of_tolerance=worst,
+          worst_leaf=worst_leaf, cpu_ms=cpu_ms)
+
+
+def train_mamba2(torch, dev) -> None:
+    """mamba2-2.7b at full width and 4 of its 64 layers, 1 x 2048, B/C
+    convs from the seed: the bf16 gradient against float32, no
+    ``ssd_scan`` launch in the gradients or the AdamW step, and the
+    serving prefill afterwards launching it once a layer."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.get("mamba2-2.7b"), n_layers=4)
+    tag = cfg.name
+    emit(phase="train", model=tag, reduced="n_layers 64 -> 4",
+         batch=[1, 2048])
+    model = Model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 25))
+    fill_conv_bc(torch, params)
+    params.requires_grad_(True)
+    batch = synthetic_batch(torch, dev, cfg, 1, 2048)
+    ops.reset_launch_counts()
+    loss, grads = step_against_float32(torch, tag, model, params, batch)
+    opt_cfg = optim.OptimizerConfig()
+    opt_state = optim.init_opt_state(params, opt_cfg)
+    _, ms = timed(torch, lambda: optim.apply_update(
+        params, grads, opt_state, 0, opt_cfg))
+    del grads, opt_state
+    training = ops.launch_counts()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        model.prefill(params, {"tokens": batch["tokens"]}, 2048)
+    torch.cuda.synchronize()
+    serving = ops.launch_counts()
+    check("train", f"{tag}_trains_off_the_kernel_and_serves_on_it",
+          training["ssd_scan"] == 0 and serving["ssd_scan"] == cfg.n_layers
+          and all(math.isfinite(p.float().sum().item())
+                  for p in params.parameters()), training=training,
+          serving=serving, update_ms=ms, loss=loss)
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_families(torch, dev) -> None:
+    """One AdamW step each at full width: granite-moe-1b-a400m (4 of 24
+    layers, 1 x 2048 tokens), qwen2-vl-2b (4 of 28, 1 x 2048 embeddings on
+    M-RoPE ids of text and an image), whisper-large-v3 (4 + 4 layers,
+    1500 frames, 448 tokens).  The loss finite, and every leaf's
+    gradient nonzero except the key biases, whose true gradient is 0
+    (softmax ignores a per-query shift)."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    rng = np.random.default_rng(SEED + 26)
+    for name, extra, seq in (("granite-moe-1b-a400m", {}, 2048),
+                             ("qwen2-vl-2b", {}, 2048),
+                             ("whisper-large-v3", {"encoder_layers": 4},
+                              448)):
+        full = configs.get(name)
+        cfg = dataclasses.replace(full, n_layers=4, **extra)
+        emit(phase="train", model=name, reduced=f"n_layers {full.n_layers}"
+             f" -> 4" + (f", encoder_layers {full.encoder_layers} -> 4"
+                         if extra else ""), seq=seq)
+        model = Model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            SEED + 27))
+        params.requires_grad_(True)
+        batch = {"labels": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, seq)), device=dev)}
+        if cfg.input_embeds and cfg.family != "encdec":
+            batch["embeds"] = torch.randn((1, seq, cfg.d_model), device=dev,
+                                          dtype=model.dtype)
+        else:
+            batch["tokens"] = torch.as_tensor(
+                rng.integers(0, cfg.vocab_size, (1, seq)), device=dev)
+        if cfg.mrope:
+            batch["positions"] = mrope_positions(torch, dev, 1, seq,
+                                                 grid=(24, 32))
+        if cfg.family == "encdec":
+            batch["audio_embeds"] = torch.randn(
+                (1, cfg.encoder_seq, cfg.d_model), device=dev,
+                dtype=model.dtype)
+        opt_cfg = optim.OptimizerConfig()
+        ops.reset_launch_counts()
+        (loss, grads), ms = timed(torch, lambda: optim.value_and_grad(
+            model.loss, params, batch))
+        state = optim.init_opt_state(params, opt_cfg)
+        optim.apply_update(params, grads, state, 0, opt_cfg)
+        zero = [n for n, g in grads.items()
+                if not n.endswith(".bk") and not bool(g.any())]
+        key_bias = {n: g.abs().max().item() for n, g in grads.items()
+                    if n.endswith(".bk")}
+        counts = ops.launch_counts()
+        check("train", f"{name}_one_step_every_gradient_nonzero",
+              math.isfinite(float(loss)) and not zero
+              and all(math.isfinite(p.float().sum().item())
+                      for p in params.parameters())
+              and counts["flash_attention"] == 0, loss=float(loss),
+              leaves=len(grads), zero_leaves=zero[:8], grad_ms=ms,
+              key_bias_max_abs=max(key_bias.values(), default=None),
+              launches=counts)
+        del model, params, grads, state
+        torch.cuda.empty_cache()
+
+
+def phase_train(torch, dev, records):
+    """Training on the card (this phase launches no kernel of the
+    record: training refuses both float kernels, as ``jax.grad`` does
+    the JAX package's; the train -> serve prefill launches flash)."""
+    emit(phase="train", card=card_line())
+    for part in (train_guards, train_qwen2, train_remat, train_lm100m,
+                 train_mamba2, train_families):
+        t0 = time.perf_counter()
+        with guarded("train"):
+            part(torch, dev)
+        emit(phase="train", part=part.__name__,
+             seconds=round(time.perf_counter() - t0, 3))
+        torch.cuda.empty_cache()
+
+
 SOURCES = {
     "qgemm": ("src/repro_torch/csrc/qgemm.cu",
               "src/repro/kernels/qgemm.py:60"),
@@ -3207,7 +3736,8 @@ def main() -> int:
                       ("mobilenet", phase_mobilenet), ("paths", phase_paths),
                       ("flow", phase_flow), ("resilience", phase_resilience),
                       ("lm", phase_lm),
-                      ("ssm", phase_ssm), ("families", phase_families)):
+                      ("ssm", phase_ssm), ("families", phase_families),
+                      ("train", phase_train)):
         t0 = time.perf_counter()
         with guarded(phase):
             if phase == "kernels":

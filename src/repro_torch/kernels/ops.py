@@ -17,7 +17,11 @@ Merges and standalone pools are plain torch ops on either device, as
 they were plain array ops in the JAX package.  :func:`flash_attention`,
 the LM layers' ``flash`` attention, launches ``csrc/flash_attention.cu``
 on a CUDA tensor the same way, and :func:`ssd_scan`, every Mamba-2
-layer's scan, launches ``csrc/ssd_scan.cu``.
+layer's scan, launches ``csrc/ssd_scan.cu``.  Neither has a backward, as
+the JAX package's Pallas kernels have none (``jax.grad`` through them
+fails): both refuse, on every device, inputs that require grad while
+grad mode is on, so that no training step silently drops the gradient
+of what lies upstream of them.
 
 Conv pads are zero (the symmetric quantization zero-point) and applied
 here; max-pool pads take INT8_MIN.
@@ -96,13 +100,26 @@ def qgemm(x, w, b=None, *, shift, relu: bool = False,
                         w_k=w_k)
 
 
+def _no_backward(name: str, *operands) -> None:
+    """Raise when autograd would record through kernel ``name``."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the JAX package's Pallas "
+            f"kernel): its inputs require grad.  Train with "
+            f"attention_impl='chunked' or 'naive'; Model.loss runs the "
+            f"SSD scan's plain version itself")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """GQA flash attention: q (B, H, Sq, D), k/v (B, HKV, Skv, D); the
     scores are scaled by ``scale`` (default D ** -0.5).  A CUDA tensor
     launches the kernel, a CPU tensor runs the plain version
-    (:mod:`.flash_attention`)."""
+    (:mod:`.flash_attention`).  Raises ``RuntimeError`` for inputs that
+    require grad while grad mode is on: there is no backward."""
+    _no_backward("flash_attention", q, k, v)
     _record("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, scale=scale)
@@ -114,7 +131,9 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
     """Mamba-2 chunked SSD scan: x (B, L, H, P), dt (B, L, H), a (H,),
     b/c (B, L, G, N); y, and the final state with ``return_state``.  A
     CUDA tensor launches the kernel, a CPU tensor runs the plain version
-    (:mod:`.ssd_scan`)."""
+    (:mod:`.ssd_scan`).  Raises ``RuntimeError`` for inputs that require
+    grad while grad mode is on: there is no backward."""
+    _no_backward("ssd_scan", x, dt, a, b, c, d, init_state)
     _record("ssd_scan", x, dt, a, b, c, d, init_state)
     return _ssd.ssd_scan(x, dt, a, b, c, d, chunk=chunk,
                          init_state=init_state, return_state=return_state)

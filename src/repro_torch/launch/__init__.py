@@ -1,1 +1,2 @@
-"""Entry points: the LM serving loop."""
+"""Entry points: the LM serving loop, the training driver, the paper's
+verifier and autotune, and the stage-timed profile."""

@@ -5,7 +5,8 @@ The counterpart of ``repro.models.layers``.  Parameters live in small
 :class:`MoE`) whose attribute names are the JAX package's parameter
 keys, so a parameter tree converts key for key; the math is in free
 functions with the JAX package's names, taking those modules.
-Parameters do not require grad: this is the serving path.
+Parameters are created not requiring grad, for serving;
+``optim.init_train_state`` makes them trainable.
 """
 from __future__ import annotations
 

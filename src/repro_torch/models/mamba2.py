@@ -3,7 +3,9 @@
 The counterpart of ``repro.models.mamba2``.  Prefill and decode both go
 through :func:`ssd_chunked`, which calls ``ops.ssd_scan``: the
 hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
-tensor.  Decode (L = 1) keeps the (H, P, N) float32 SSM state and the
+tensor.  The kernel has no backward (nor has the JAX package's), so the
+training loss passes ``train=True`` and the scan runs the plain version,
+the JAX package's jnp ``ssd_chunked`` arithmetic, under autograd.  Decode (L = 1) keeps the (H, P, N) float32 SSM state and the
 (K-1)-deep causal conv states: constant memory per sequence.
 
 Weights are stored per component (z / x / B / C / dt) under the JAX
@@ -19,6 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from . import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -98,10 +101,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int,
-                init_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                init_state: Optional[torch.Tensor] = None,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD: x (B,L,H,P) dt (B,L,H) a (H,) b/c (B,L,G,N) ->
-    (y in x's dtype, final float32 state), through ``ops.ssd_scan``."""
+    (y in x's dtype, final float32 state), through ``ops.ssd_scan``; with
+    ``train``, through its plain version on any device, which autograd
+    differentiates."""
+    if train:
+        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk,
+                              init_state=init_state, return_state=True)
     return ops.ssd_scan(x.contiguous(), dt.contiguous(), a, b.contiguous(),
                         c.contiguous(), None, chunk=chunk,
                         init_state=init_state, return_state=True)
@@ -109,9 +117,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def mamba2_forward(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
                    init_state: Optional[State] = None,
-                   return_state: bool = False):
+                   return_state: bool = False, train: bool = False):
     """Full block: proj -> causal conv -> SSD -> gated norm -> out_proj.
-    u: (B, L, D).  Returns y, and the new state when requested."""
+    u: (B, L, D).  Returns y, and the new state when requested.
+    ``train`` picks the SSD scan's differentiable plain version."""
     bsz, length, _ = u.shape
     nh, hp = cfg.ssm_nheads, cfg.ssm_headdim
     g, ns = cfg.ssm_ngroups, cfg.ssm_state
@@ -134,7 +143,7 @@ def mamba2_forward(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
     xh = x.reshape(bsz, length, nh, hp)
     y, s_fin = ssd_chunked(xh, dt, a, bmat.reshape(bsz, length, g, ns),
                            cmat.reshape(bsz, length, g, ns), cfg.ssm_chunk,
-                           st.get("ssm"))
+                           st.get("ssm"), train)
     y = y + p.d_skip[None, None, :, None] * xh.float()
     y = y.reshape(bsz, length, cfg.d_inner).to(u.dtype)
 

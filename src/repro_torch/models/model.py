@@ -2,6 +2,7 @@
 
     model = Model(cfg)                         # on CUDA; device="cpu" asks for the CPU
     params = model.init(torch.Generator(model.device).manual_seed(0))
+    loss = model.loss(params, batch)           # train (autograd)
     logits = model.forward(params, batch)
     logits, cache = model.prefill(params, batch, cache_len)
     logits, cache = model.decode_step(params, batch, cache)
@@ -12,11 +13,19 @@ The counterpart of ``repro.models.model.Model`` for every family:
 Batches are dicts: ``tokens`` (B, S), or ``embeds`` (B, S, D) for a
 model with ``input_embeds``, with ``positions`` optional ((3, B, S) with
 M-RoPE) and ``audio_embeds`` (B, encoder_seq, D) for an encoder-decoder,
-for forward and prefill; ``tokens`` (B, 1) or ``embeds`` (B, 1, D) and
+for forward and prefill, plus ``labels`` (B, S) for the loss (negative
+labels are masked out); ``tokens`` (B, 1) or ``embeds`` (B, 1, D) and
 ``lengths`` (B,) or a scalar (the current cache fill) for decode.
 ``decode_step`` writes into the cache it is given (see
-:mod:`.transformer`).  The training loss and the dry-run input specs are
-not ported yet.
+:mod:`.transformer`).
+
+``loss`` is the only entry point that records autograd: ``forward``,
+``prefill`` and ``decode_step`` serve under ``torch.no_grad``.  It runs
+the stacks under ``Model(remat=...)`` and sends every mamba layer's scan
+through its plain version, since the SSD kernel, like the flash kernel,
+has no backward (``ops`` refuses them a gradient).  ``input_specs``
+gives ``meta`` tensors of an input shape cell's batch, the counterpart
+of the JAX package's ``ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch import device as tdevice
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from . import layers as L
 from . import mamba2 as M
 from . import transformer as T
@@ -67,10 +76,12 @@ class LMParams(nn.Module):
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, device: tdevice.DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, device: tdevice.DeviceLike = None,
+                 *, remat: str = "none"):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
+        self.remat = remat
         self.device = tdevice.resolve(device)
         self.dtype = L.dtype_of(cfg)
         self.padded_vocab = _vocab_pad(cfg.vocab_size)
@@ -168,33 +179,66 @@ class Model:
         return base[None].expand(3, bsz, seq) if self.cfg.mrope else base
 
     def _encode(self, params: LMParams, batch: Dict[str, Any],
-                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                x: torch.Tensor, remat: str = "none"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """An encoder-decoder's encoder output, and x with the decoder
         positions added."""
         enc = torch.as_tensor(batch["audio_embeds"],
                               device=self.device).to(x.dtype)
-        enc_out = T.encoder_forward(self.cfg, params.stack, enc)
+        enc_out = T.encoder_forward(self.cfg, params.stack, enc, remat)
         return enc_out, x + self._dec_pos(params, x.shape[1])[None]
 
     # ------------------------------------------------------------ forward
+    def _forward(self, params: LMParams, batch: Dict[str, Any],
+                 train: bool) -> Tuple[torch.Tensor, Any]:
+        """(logits of every position, the stack's summed MoE aux loss or
+        0.0), recording autograd where grad mode is on.  ``train`` runs
+        the stacks under ``self.remat`` and the mamba scans on their
+        plain version."""
+        cfg = self.cfg
+        remat = self.remat if train else "none"
+        x = self._embed(params, batch)
+        positions = self._positions(batch, x.shape[1], x.shape[0])
+        aux = 0.0
+        if cfg.family == "encdec":
+            enc_out, x = self._encode(params, batch, x, remat)
+            x = T.decoder_forward_encdec(cfg, params.stack, x, positions,
+                                         enc_out, remat)
+        elif cfg.family == "hybrid":
+            x = T.hybrid_forward(cfg, params.stack, x, positions, remat,
+                                 train)
+        else:
+            x, aux = T.stack_forward(cfg, params.stack, x, positions, remat,
+                                     train)
+        return self._logits(params, x), aux
+
     @torch.no_grad()
     def forward(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
         """Logits of every position.  A stack's summed MoE aux loss (0.0
         without experts) is kept as ``_last_aux``, as the JAX package's
-        ``forward`` keeps it for the training loss."""
-        cfg = self.cfg
-        x = self._embed(params, batch)
-        positions = self._positions(batch, x.shape[1], x.shape[0])
-        if cfg.family == "encdec":
-            enc_out, x = self._encode(params, batch, x)
-            x = T.decoder_forward_encdec(cfg, params.stack, x, positions,
-                                         enc_out)
-        elif cfg.family == "hybrid":
-            x = T.hybrid_forward(cfg, params.stack, x, positions)
-        else:
-            x, self._last_aux = T.stack_forward(cfg, params.stack, x,
-                                                positions)
-        return self._logits(params, x)
+        ``forward`` keeps it."""
+        logits, aux = self._forward(params, batch, train=False)
+        if self.cfg.family not in ("encdec", "hybrid"):
+            self._last_aux = aux
+        return logits
+
+    def loss(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
+        """Mean next-token cross entropy over the labels >= 0, as the JAX
+        package computes it: float32 logits, logsumexp minus the picked
+        logit, masked, divided by max(count, 1); a MoE model adds 0.01 *
+        its summed aux loss / n_layers.  A float32 0-d tensor, with an
+        autograd graph to the parameters that require grad."""
+        logits, aux = self._forward(params, batch, train=True)
+        logits = logits.float()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        loss = (torch.sum((lse - picked) * mask)
+                / torch.clamp(torch.sum(mask), min=1.0))
+        if self.cfg.family == "moe":
+            loss = loss + 0.01 * aux / max(self.cfg.n_layers, 1)
+        return loss
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int) -> T.Cache:
@@ -273,3 +317,43 @@ class Model:
             x, cache = T.stack_decode(self.cfg, params.stack, x, cache,
                                       lengths)
         return self._logits(params, x), cache
+
+    # --------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeConfig,
+                    batch_override: Optional[int] = None) -> Dict[str, Any]:
+        """``meta`` tensors of one shape cell's batch (no allocation), as
+        the JAX package's ``ShapeDtypeStruct`` stand-ins: a ``train``
+        cell's tokens or embeds and labels, a ``prefill`` cell's inputs,
+        a ``decode`` cell's one token, ``lengths`` and the cache of
+        ``init_cache(batch, seq_len)``.  VLM and audio cells take
+        precomputed embeddings; M-RoPE adds ``positions``."""
+        cfg = self.cfg
+        b = batch_override or shape.global_batch
+        s = shape.seq_len
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        i32, dt = torch.int32, self.dtype
+        if shape.kind in ("train", "prefill"):
+            batch: Dict[str, Any] = {}
+            if cfg.input_embeds:
+                batch["embeds"] = meta((b, s, cfg.d_model), dt)
+            else:
+                batch["tokens"] = meta((b, s), i32)
+            if shape.kind == "train":
+                batch["labels"] = meta((b, s), i32)
+            if cfg.mrope:
+                batch["positions"] = meta((3, b, s), i32)
+            if cfg.family == "encdec":
+                batch["audio_embeds"] = meta((b, cfg.encoder_seq,
+                                              cfg.d_model), dt)
+            return batch
+        batch = {"lengths": meta((b,), i32)}
+        if cfg.input_embeds:
+            batch["embeds"] = meta((b, 1, cfg.d_model), dt)
+        else:
+            batch["tokens"] = meta((b, 1), i32)
+        if cfg.mrope:   # the JAX package's decode cell: (B, 1)
+            batch["positions"] = meta((b, 1), i32)
+        batch["cache"] = Model(cfg, "meta").init_cache(b, s)
+        return batch

@@ -17,14 +17,24 @@ tracks the valid entries, and a decode step writes at position
 step writes into the cache it is given and returns that same cache: a
 copy of a 28-layer cache per token would double the step's memory
 traffic.
+
+The full-sequence stacks the training loss runs (``stack_forward``,
+``hybrid_forward``, ``encoder_forward``, ``decoder_forward_encdec``) take
+``remat``, wrapped once around each layer as the JAX package's
+``_maybe_remat`` wraps its scan body: ``"full"`` recomputes the layer in
+the backward pass, ``"dots"`` keeps only the outputs of its 2-D matrix
+products.  ``train`` sends a mamba layer's SSD scan through its plain
+version under autograd (see :func:`.mamba2.ssd_chunked`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
@@ -154,12 +164,14 @@ def mlp_block(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor):
 
 
 def decoder_layer_full(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
-                       positions: torch.Tensor, q_offset: int = 0):
+                       positions: torch.Tensor, q_offset: int = 0,
+                       train: bool = False):
     """Full-sequence pass of one layer.  Returns (x, (k, v), aux), or
     (x, None, 0.0) for a mamba layer."""
     if cfg.family in MAMBA_FAMILIES:
         h = L.apply_norm(cfg, p.norm1, x)
-        return x + M.mamba2_forward(cfg, p.mamba, h), None, 0.0
+        return (x + M.mamba2_forward(cfg, p.mamba, h, train=train), None,
+                0.0)
     x, kv = attn_block_full(cfg, p, x, positions, q_offset)
     x, aux = mlp_block(cfg, p, x)
     return x, kv, aux
@@ -189,6 +201,35 @@ def decoder_layer_decode(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
     return x, {"k": kc, "v": vc}, aux
 
 
+# ------------------------------------------------------------------ remat
+
+#: The 2-D matrix products whose outputs ``"dots"`` keeps: what
+#: ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` saves
+#: (a batched product, ``bmm``, is recomputed).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the remat policy ``remat``: ``"none"``, ``"full"``
+    (everything recomputed in the backward pass) or ``"dots"`` (the 2-D
+    products' outputs kept, the rest recomputed)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 # ----------------------------------------------------------------- stacks
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
@@ -205,13 +246,19 @@ def empty_stack(cfg: ModelConfig, n_layers: int,
 
 
 def stack_forward(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
-                  positions: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+                  positions: torch.Tensor, remat: str = "none",
+                  train: bool = False) -> Tuple[torch.Tensor, Any]:
     """Full-sequence pass over all layers.  Returns (x, the sum of the
     layers' aux losses): a float32 scalar tensor, or 0.0 without
     experts."""
+    def body(p, h):
+        h, _kv, aux = decoder_layer_full(cfg, p, h, positions, train=train)
+        return h, aux
+
+    body = _maybe_remat(body, remat)
     total = 0.0
     for p in stack:
-        x, _kv, aux = decoder_layer_full(cfg, p, x, positions)
+        x, aux = body(p, x)
         total = total + aux
     return x, total
 
@@ -296,10 +343,14 @@ def _group(cfg: ModelConfig, p: HybridStack, gi: int) -> nn.ModuleList:
 
 
 def hybrid_forward(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, remat: str = "none",
+                   train: bool = False) -> torch.Tensor:
+    """The mamba groups under ``remat``, one wrap a layer; the shared
+    block unwrapped, as in the JAX package."""
     dense_cfg = _as_dense(cfg)
     for gi in range(hybrid_groups(cfg)[0]):
-        x, _aux = stack_forward(cfg, _group(cfg, p, gi), x, positions)
+        x, _aux = stack_forward(cfg, _group(cfg, p, gi), x, positions,
+                                remat, train)
         x, _kv, _aux = decoder_layer_full(dense_cfg, p.shared_attn, x,
                                           positions)
     return x
@@ -411,15 +462,20 @@ def empty_encdec(cfg: ModelConfig, device=None) -> EncDecStack:
         L.Norm(cfg, cfg.d_model, device))
 
 
-def encoder_forward(cfg: ModelConfig, p: EncDecStack,
-                    x: torch.Tensor) -> torch.Tensor:
+def encoder_forward(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
+                    remat: str = "none") -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings x (B, Se,
     D), positions 0..Se-1."""
     positions = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[:2])
+
+    def body(layer, h):
+        h, _kv = attn_block_full(cfg, layer, h, positions, causal=False)
+        return mlp_block(cfg, layer, h)[0]
+
+    body = _maybe_remat(body, remat)
     for layer in p.encoder:
-        x, _kv = attn_block_full(cfg, layer, x, positions, causal=False)
-        x, _aux = mlp_block(cfg, layer, x)
+        x = body(layer, x)
     return L.apply_norm(cfg, p.enc_norm, x)
 
 
@@ -456,13 +512,21 @@ def encoder_kv(cfg: ModelConfig, decoder: nn.ModuleList,
 
 
 def decoder_forward_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
-                           positions: torch.Tensor,
-                           enc_out: torch.Tensor) -> torch.Tensor:
+                           positions: torch.Tensor, enc_out: torch.Tensor,
+                           remat: str = "none") -> torch.Tensor:
+    """The decoder over the encoder's output: the cross K/V of every
+    layer first, then each layer (self-attention, cross-attention, MLP)
+    under ``remat``."""
     xk, xv = encoder_kv(cfg, p.decoder, enc_out)
+
+    def body(layer, h, ek, ev):
+        h, _kv = attn_block_full(cfg, layer, h, positions)
+        h = cross_attention(cfg, layer, h, (ek, ev))
+        return mlp_block(cfg, layer, h)[0]
+
+    body = _maybe_remat(body, remat)
     for i, layer in enumerate(p.decoder):
-        x, _kv = attn_block_full(cfg, layer, x, positions)
-        x = cross_attention(cfg, layer, x, (xk[i], xv[i]))
-        x, _aux = mlp_block(cfg, layer, x)
+        x = body(layer, x, xk[i], xv[i])
     return x
 
 

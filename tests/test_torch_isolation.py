@@ -52,7 +52,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert {"repro_torch.kernels.ssd_scan",
             "repro_torch.models.mamba2", "repro_torch.core.faults",
             "repro_torch.core.guard", "repro_torch.core.ser",
-            "repro_torch.launch.profile"} <= set(names)
+            "repro_torch.launch.profile", "repro_torch.optim",
+            "repro_torch.checkpoint", "repro_torch.data.pipeline",
+            "repro_torch.distributed",
+            "repro_torch.launch.train"} <= set(names)
 
 
 _FORBIDDEN = re.compile(
