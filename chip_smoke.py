@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, each printing one JSON line per check:
+Eleven phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -170,7 +170,25 @@ Ten phases, each printing one JSON line per check:
    1 x 2048) against float32 with no ``ssd_scan`` launch, its serving
    prefill then launching it once a layer; one step each of
    granite-moe (4 layers), qwen2-vl (4) and whisper (4 + 4), every
-   gradient leaf nonzero but the key biases.
+   gradient leaf nonzero but the key biases;
+9. dist, the distribution layer.  On an NCCL world of one rank, a 1 x 1
+   ``("data", "model")`` mesh and a ``ShardingPolicy``: qwen2-1.5b
+   (flash, bf16, full width and depth) prefills 2 x 4096 tokens with its
+   weights distributed by the policy, launching flash 28 times on each
+   rank's local heads (every call held against the plain version) and
+   giving the unsharded run's logits bit for bit; mamba2-2.7b the same
+   with 64 ``ssd_scan`` launches; one qwen2-1.5b train step (remat
+   "full", AdamW with a ZeRO-1 state) equal to the unsharded step in
+   loss and every weight under deterministic algorithms;
+   ``compressed_psum`` (its int32 and float32 all-reduces, equal to the
+   dequantized input).  Then two gloo ranks on the one card
+   (``torch.multiprocessing``): flash-decoding over a 4096-token cache
+   split in two against ``decode_attention`` within 1e-5, with no
+   window, h2o's 4096 and a 1000 window, and ``compressed_psum`` of
+   distinct shards.  Last, the dry run on a fake process world, on the
+   host: qwen2-1.5b train_4k on the 16 x 16 and the 2 x 16 x 16 mesh,
+   and the one-card cell of phase 8's step, its predicted step time and
+   peak memory beside the measured ones.
 
 Before the last line it prints the kernels' record (launches, error,
 times, bounds; for the dense conv, the GEMM, flash_attention and
@@ -219,6 +237,9 @@ SEED = 0
 TIME_REPS = 20
 
 FAILED: list = []
+#: measurements one phase hands to a later one (the dist phase's dry run
+#: is held against the train phase's measured step)
+MEASURED: dict = {}
 
 
 def card():
@@ -3382,6 +3403,7 @@ def train_qwen2(torch, dev) -> None:
           and counts["flash_attention"] == 0 and counts["ssd_scan"] == 0,
           losses=losses, launches=counts)
     step_ms = statistics.median(times[1:])
+    MEASURED["qwen2_train"] = (step_ms, peak)
     tokens = 2 * 4096
     emit(phase="train", model=tag, card=card_line(),
          ms_per_step_median_2_4=step_ms, ms_per_step_all=times,
@@ -3693,6 +3715,334 @@ def phase_train(torch, dev, records):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------- phase 9: distribution
+
+def launches_of(torch, run) -> tuple:
+    """(result, launch counts) of ``run()``, the counts set to 0 just
+    before it."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def dist_prefill(torch, dev, mesh, cfg, kernel, prepare=None) -> None:
+    """``Model.prefill`` of 2 x 4096 tokens at full width and depth, first
+    without a policy, then with the same weights distributed by a
+    ``ShardingPolicy`` over the one-rank NCCL mesh: the sharded run
+    launches ``kernel`` once a layer on each rank's local shards (each
+    call held against the plain version) and gives the unsharded logits
+    bit for bit."""
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import ShardingPolicy
+    tag = cfg.name
+    plain_model = Model(cfg, dev)
+    params = plain_model.init(torch.Generator(device=dev).manual_seed(SEED))
+    if prepare is not None:
+        prepare(params)
+    batch = {"tokens": synthetic_batch(torch, dev, cfg, 2, 4096)["tokens"]}
+    logits0, _ = plain_model.prefill(params, batch, 4096)
+    _, plain_ms = timed(torch, lambda: plain_model.prefill(params, batch,
+                                                           4096))
+    policy = ShardingPolicy(mesh, cfg)
+    model = Model(cfg, dev, policy=policy)
+    policy.param_shardings(params)
+    calls: list = []
+    with checked_kernel(torch, calls, kernel):
+        (logits1, cache), counts = launches_of(
+            torch, lambda: model.prefill(params, batch, 4096))
+    agree = [c[2] for c in calls]
+    check("dist", f"{tag}_policy_prefill_launches_{kernel}_{cfg.n_layers}",
+          counts[kernel] == cfg.n_layers == len(calls)
+          and all(a[0] for a in agree), launches=counts[kernel],
+          calls=len(calls), max_abs_err=max(a[1] for a in agree),
+          max_share_of_tolerance=max(a[2] for a in agree),
+          local_shapes=[list(c[0][0].shape) for c in calls[:1]])
+    full = logits1.full_tensor()
+    check("dist", f"{tag}_policy_prefill_logits_equal_unsharded",
+          torch.equal(full, logits0), placements=str(logits1.placements),
+          max_abs_err=(full.float() - logits0.float()).abs().max().item(),
+          cache_placements=str(next(iter(cache.values())).placements))
+    _, ms = timed(torch, lambda: model.prefill(params, batch, 4096))
+    emit(phase="dist", model=tag, card=card_line(), policy_prefill_ms=ms,
+         unsharded_prefill_ms=plain_ms)
+    del params, cache, logits0, logits1, full
+    torch.cuda.empty_cache()
+
+
+def dist_train(torch, dev, mesh) -> None:
+    """One qwen2-1.5b train step (bf16, remat "full", 2 x 4096) under the
+    policy with ZeRO-1 at data size 1, against the same step without a
+    policy, under deterministic algorithms: the loss and every updated
+    weight equal."""
+    from repro_torch import configs, optim
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import ShardingPolicy
+    cfg = configs.get("qwen2-1.5b")
+    opt_cfg = optim.OptimizerConfig()
+    batch = synthetic_batch(torch, dev, cfg, 2, 4096)
+    torch.use_deterministic_algorithms(True)
+    try:
+        model0 = Model(cfg, dev, remat="full")
+        params = model0.init(torch.Generator(device=dev).manual_seed(SEED))
+        start = {n: p.detach().clone() for n, p in params.named_parameters()}
+        params.requires_grad_(True)
+        state = {"params": params, "opt": optim.init_opt_state(params,
+                                                                opt_cfg),
+                 "step": 0}
+        (_, m0), ms0 = timed(torch, lambda: optim.make_train_step(
+            model0, opt_cfg)(state, batch))
+        loss0 = m0["loss"].clone()
+        del state["opt"], state
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                start[n], p.data = p.data, start[n]
+        after0 = start            # the unsharded step's weights
+        policy = ShardingPolicy(mesh, cfg)
+        model1 = Model(cfg, dev, remat="full", policy=policy)
+        policy.param_shardings(params)
+        state = {"params": params, "step": 0,
+                 "opt": optim.init_opt_state_sharded(params, opt_cfg,
+                                                     policy)}
+        (_, m1), ms1 = timed(torch, lambda: optim.make_train_step(
+            model1, opt_cfg)(state, batch))
+        loss1 = m1["loss"].full_tensor()
+        diff = {n: (p.to_local().float() - after0[n].float()).abs().max()
+                .item() for n, p in params.named_parameters()}
+        equal = all(torch.equal(p.to_local(), after0[n])
+                    for n, p in params.named_parameters())
+        check("dist", "qwen2-1.5b_policy_train_step_equals_unsharded",
+              torch.equal(loss0, loss1) and equal, loss=loss0.item(),
+              loss_policy=loss1.item(), weights_equal=equal,
+              max_weight_diff=max(diff.values()),
+              opt_placements=str(next(iter(state["opt"]["mu"].values()))
+                                 .placements),
+              step_ms=ms0, policy_step_ms=ms1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state, params, after0
+    torch.cuda.empty_cache()
+
+
+def dist_compressed_psum(torch, dev) -> None:
+    """``compressed_psum`` on the NCCL group: two NCCL all-reduces, the
+    first of the int32 payload (the profiler's ``nccl:all_reduce``
+    records; the dtypes from the calls themselves), and the value equals
+    the dequantized input (one rank's mean is its own reconstruction).
+    NCCL copies on a communicator of one rank instead of launching a
+    reduction kernel, so the device side shows no NCCL kernel here; the
+    two gloo ranks below reduce int32 across processes."""
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import (compressed_psum, dequantize_int8,
+                                         quantize_int8)
+    x = torch.randn(1 << 20, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    want = dequantize_int8(*quantize_int8(x))
+    dtypes = []
+    real = tdist.all_reduce
+
+    def spy(t, *a, **kw):
+        dtypes.append(str(t.dtype))
+        return real(t, *a, **kw)
+    tdist.all_reduce = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = compressed_psum(x)
+            torch.cuda.synchronize()
+    finally:
+        tdist.all_reduce = real
+    names = [e.name for e in prof.events()]
+    nccl_host = [n for n in names if n == "nccl:all_reduce"]
+    nccl_kernels = sorted({n for n in names if "nccl" in n.lower()
+                           and "kernel" in n.lower()})
+    check("dist", "compressed_psum_int32_all_reduce_on_nccl",
+          dtypes == ["torch.int32", "torch.float32"]
+          and len(nccl_host) == 2, all_reduce_dtypes=dtypes,
+          nccl_all_reduce_records=len(nccl_host),
+          nccl_device_kernels=nccl_kernels,
+          world_size=tdist.get_world_size())
+    check("dist", "compressed_psum_equals_dequantized_input",
+          torch.equal(got, want),
+          max_abs_err=(got - want).abs().max().item())
+
+
+def _gloo_rank(rank: int, store: str, out_dir: str) -> None:
+    """One of two gloo ranks on the one card (``dist_two_gloo_ranks``)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.distributed import compressed_psum
+    from repro_torch.launch import mesh as M
+    from repro_torch.sharding import ShardingPolicy
+    torch.cuda.set_device(0)
+    M.init_world("gloo", 2, rank, store)
+    result = {"backend": torch.distributed.get_backend()}
+    try:
+        mesh = M.make_compat_mesh((1, 2), ("data", "model"), "cuda")
+        policy = ShardingPolicy(mesh, configs.get("qwen2-1.5b"))
+        policy._decode_seq_axes = ("model",)
+        q, kc, vc, lengths = decode_inputs(torch)
+        for name, window in (("none", None), ("h2o_4096", 4096),
+                             ("w1000", 1000)):
+            o = policy.sharded_decode_attention(q, kc, vc, lengths, window)
+            torch.save(o.to_local().cpu(),
+                       os.path.join(out_dir, f"o_{name}_{rank}.pt"))
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        xs = torch.randn(2, 4096, device="cuda", generator=g)
+        got = compressed_psum(xs[rank].clone())
+        result["psum_max_abs_err"] = (got - xs.mean(0)).abs().max().item()
+        result["ok"] = True
+    except Exception as e:  # reported by the parent as a failed check
+        result["error"] = f"{type(e).__name__}: {e}"
+        traceback.print_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        M.destroy_world()
+
+
+def decode_inputs(torch):
+    """qwen2-1.5b's decode attention at a 4096-token cache, float32, from
+    the seed: q (4, 12, 1, 128), caches (4, 2, 4096, 128), lengths."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    q = torch.randn(4, 12, 1, 128, device="cuda", generator=g)
+    kc = torch.randn(4, 2, 4096, 128, device="cuda", generator=g)
+    vc = torch.randn(4, 2, 4096, 128, device="cuda", generator=g)
+    lengths = torch.tensor([4096, 2048, 3000, 7], dtype=torch.int32,
+                           device="cuda")
+    return q, kc, vc, lengths
+
+
+def dist_two_gloo_ranks(torch, dev) -> None:
+    """Two processes on the one card over gloo: flash-decoding over a
+    4096-token cache split in two against ``decode_attention`` on one
+    rank (the JAX test's 1e-5), with no window, h2o's 4096 and a 1000
+    window; ``compressed_psum`` of two distinct shards (atol 0.05)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.models.layers import decode_attention
+    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank,
+                         args=(r, os.path.join(work, "store"), work))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+        if p.is_alive():
+            p.kill()
+    results = []
+    for r in range(2):
+        path = os.path.join(work, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path)
+                       else {"error": "no result"})
+    emit(phase="dist", two_gloo_ranks_backend=[r.get("backend")
+                                               for r in results],
+         exitcodes=[p.exitcode for p in procs])
+    ok = all(r.get("ok") for r in results)
+    q, kc, vc, lengths = decode_inputs(torch)
+    errs = {}
+    for name, window in (("none", None), ("h2o_4096", 4096),
+                         ("w1000", 1000)):
+        want = decode_attention(q, kc, vc, lengths, window).cpu()
+        for r in range(2):
+            path = os.path.join(work, f"o_{name}_{r}.pt")
+            if not os.path.exists(path):
+                ok = False
+                continue
+            got = torch.load(path)
+            errs[f"{name}_rank{r}"] = (got - want).abs().max().item()
+            ok &= torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    check("dist", "two_gloo_ranks_flash_decoding_matches_one_rank", ok,
+          max_abs_err=errs, errors=[r.get("error") for r in results])
+    psum = [r.get("psum_max_abs_err") for r in results]
+    check("dist", "two_gloo_ranks_compressed_psum_distinct_shards",
+          all(e is not None and e <= 0.05 for e in psum),
+          max_abs_err=psum)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def dist_dry_run(torch, dev) -> None:
+    """The dry run on a fake world, on this host: qwen2-1.5b train_4k on
+    the 16 x 16 mesh (extrapolated) and the multi-pod pass, then the
+    one-card cell of the train phase's step (2 x 4096, bf16, remat
+    "full") beside that step's measured time and peak."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding import PolicyOptions
+    keys = ("t_compute", "t_memory_fused", "t_collective", "dominant",
+            "roofline_fraction", "collective_counts", "peak_bytes_per_dev",
+            "compile_s", "t_step", "flops_per_dev")
+    for multi in (False, True):
+        _full, meta = lower_cell("qwen2-1.5b", "train_4k", multi_pod=multi,
+                                 extrapolate=not multi)
+        emit(phase="dist", dry_run=f"qwen2-1.5b|train_4k|{meta['mesh']}",
+             chips=meta["chips"], **{k: meta[k] for k in keys})
+        check("dist", f"dry_run_{meta['mesh']}_traced",
+              meta["flops_per_dev"] > 0 and bool(meta["collective_counts"]))
+    _full, meta = lower_cell(
+        "qwen2-1.5b", "train_4k", batch_override=2, extrapolate=False,
+        options=PolicyOptions(remat="full"),
+        mesh=((1, 1), ("data", "model")))
+    measured = MEASURED.get("qwen2_train")
+    row = {k: meta[k] for k in keys}
+    if measured is not None:
+        step_ms, peak = measured
+        row.update(measured_step_s=step_ms / 1e3, measured_peak_bytes=peak,
+                   predicted_over_measured_step=meta["t_step"]
+                   / (step_ms / 1e3),
+                   predicted_over_measured_peak=meta["peak_bytes_per_dev"]
+                   / peak)
+    emit(phase="dist", dry_run="qwen2-1.5b|2x4096|1x1", card=card_line(),
+         **row)
+    check("dist", "dry_run_1x1_beside_the_measured_train_step",
+          measured is not None and meta["peak_bytes_per_dev"] > 0)
+
+
+def phase_dist(torch, dev, records):
+    """Distribution: the sharded path on a one-rank NCCL world (flash and
+    SSD on each rank's shards, a ZeRO-1 train step, compressed_psum),
+    two gloo ranks on the card, and the fake-world dry run."""
+    import dataclasses as dc
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+    import logging
+    # DTensor warns at every two-axis all-reduce of a 1 x 1 mesh
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    emit(phase="dist", card=card_line())
+    M.init_world("nccl", 1, 0)
+    try:
+        mesh = M.make_host_mesh()
+        emit(phase="dist", backend=torch.distributed.get_backend(),
+             mesh=str(mesh))
+        for part, args in (
+                (dist_prefill, (mesh, dc.replace(configs.get("qwen2-1.5b"),
+                                                 attention_impl="flash"),
+                                "flash_attention")),
+                (dist_prefill, (mesh, configs.get("mamba2-2.7b"),
+                                "ssd_scan", lambda p: fill_conv_bc(torch, p))),
+                (dist_train, (mesh,)), (dist_compressed_psum, ())):
+            t0 = time.perf_counter()
+            with guarded("dist"):
+                part(torch, dev, *args)
+            emit(phase="dist", part=part.__name__,
+                 seconds=round(time.perf_counter() - t0, 3))
+    finally:
+        M.destroy_world()
+    for part in (dist_two_gloo_ranks, dist_dry_run):
+        t0 = time.perf_counter()
+        with guarded("dist"):
+            part(torch, dev)
+        emit(phase="dist", part=part.__name__,
+             seconds=round(time.perf_counter() - t0, 3))
+
+
 SOURCES = {
     "qgemm": ("src/repro_torch/csrc/qgemm.cu",
               "src/repro/kernels/qgemm.py:60"),
@@ -3737,7 +4087,7 @@ def main() -> int:
                       ("flow", phase_flow), ("resilience", phase_resilience),
                       ("lm", phase_lm),
                       ("ssm", phase_ssm), ("families", phase_families),
-                      ("train", phase_train)):
+                      ("train", phase_train), ("dist", phase_dist)):
         t0 = time.perf_counter()
         with guarded(phase):
             if phase == "kernels":

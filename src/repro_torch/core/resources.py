@@ -27,10 +27,11 @@ synthesis results** (Tables 1-3):
 
 The JAX package's TPU constants have their card counterpart here:
 :class:`GPUProfile` / :data:`H100` (the data-sheet rates the kernel
-bounds divide by) and :data:`SMEM_BUDGET_BYTES`, the shared memory one
-block may take, where the JAX package has ``VMEM_BUDGET_BYTES``.
-Scoring options from a compiled executable (``tpu_report_from_compiled``)
-belongs to the LM pod fitter and is not ported yet.
+bounds and the roofline divide by) and :data:`SMEM_BUDGET_BYTES`, the
+shared memory one block may take, where the JAX package has
+``VMEM_BUDGET_BYTES``.  :func:`report_from_trace` maps a traced step
+(``launch/dryrun.py``) onto the four DSE quotas, the counterpart of the
+JAX package's ``tpu_report_from_compiled``.
 """
 from __future__ import annotations
 
@@ -348,6 +349,10 @@ class GPUProfile:
     hbm_bandwidth: float = 3.35e12        # bytes/s
     peak_int8_ops: float = 1979e12        # dense tensor-core peak
     peak_bf16_flops: float = 989e12       # dense tensor-core peak
+    # NVLink 4 (data sheet): 18 links of 25 GB/s each way, 450 GB/s each
+    # way (900 GB/s both ways) per card within an NVLink domain
+    nvlink_links: int = 18
+    nvlink_bandwidth: float = 450e9       # bytes/s each way, all links
 
 
 H100 = GPUProfile()
@@ -357,6 +362,41 @@ H100 = GPUProfile()
 #: for a kernel's on-chip working set.  The FPGA boards use their
 #: published on-chip ``mem_bits`` instead.
 SMEM_BUDGET_BYTES = H100.smem_per_block
+
+
+def report_from_trace(meta: Dict, profile: GPUProfile = H100,
+                      collective_bytes: Optional[float] = None
+                      ) -> ResourceReport:
+    """Map a traced step's record (``launch/dryrun.lower_cell``'s meta:
+    ``flops_per_dev``, ``bytes_per_dev``, ``arg_bytes``, ``out_bytes``,
+    ``temp_bytes``, ``collective_bytes_per_dev``) onto the four DSE
+    quotas, with the formulas of the JAX package's
+    ``tpu_report_from_compiled``:
+
+    lut -> HBM residency %, dsp -> arithmetic-intensity balance (time on
+    the tensor cores vs the step), mem -> temp (activation/workspace)
+    pressure %, reg -> collective pressure relative to compute.
+    Exceeding 100 on any quota means 'does not fit'."""
+    flops = float(meta["flops_per_dev"])
+    bytes_acc = float(meta["bytes_per_dev"])
+    if collective_bytes is None:
+        collective_bytes = float(meta["collective_bytes_per_dev"])
+    resident = meta["arg_bytes"] + meta["out_bytes"] + meta["temp_bytes"]
+    t_compute = flops / profile.peak_bf16_flops
+    t_memory = bytes_acc / profile.hbm_bandwidth
+    t_coll = collective_bytes / profile.nvlink_bandwidth
+    denom = max(t_compute, 1e-12)
+    percents = {
+        "lut": 100.0 * resident / profile.hbm_bytes,
+        "dsp": 100.0 * min(t_compute / max(t_compute, t_memory, t_coll), 1.0),
+        "mem": 100.0 * meta["temp_bytes"] / profile.hbm_bytes,
+        "reg": 100.0 * min(t_coll / denom, 2.0) / 2.0,
+    }
+    raw = {"flops": flops, "bytes": bytes_acc, "resident": resident,
+           "t_compute": t_compute, "t_memory": t_memory,
+           "t_collective": t_coll, "collective_bytes": collective_bytes}
+    fits = percents["lut"] <= 100.0
+    return ResourceReport(percents=percents, raw=raw, fits=fits)
 
 
 # ------------------------------------------- per-stage modeled costs

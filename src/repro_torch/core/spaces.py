@@ -1,21 +1,26 @@
-"""The design space of the DSE fitters: ``CNNDesignSpace``.
+"""The design spaces of the DSE fitters: ``CNNDesignSpace`` and
+``ShardingSpace``.
 
-The paper's own (N_i, N_l) space, with the row-band (``block_h``) and
-checkpoint (``ckpt_k``) axes, scored by the calibrated FPGA estimator of
-:mod:`.resources`.  The port's own copy of the JAX package's
-``CNNDesignSpace``, line for line.  The JAX package's ``ShardingSpace``
-(the fitter lifted to a TPU pod, scored by XLA) belongs to the LM pod
-fitter and is not ported yet.
+``CNNDesignSpace`` is the paper's own (N_i, N_l) space, with the
+row-band (``block_h``) and checkpoint (``ckpt_k``) axes, scored by the
+calibrated FPGA estimator of :mod:`.resources`: the port's own copy of
+the JAX package's, line for line.  ``ShardingSpace`` is the fitter
+lifted to a pod of cards: the JAX package's options in the same order
+(``DEFAULT_POD_AXES``), each scored by the port's dry run
+(``launch/dryrun.py``, a trace on a fake world with the H100's
+constants) where the JAX package compiles with XLA.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import itertools
+from typing import Any, Dict, List, Optional, Tuple
 
 from .dse import DesignSpace
 from .parser import ParsedModel
-from .resources import (FPGAProfile, ResourceReport, NI_CAP, NL_CAP,
-                        checkpoint_bytes, conv_band_working_set,
-                        estimate_fpga, plan_checkpoints)
+from .resources import (H100, FPGAProfile, GPUProfile, ResourceReport,
+                        NI_CAP, NL_CAP, checkpoint_bytes,
+                        conv_band_working_set, estimate_fpga,
+                        plan_checkpoints)
 
 #: Default row-band heights offered to the DSE when the caller enables
 #: the third axis but does not name candidates.
@@ -176,3 +181,86 @@ class CNNDesignSpace(DesignSpace):
         if self._ck is not None:
             t += option[i] * 1e-5
         return t
+
+
+DEFAULT_POD_AXES: List[Tuple[str, List]] = [
+    ("remat", ["none", "dots", "full"]),
+    ("n_micro", [1, 4, 8, 16]),
+    ("sequence_parallel", [False, True]),
+]
+
+
+class ShardingSpace(DesignSpace):
+    """Pod-scale parallelism options scored by the dry run.
+
+    ``evaluate`` traces a depth-reduced variant of the cell on the
+    production mesh (estimation stage, like the paper's first synthesis
+    stage) and scales residency/terms back to full depth.  The reward
+    quotas (Algorithm 1 unchanged):
+
+        lut  -> projected HBM residency %      (hard fit criterion)
+        dsp  -> compute fraction of the step % (utilization == throughput)
+        mem  -> projected temp pressure %
+        reg  -> collective/compute pressure %
+    """
+
+    def __init__(self, arch: str, shape_name: str,
+                 axes: Optional[List[Tuple[str, List]]] = None,
+                 eval_depth: int = 4, flash_accounting: bool = True,
+                 profile: GPUProfile = H100):
+        self.arch = arch
+        self.shape_name = shape_name
+        self._axes = axes or DEFAULT_POD_AXES
+        self.eval_depth = eval_depth
+        self.flash = flash_accounting
+        self.profile = profile
+        from repro_torch import configs
+        self._cfg = configs.get(arch)
+        self._scale = max(1, self._cfg.n_layers // max(eval_depth, 1))
+
+    def axes(self) -> List[List]:
+        return [vals for _n, vals in self._axes]
+
+    def axis_names(self) -> List[str]:
+        return [name for name, _vals in self._axes]
+
+    def options(self) -> List[Tuple]:
+        return list(itertools.product(*self.axes()))
+
+    def _policy_kwargs(self, option: Tuple) -> Dict[str, Any]:
+        return {name: val for (name, _), val in zip(self._axes, option)}
+
+    def evaluate(self, option: Tuple) -> ResourceReport:
+        from repro_torch.launch.dryrun import _depth_cfg, lower_cell
+        from repro_torch.sharding import PolicyOptions
+        opts = PolicyOptions(**self._policy_kwargs(option))
+        cfg1, _ = _depth_cfg(self._cfg, 1)  # family-consistent reduction
+        depth_over = {"n_layers": cfg1.n_layers * self.eval_depth}
+        if self._cfg.family == "encdec":
+            depth_over["encoder_layers"] = depth_over["n_layers"]
+        _c, meta = lower_cell(
+            self.arch, self.shape_name, options=opts,
+            cfg_override=depth_over, extrapolate=False,
+            flash_accounting=self.flash)
+        # project depth-linear quantities back to full depth
+        hbm = self.profile.hbm_bytes
+        peak = meta["arg_bytes"] + meta["out_bytes"] \
+            + meta["temp_bytes"] * self._scale
+        t_c = meta["t_compute"] * self._scale
+        t_m = meta["t_memory_fused"] * self._scale
+        t_col = meta["t_collective"] * self._scale
+        t_step = max(t_c, t_m, t_col)
+        percents = {
+            "lut": 100.0 * peak / hbm,
+            "dsp": 100.0 * t_c / max(t_step, 1e-12),
+            "mem": 100.0 * meta["temp_bytes"] * self._scale / hbm,
+            "reg": 100.0 * min(t_col / max(t_c, 1e-12), 2.0) / 2.0,
+        }
+        raw = {"peak": peak, "t_compute": t_c, "t_memory": t_m,
+               "t_collective": t_col, "t_step": t_step,
+               "option": self._policy_kwargs(option)}
+        fits = percents["lut"] <= 100.0
+        return ResourceReport(percents=percents, raw=raw, fits=fits)
+
+    def tiebreak(self, option: Tuple) -> float:
+        return 0.0

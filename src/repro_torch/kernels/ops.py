@@ -111,6 +111,18 @@ def _no_backward(name: str, *operands) -> None:
             f"SSD scan's plain version itself")
 
 
+def _no_dtensor(name: str, *operands) -> None:
+    """Raise ``TypeError`` for a DTensor operand: the kernels read raw
+    data pointers of one device's tensor, so a sharded model hands them
+    its local shards (``ShardingPolicy.local_attention``/``local_ssd``)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in operands):
+        raise TypeError(
+            f"{name} takes plain tensors, not DTensors: run it on each "
+            f"rank's local shards (ShardingPolicy.local_attention / "
+            f"local_ssd)")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -118,7 +130,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     scores are scaled by ``scale`` (default D ** -0.5).  A CUDA tensor
     launches the kernel, a CPU tensor runs the plain version
     (:mod:`.flash_attention`).  Raises ``RuntimeError`` for inputs that
-    require grad while grad mode is on: there is no backward."""
+    require grad while grad mode is on: there is no backward, and
+    ``TypeError`` for a DTensor."""
+    _no_dtensor("flash_attention", q, k, v)
     _no_backward("flash_attention", q, k, v)
     _record("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
@@ -132,7 +146,9 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
     b/c (B, L, G, N); y, and the final state with ``return_state``.  A
     CUDA tensor launches the kernel, a CPU tensor runs the plain version
     (:mod:`.ssd_scan`).  Raises ``RuntimeError`` for inputs that require
-    grad while grad mode is on: there is no backward."""
+    grad while grad mode is on: there is no backward, and ``TypeError``
+    for a DTensor."""
+    _no_dtensor("ssd_scan", x, dt, a, b, c, d, init_state)
     _no_backward("ssd_scan", x, dt, a, b, c, d, init_state)
     _record("ssd_scan", x, dt, a, b, c, d, init_state)
     return _ssd.ssd_scan(x, dt, a, b, c, d, chunk=chunk,

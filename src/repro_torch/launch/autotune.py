@@ -1,53 +1,85 @@
-"""DSE autotuner: the paper's hardware-aware fitter over a CNN.
+"""DSE autotuner: the paper's hardware-aware fitter, over a pod's
+sharding options or over a CNN.
 
-Runs BF-DSE / RL-DSE (Algorithm-1 reward shaping) over the CNN
-(N_i, N_l, block_h[, ckpt_k]) space of a parsed model, with the
-calibrated board estimator and the row-band working-set model as the
-vendor compiler (:mod:`repro_torch.core.spaces`):
+Runs BF-DSE / RL-DSE (Algorithm-1 reward shaping, unchanged) over the
+``ShardingSpace`` of a cell, with the dry run (a trace on a fake world
+of the production mesh, scored with the H100's data-sheet constants) as
+the vendor compiler:
+
+    PYTHONPATH=src python -m repro_torch.launch.autotune \\
+        --arch qwen2-1.5b --shape train_4k --algo rl \\
+        --axes remat=none,dots,full --axes n_micro=1,8 \\
+        --out results/autotune_torch.json
+
+or over the CNN (N_i, N_l, block_h[, ckpt_k]) space of a parsed model,
+with the calibrated board estimator and the row-band working-set model
+as the compiler (:mod:`repro_torch.core.spaces`):
 
     PYTHONPATH=src python -m repro_torch.launch.autotune \\
         --cnn alexnet --board ARRIA10 --algo rl \\
         --block-h 4,8,16,32 --out results/autotune_cnn.json
 
-The payload is the JAX package's (``repro.launch.autotune``) for the same
-arguments.  Every quota it reports is a modeled FPGA utilization, not a
-measurement on the card.  The JAX package's pod mode (``--arch``, the
-fitter over a TPU pod's sharding options) is not ported yet.
+Flags and payload are the JAX package's (``repro.launch.autotune``).  In
+CNN mode every quota is a modeled FPGA utilization (the payload equals
+the JAX package's for the same arguments); in pod mode the quotas come
+from the port's own dry run, so its decisions are not held to the JAX
+package's, only its space, order and search.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core import dse
-from repro_torch.core.spaces import DEFAULT_BLOCK_H_OPTIONS, CNNDesignSpace
+from repro_torch.core.spaces import (DEFAULT_BLOCK_H_OPTIONS,
+                                     DEFAULT_POD_AXES, CNNDesignSpace,
+                                     ShardingSpace)
+
+
+def parse_axes(specs: List[str]) -> List[Tuple[str, list]]:
+    if not specs:
+        return DEFAULT_POD_AXES
+    axes = []
+    for s in specs:
+        name, vals = s.split("=")
+        parsed = []
+        for v in vals.split(","):
+            if v in ("True", "False"):
+                parsed.append(v == "True")
+            else:
+                try:
+                    parsed.append(int(v))
+                except ValueError:
+                    parsed.append(v)
+        axes.append((name, parsed))
+    return axes
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="pod mode: not ported yet (ROADMAP Queue 1 "
-                         "item 9f)")
+                    help="pod mode: LM architecture for the ShardingSpace")
     ap.add_argument("--cnn", default=None,
                     choices=["tiny", "alexnet", "vgg16"],
-                    help="explore (N_i, N_l, block_h) for this model")
+                    help="CNN mode: explore (N_i, N_l, block_h) for this "
+                         "model instead of the pod ShardingSpace")
     ap.add_argument("--board", default="ARRIA10",
-                    help="FPGA profile to score against")
+                    help="CNN mode: FPGA profile to score against")
     ap.add_argument("--block-h", default=None,
-                    help="comma-separated row-band heights "
+                    help="CNN mode: comma-separated row-band heights "
                          f"(default {DEFAULT_BLOCK_H_OPTIONS})")
     ap.add_argument("--checkpoint-k", default=None,
-                    help="comma-separated candidate counts of "
+                    help="CNN mode: comma-separated candidate counts of "
                          "stage-boundary recovery snapshots (adds the "
                          "ckpt_k axis; snapshot bytes are charged "
                          "against the on-chip memory quota — include 0 "
                          "so resilience is only bought when it fits)")
-    ap.add_argument("--shape", default="train_4k",
-                    help="echoed into the payload, as the JAX package's "
-                         "CLI does")
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--algo", default="rl", choices=["rl", "bf"])
+    ap.add_argument("--axes", action="append", default=[])
+    ap.add_argument("--eval-depth", type=int, default=4)
     ap.add_argument("--episodes", type=int, default=6)
     ap.add_argument("--steps-per-episode", type=int, default=8)
     ap.add_argument("--lut-threshold", type=float, default=100.0,
@@ -66,32 +98,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "the same journal resumes the sweep")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if args.arch is not None:
-        raise NotImplementedError(
-            "--arch (the pod ShardingSpace fitter) is not ported yet: "
-            "ROADMAP Queue 1 item 9f")
-    if args.cnn is None:
-        ap.error("--cnn is required")
+    if (args.arch is None) == (args.cnn is None):
+        ap.error("exactly one of --arch (pod mode) / --cnn (CNN mode) "
+                 "is required")
 
-    from repro_torch.core.parser import parse
-    from repro_torch.core.resources import FPGA_BOARDS
-    from repro_torch.models import cnn as cnn_models
-    graph = {"tiny": cnn_models.tiny_cnn, "alexnet": cnn_models.alexnet,
-             "vgg16": cnn_models.vgg16}[args.cnn]()
-    try:
-        bh = ([int(v) for v in args.block_h.split(",")] if args.block_h
-              else list(DEFAULT_BLOCK_H_OPTIONS))
-    except ValueError:
-        ap.error("--block-h must be comma-separated ints, "
-                 f"got {args.block_h!r}")
-    try:
-        ck = ([int(v) for v in args.checkpoint_k.split(",")]
-              if args.checkpoint_k else None)
-    except ValueError:
-        ap.error("--checkpoint-k must be comma-separated ints, "
-                 f"got {args.checkpoint_k!r}")
-    space = CNNDesignSpace(parse(graph), FPGA_BOARDS[args.board],
-                           block_h_options=bh, checkpoint_options=ck)
+    if args.cnn is not None:
+        from repro_torch.core.parser import parse
+        from repro_torch.core.resources import FPGA_BOARDS
+        from repro_torch.models import cnn as cnn_models
+        graph = {"tiny": cnn_models.tiny_cnn, "alexnet": cnn_models.alexnet,
+                 "vgg16": cnn_models.vgg16}[args.cnn]()
+        try:
+            bh = ([int(v) for v in args.block_h.split(",")] if args.block_h
+                  else list(DEFAULT_BLOCK_H_OPTIONS))
+        except ValueError:
+            ap.error("--block-h must be comma-separated ints, "
+                     f"got {args.block_h!r}")
+        try:
+            ck = ([int(v) for v in args.checkpoint_k.split(",")]
+                  if args.checkpoint_k else None)
+        except ValueError:
+            ap.error("--checkpoint-k must be comma-separated ints, "
+                     f"got {args.checkpoint_k!r}")
+        space = CNNDesignSpace(parse(graph), FPGA_BOARDS[args.board],
+                               block_h_options=bh, checkpoint_options=ck)
+    else:
+        space = ShardingSpace(args.arch, args.shape,
+                              axes=parse_axes(args.axes),
+                              eval_depth=args.eval_depth)
     robust = None
     if args.robust or args.journal or args.eval_timeout_s is not None:
         robust = dse.RobustEvaluator(space,
@@ -126,8 +160,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         payload = {
-            "arch": args.cnn, "shape": args.shape,
-            "board": args.board, "algo": args.algo,
+            "arch": args.arch or args.cnn, "shape": args.shape,
+            "board": args.board if args.cnn else None, "algo": args.algo,
             "best": dict(zip(names, res.best)) if res.best else None,
             "f_max": res.f_max, "evaluations": res.evaluations,
             "history": [

@@ -7,9 +7,11 @@ Per-slot lengths drive the masked decode attention, so heterogeneous
 sequence lengths coexist in one batch.  For the ``ssm`` and ``hybrid``
 families the cache also holds each slot's conv and SSM states; as in the
 JAX package, a reused slot keeps the previous request's states (only its
-length is reset) and idle slots advance on token 0.  One card, no
-sharding policy; each decode step is an eager call of
-``Model.decode_step``.
+length is reset) and idle slots advance on token 0.  Each decode step
+is an eager call of ``Model.decode_step``.  The launcher serves under a
+host mesh and a ``ShardingPolicy`` with unsharded decode caches, as the
+JAX package's does: it starts a one-process world (NCCL on CUDA, gloo
+on the CPU) for the run.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --preset smoke --slots 4 --requests 8 --max-new 16 [--device cpu]
@@ -197,6 +199,8 @@ class Server:
                           "lengths": torch.as_tensor(self.lengths,
                                                      device=dev)},
             self.cache)
+        if self.model.policy is not None:
+            logits = logits.full_tensor()
         return logits
 
     def _step_slot(self, s: int, token: int) -> int:
@@ -270,7 +274,20 @@ def main(argv=None) -> int:
 
     cfg = (configs.get_smoke(args.arch) if args.preset == "smoke"
            else configs.get(args.arch))
-    model = Model(cfg, device=args.device)
+    from repro_torch import device as tdevice
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.sharding import PolicyOptions, ShardingPolicy
+    dev = tdevice.resolve(args.device)
+    with mesh_mod.world("nccl" if dev.type == "cuda" else "gloo"):
+        mesh = mesh_mod.make_host_mesh()
+        policy = ShardingPolicy(mesh, cfg,
+                                PolicyOptions(seq_shard_decode=False))
+        model = Model(cfg, device=args.device, policy=policy)
+        with mesh_mod.set_mesh(mesh):
+            return _serve(args, cfg, model)
+
+
+def _serve(args, cfg, model: Model) -> int:
     rng = np.random.default_rng(args.seed)
     params = model.init(torch.Generator(model.device).manual_seed(args.seed))
     server = Server(model, params, args.slots, args.cache_len,

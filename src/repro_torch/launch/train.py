@@ -14,15 +14,26 @@ The counterpart of ``repro.launch.train``, with its flags and its loop:
   * the train state updated in place (the donated state of the JAX
     package's jitted step).
 
-It runs on one card, CUDA unless ``--device`` names another.  ``--mesh
-host`` with ``--data-par 1 --model-par 1`` is that single-card run; a
-production mesh, or any parallelism above 1, is not ported yet and
-raises (ROADMAP Queue 1 item 9f).
+It runs on one card, CUDA unless ``--device`` names another.  On a
+mesh (``--mesh production``, the 16 x 16 pod, or ``--mesh host
+--data-par D --model-par M`` over the ranks that exist; also any run
+under ``torchrun``) it starts the process world (NCCL on CUDA, gloo on
+the CPU), lays the parameters and the ZeRO-1 optimizer state out by a
+``ShardingPolicy``, and every rank takes its rows of each step's batch:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+        --arch qwen2-1.5b --preset full --data-par 2 --model-par 4
+
+Checkpoints gather the sharded state to full tensors, which rank 0
+writes in the same byte format; a restore lays each rank's shards out
+again.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import types
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -38,17 +49,76 @@ from repro_torch.optim import (OptimizerConfig, init_train_state,
                                make_train_step)
 
 
+def _on_a_mesh(args) -> bool:
+    return (args.mesh == "production" or args.data_par * args.model_par > 1
+            or "WORLD_SIZE" in os.environ)
+
+
 def build(args) -> Dict[str, Any]:
-    if args.mesh != "host" or args.data_par != 1 or args.model_par != 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} --data-par {args.data_par} --model-par "
-            f"{args.model_par}: only the single-card run (--mesh host, "
-            f"both 1) is ported; meshes are ROADMAP Queue 1 item 9f")
     cfg = (configs.get_smoke(args.arch) if args.preset == "smoke"
            else configs.get(args.arch))
-    model = Model(cfg, args.device, remat=args.remat)
+    mesh = policy = None
+    if _on_a_mesh(args):
+        from repro_torch import device as tdevice
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.sharding import PolicyOptions, ShardingPolicy
+        dev = tdevice.resolve(args.device)
+        mesh_mod.init_world("nccl" if dev.type == "cuda" else "gloo")
+        try:
+            mesh = (mesh_mod.make_production_mesh()
+                    if args.mesh == "production" else
+                    mesh_mod.make_host_mesh(args.data_par, args.model_par))
+        except Exception:
+            mesh_mod.destroy_world()
+            raise
+        policy = ShardingPolicy(mesh, cfg, PolicyOptions(remat=args.remat))
+    model = Model(cfg, args.device, remat=args.remat, policy=policy)
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup)
-    return dict(cfg=cfg, model=model, opt_cfg=opt_cfg)
+    return dict(cfg=cfg, mesh=mesh, policy=policy, model=model,
+                opt_cfg=opt_cfg)
+
+
+def _gathered(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A sharded train state with full tensors (every rank takes part in
+    the gathers), as ``convert.train_state_to_tree`` reads one."""
+    from repro_torch.sharding import is_dtensor
+
+    def full(t):
+        return t.full_tensor() if is_dtensor(t) else t
+    named = {n: full(p.detach())
+             for n, p in state["params"].named_parameters()}
+    out = dict(state, opt={k: {n: full(t) for n, t in v.items()}
+                           for k, v in state["opt"].items()})
+    # what convert.train_state_to_tree reads of the params
+    out["params"] = types.SimpleNamespace(
+        named_parameters=lambda: iter(named.items()))
+    return out
+
+
+def _full_skeleton(cfg, state: Dict[str, Any]) -> Dict[str, Any]:
+    """A train state of full, uninitialised CPU tensors with the layout
+    of the sharded ``state``: what a checkpoint restores into."""
+    params = Model(cfg, "cpu").empty_params()
+    opt = {k: {n: torch.empty(tuple(t.shape), dtype=t.dtype)
+               for n, t in v.items()} for k, v in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": 0}
+
+
+def _scatter_into(state: Dict[str, Any], full_state: Dict[str, Any],
+                  policy) -> None:
+    """Fill a sharded train state's shards from a full one."""
+    from repro_torch.sharding import spec_of
+
+    def put(dst, src):
+        with torch.no_grad():
+            dst.to_local().copy_(policy.distribute(
+                src.to(dst.to_local().device), spec_of(dst)).to_local())
+    for n, p in state["params"].named_parameters():
+        put(p, dict(full_state["params"].named_parameters())[n])
+    for k, v in state["opt"].items():
+        for n, t in v.items():
+            put(t, full_state["opt"][k][n])
+    state["step"] = full_state["step"]
 
 
 def main(argv=None) -> int:
@@ -93,20 +163,35 @@ def main(argv=None) -> int:
             return grads
     step_fn = make_train_step(model, opt_cfg, compression)
 
+    policy = parts["policy"]
+    if policy is not None and args.grad_compression != "none":
+        raise ValueError("--grad-compression runs on the single-card "
+                         "path; a mesh's gradients are reduced by DTensor")
+    rank0 = policy is None or torch.distributed.get_rank() == 0
     start_step = 0
     checkpointer: Optional[ckpt.AsyncCheckpointer] = None
     if args.ckpt_dir:
         checkpointer = ckpt.AsyncCheckpointer(args.ckpt_dir)
         if ckpt.latest_step(args.ckpt_dir) is not None:
+            target = state if policy is None else _full_skeleton(cfg, state)
             tree, start_step, _ = ckpt.restore(
-                args.ckpt_dir, convert.train_state_to_tree(cfg, state,
+                args.ckpt_dir, convert.train_state_to_tree(cfg, target,
                                                            "meta"))
-            convert.train_state_from_numpy(cfg, tree, state)
+            convert.train_state_from_numpy(cfg, tree, target)
             del tree
+            if policy is not None:
+                _scatter_into(state, target, policy)
+                del target
             print(f"resumed from step {start_step}")
 
     def snapshot():
-        return convert.train_state_to_tree(cfg, state)
+        return convert.train_state_to_tree(
+            cfg, state if policy is None else _gathered(state))
+
+    def save(at: int) -> None:
+        tree = snapshot()           # every rank takes part in the gathers
+        if rank0:
+            checkpointer.save_async(at, tree)
 
     monitor = StragglerMonitor()
     metrics_log = []
@@ -119,13 +204,14 @@ def main(argv=None) -> int:
                      for k, v in source.batch_at(step).items()}
             monitor.start()
             state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
+            loss = float(metrics["loss"].full_tensor() if policy is not None
+                         else metrics["loss"])
             ev = monitor.stop(step)
             if ev is not None:
                 print(f"[straggler] step {ev.step}: {ev.duration_s:.2f}s "
                       f"({ev.ratio:.1f}x median)")
             if monitor.should_checkpoint and checkpointer is not None:
-                checkpointer.save_async(step + 1, snapshot())
+                save(step + 1)
             if step % args.log_every == 0 or step == args.steps - 1:
                 gn = float(metrics["grad_norm"])
                 print(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f}",
@@ -133,14 +219,17 @@ def main(argv=None) -> int:
             metrics_log.append({"step": step, "loss": loss})
             if (checkpointer is not None and args.ckpt_every
                     and (step + 1) % args.ckpt_every == 0):
-                checkpointer.save_async(step + 1, snapshot())
+                save(step + 1)
 
         if checkpointer is not None:
-            checkpointer.save_async(args.steps, snapshot())
+            save(args.steps)
             checkpointer.wait()
     finally:
         if checkpointer is not None:
             checkpointer.remove_preemption_hook()
+        if policy is not None:
+            from repro_torch.launch import mesh as mesh_mod
+            mesh_mod.destroy_world()
 
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -10,7 +10,7 @@ Parameters are created not requiring grad, for serving;
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -245,9 +245,12 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
 
 
 def qkv_project(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                positions: Optional[torch.Tensor], rope: bool = True
+                positions: Optional[torch.Tensor], rope: bool = True,
+                heads: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q (B,H,S,hd), k/v (B,HKV,S,hd) with bias/qk-norm/rope."""
+    """x: (B, S, D) -> q (B,H,S,hd), k/v (B,HKV,S,hd) with bias/qk-norm/rope.
+    ``heads(t, n)`` lays a projection out so that it splits into n heads
+    (a sharding policy's ``heads_ready``)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p.wq
@@ -255,6 +258,8 @@ def qkv_project(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     v = x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if heads is not None:
+        q, k, v = heads(q, h), heads(k, kv), heads(v, kv)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
@@ -389,7 +394,9 @@ def moe_routing(cfg: ModelConfig, router: torch.Tensor,
     return Routing(probs, idx, gate, pos, pos < capacity, capacity)
 
 
-def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor
+def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor,
+        experts: Optional[Tuple[int, int]] = None,
+        reduce: Optional[Callable] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's group-wise capacity MoE on x (B, S, D); returns
     (y, the Switch load-balancing aux loss, float32).
@@ -399,7 +406,13 @@ def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor
     experts' outputs gathered back, weighted by the gates rounded to x's
     dtype and summed in float32.  A queue slot holds at most one token,
     so the gathered queues equal the einsum's exactly; an empty slot is
-    zeros, as there.  Only the combine's summation order differs."""
+    zeros, as there.  Only the combine's summation order differs.
+
+    Under a sharding policy (``ShardingPolicy.local_moe``) ``p`` holds
+    only the experts ``experts`` = (first, count) and y is this rank's
+    partial sum, the other experts' slots contributing zeros;
+    ``reduce`` sums a tensor over the ranks that hold other rows of the
+    batch, so that the aux loss is that of the whole batch."""
     b0, s0, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tg = moe_group_size(cfg, s0)
@@ -418,15 +431,28 @@ def moe(cfg: ModelConfig, p: MoE, x: torch.Tensor
     xpad = torch.nn.functional.pad(xt, (0, 0, 0, 1))     # row tg: zeros
     xe = xpad[rows, src[:, :e * cap]]                    # (G, E*C, D)
     xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    hidden = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
-    ye = torch.bmm(hidden, p.w_down)                     # (E, G*C, D)
+    if experts is None or experts == (0, e):
+        hidden = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
+        ye = torch.bmm(hidden, p.w_down)                 # (E, G*C, D)
+    else:
+        e0, el = experts
+        xl = xe[e0:e0 + el]
+        hidden = F.silu(torch.bmm(xl, p.w_gate)) * torch.bmm(xl, p.w_up)
+        ye = F.pad(torch.bmm(hidden, p.w_down),
+                   (0, 0, 0, 0, e0, e - e0 - el))
     ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
     ye = torch.nn.functional.pad(ye, (0, 0, 0, 1))       # the spare slot
     w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(x.dtype)
     y = (w.float()[..., None] * ye[rows, dest].reshape(g, tg, k, d).float())
     y = y.sum(2).to(x.dtype)
     # Switch aux loss: e * sum(mean prob * share of kept slots), per e
-    me = r.probs.mean((0, 1))
-    ce = torch.zeros(e, device=x.device).scatter_add_(
-        0, r.idx.reshape(-1), r.kept.reshape(-1).float()) / (g * tg)
+    kept = torch.zeros(e, device=x.device).scatter_add_(
+        0, r.idx.reshape(-1), r.kept.reshape(-1).float())
+    if reduce is None:
+        me = r.probs.mean((0, 1))
+        ce = kept / (g * tg)
+    else:
+        n = reduce(torch.full((), float(g * tg), device=x.device))
+        me = reduce(r.probs.sum((0, 1))) / n
+        ce = reduce(kept) / n
     return y.reshape(b0, s0, d), e * torch.sum(me * ce)

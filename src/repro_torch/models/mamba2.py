@@ -117,10 +117,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def mamba2_forward(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
                    init_state: Optional[State] = None,
-                   return_state: bool = False, train: bool = False):
+                   return_state: bool = False, train: bool = False,
+                   policy=None):
     """Full block: proj -> causal conv -> SSD -> gated norm -> out_proj.
     u: (B, L, D).  Returns y, and the new state when requested.
-    ``train`` picks the SSD scan's differentiable plain version."""
+    ``train`` picks the SSD scan's differentiable plain version.  Under
+    a sharding ``policy`` x and z take ``policy.mamba_inner`` (d_inner on
+    the model axis) and the scan runs on each rank's heads
+    (``policy.local_ssd``)."""
     bsz, length, _ = u.shape
     nh, hp = cfg.ssm_nheads, cfg.ssm_headdim
     g, ns = cfg.ssm_ngroups, cfg.ssm_state
@@ -129,6 +133,8 @@ def mamba2_forward(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
     bmat = u @ p.w_b
     cmat = u @ p.w_c
     dtr = u @ p.w_dt
+    if policy is not None:
+        x, z = policy.mamba_inner(x), policy.mamba_inner(z)
 
     st = init_state or {}
     x, new_cx = _causal_conv(x, p.conv_x, p.conv_bias_x, st.get("conv_x"))
@@ -140,10 +146,19 @@ def mamba2_forward(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
 
     dt = F.softplus(dtr.float() + p.dt_bias)                     # (B,L,H)
     a = -torch.exp(p.a_log)                                      # (H,)
+    if policy is not None:
+        x = policy.heads_ready(x, nh)
     xh = x.reshape(bsz, length, nh, hp)
-    y, s_fin = ssd_chunked(xh, dt, a, bmat.reshape(bsz, length, g, ns),
-                           cmat.reshape(bsz, length, g, ns), cfg.ssm_chunk,
-                           st.get("ssm"), train)
+    bh = bmat.reshape(bsz, length, g, ns)
+    ch = cmat.reshape(bsz, length, g, ns)
+    if policy is None:
+        y, s_fin = ssd_chunked(xh, dt, a, bh, ch, cfg.ssm_chunk,
+                               st.get("ssm"), train)
+    else:
+        y, s_fin = policy.local_ssd(
+            lambda *args: ssd_chunked(*args[:5], cfg.ssm_chunk, args[5],
+                                      train), xh, dt, a, bh, ch,
+            st.get("ssm"))
     y = y + p.d_skip[None, None, :, None] * xh.float()
     y = y.reshape(bsz, length, cfg.d_inner).to(u.dtype)
 
@@ -159,13 +174,17 @@ def mamba2_forward(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
 
 
 def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, u: torch.Tensor,
-                       state: State) -> Tuple[torch.Tensor, State]:
+                       state: State, policy=None) -> Tuple[torch.Tensor, State]:
     """One-token recurrent step.  u: (B, 1, D).  Writes the new conv and
     SSM states into ``state``'s tensors in place and returns ``state``
     (the JAX package returns a new state): a layer's cache slices are
-    views of the stacked cache, so the cache needs no copy a step."""
-    out, new = mamba2_forward(cfg, p, u, init_state=state, return_state=True)
+    views of the stacked cache, so the cache needs no copy a step.
+    Under a policy each new state is laid out as its cache first."""
+    out, new = mamba2_forward(cfg, p, u, init_state=state, return_state=True,
+                              policy=policy)
     for key, v in new.items():
+        if policy is not None:
+            v = v.redistribute(state[key].device_mesh, state[key].placements)
         state[key].copy_(v)
     return out, state
 

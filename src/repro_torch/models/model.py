@@ -26,9 +26,19 @@ through its plain version, since the SSD kernel, like the flash kernel,
 has no backward (``ops`` refuses them a gradient).  ``input_specs``
 gives ``meta`` tensors of an input shape cell's batch, the counterpart
 of the JAX package's ``ShapeDtypeStruct`` stand-ins.
+
+``Model(cfg, policy=ShardingPolicy(mesh, cfg))`` runs on a device mesh
+(:mod:`repro_torch.sharding`): ``init`` distributes the parameters by
+the policy, ``init_cache`` lays the cache out by its ``cache_spec``,
+every entry point lays its batch out by ``batch_specs`` and returns
+DTensors (``.full_tensor()`` gathers one).  Plain tensors met inside a
+policy's run (positions, masks) are taken as replicated.  ``unroll`` is
+the JAX package's flag for its dry run; the depth loop is Python here,
+so it changes nothing.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -77,11 +87,13 @@ class LMParams(nn.Module):
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: tdevice.DeviceLike = None,
-                 *, remat: str = "none"):
+                 *, remat: str = "none", policy=None, unroll: bool = False):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         self.remat = remat
+        self.policy = policy
+        self.unroll = unroll or cfg.scan_unroll
         self.device = tdevice.resolve(device)
         self.dtype = L.dtype_of(cfg)
         self.padded_vocab = _vocab_pad(cfg.vocab_size)
@@ -122,7 +134,14 @@ class Model:
         embeddings and decoder positions * 0.02, projections and the
         router * fan_in ** -0.5, zero biases, unit norms; a mamba layer's
         as :func:`.mamba2.init_mamba2` draws them (its B and C conv taps
-        are zeros)."""
+        are zeros).  Under a policy every rank draws the same full values
+        and keeps its shards (``policy.param_shardings``)."""
+        params = self._init(gen)
+        if self.policy is not None:
+            self.policy.param_shardings(params)
+        return params
+
+    def _init(self, gen: torch.Generator) -> LMParams:
         cfg, dev = self.cfg, self.device
         embed = dec_pos = lm_head = None
         if self._has_embed:
@@ -142,6 +161,25 @@ class Model:
         return LMParams(embed, stack, L.init_norm(cfg, cfg.d_model, dev),
                         lm_head, dec_pos)
 
+    # ------------------------------------------------------------ policy
+    def _sharded(self):
+        """The context of a run under the policy: plain tensors met in
+        it are replicated DTensors."""
+        if self.policy is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    def _batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        if self.policy is None:
+            return batch
+        return self.policy.shard_batch(
+            {k: v if k == "cache" else torch.as_tensor(v, device=self.device)
+             for k, v in batch.items()})
+
+    def _act(self, x):
+        return x if self.policy is None else self.policy.act(x)
+
     # ----------------------------------------------------------- embed/out
     def _embed(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
         if self.cfg.input_embeds and "embeds" in batch:
@@ -151,15 +189,30 @@ class Model:
             raise KeyError(f"{self.cfg.name} takes 'embeds' and has no "
                            f"'embed' table for tokens")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        if self.policy is not None:
+            return self.policy.embed(params.embed, tokens)
         return params.embed[tokens.long()]
 
-    def _logits(self, params: LMParams, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, params: LMParams, x: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """Logits of the vocabulary.  For the loss (``train``) of a model
+        whose padded vocabulary is sharded over several ranks, the padded
+        columns are masked to -inf instead of sliced off: a slice of a
+        sharded dimension that the shards do not divide would gather
+        every rank's logits."""
         x = L.apply_norm(self.cfg, params.final_norm, x)
+        if self.policy is not None:
+            x = self.policy.gathered(x)
         if params.lm_head is None:
             logits = x @ params.embed.T
         else:
             logits = x @ params.lm_head
-        return logits[..., :self.cfg.vocab_size]
+        v = self.cfg.vocab_size
+        if (train and v < logits.shape[-1] and self.policy is not None
+                and self.policy.splits_last(logits)):
+            col = torch.arange(logits.shape[-1], device=self.device)
+            return logits.masked_fill(col >= v, float("-inf"))
+        return logits[..., :v]
 
     def _dec_pos(self, params: LMParams, seq: int) -> torch.Tensor:
         """The learned decoder positions of 0..seq-1, zeros past the
@@ -185,7 +238,8 @@ class Model:
         positions added."""
         enc = torch.as_tensor(batch["audio_embeds"],
                               device=self.device).to(x.dtype)
-        enc_out = T.encoder_forward(self.cfg, params.stack, enc, remat)
+        enc_out = T.encoder_forward(self.cfg, params.stack, enc, remat,
+                                    self.policy, self.unroll)
         return enc_out, x + self._dec_pos(params, x.shape[1])[None]
 
     # ------------------------------------------------------------ forward
@@ -197,27 +251,30 @@ class Model:
         plain version."""
         cfg = self.cfg
         remat = self.remat if train else "none"
-        x = self._embed(params, batch)
+        pol, unroll = self.policy, self.unroll
+        batch = self._batch(batch)
+        x = self._act(self._embed(params, batch))
         positions = self._positions(batch, x.shape[1], x.shape[0])
         aux = 0.0
         if cfg.family == "encdec":
             enc_out, x = self._encode(params, batch, x, remat)
             x = T.decoder_forward_encdec(cfg, params.stack, x, positions,
-                                         enc_out, remat)
+                                         enc_out, remat, pol, unroll)
         elif cfg.family == "hybrid":
             x = T.hybrid_forward(cfg, params.stack, x, positions, remat,
-                                 train)
+                                 train, pol, unroll)
         else:
             x, aux = T.stack_forward(cfg, params.stack, x, positions, remat,
-                                     train)
-        return self._logits(params, x), aux
+                                     train, pol, unroll)
+        return self._logits(params, x, train), aux
 
     @torch.no_grad()
     def forward(self, params: LMParams, batch: Dict[str, Any]) -> torch.Tensor:
         """Logits of every position.  A stack's summed MoE aux loss (0.0
         without experts) is kept as ``_last_aux``, as the JAX package's
         ``forward`` keeps it."""
-        logits, aux = self._forward(params, batch, train=False)
+        with self._sharded():
+            logits, aux = self._forward(params, batch, train=False)
         if self.cfg.family not in ("encdec", "hybrid"):
             self._last_aux = aux
         return logits
@@ -228,16 +285,23 @@ class Model:
         logit, masked, divided by max(count, 1); a MoE model adds 0.01 *
         its summed aux loss / n_layers.  A float32 0-d tensor, with an
         autograd graph to the parameters that require grad."""
-        logits, aux = self._forward(params, batch, train=True)
-        logits = logits.float()
-        labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-        mask = (labels >= 0).float()
-        loss = (torch.sum((lse - picked) * mask)
-                / torch.clamp(torch.sum(mask), min=1.0))
-        if self.cfg.family == "moe":
-            loss = loss + 0.01 * aux / max(self.cfg.n_layers, 1)
+        with self._sharded():
+            batch = self._batch(batch)
+            logits, aux = self._forward(params, batch, train=True)
+            logits = logits.float()
+            labels = torch.as_tensor(batch["labels"],
+                                     device=self.device).long()
+            lse = torch.logsumexp(logits, dim=-1)
+            if self.policy is None:
+                picked = logits.gather(-1, labels.clamp(min=0)[..., None]
+                                       )[..., 0]
+            else:
+                picked = self.policy.pick(logits, labels.clamp(min=0))
+            mask = (labels >= 0).float()
+            loss = (torch.sum((lse - picked) * mask)
+                    / torch.clamp(torch.sum(mask), min=1.0))
+            if self.cfg.family == "moe":
+                loss = loss + 0.01 * aux / max(self.cfg.n_layers, 1)
         return loss
 
     # ------------------------------------------------------------ serving
@@ -248,7 +312,14 @@ class Model:
         ``hybrid`` model's nests the states of its mamba layers, grouped
         (groups, every, ...), and the shared block's k/v per group; an
         ``encdec`` model's adds the cross-attention's ``xk``/``xv`` (L, B,
-        HKV, encoder_seq, hd), which a prefill fills."""
+        HKV, encoder_seq, hd), which a prefill fills.  Under a policy the
+        cache is laid out by its ``cache_spec``."""
+        cache = self._init_cache(batch, cache_len)
+        if self.policy is not None:
+            cache = self.policy.distribute_cache(cache)
+        return cache
+
+    def _init_cache(self, batch: int, cache_len: int) -> T.Cache:
         cfg = self.cfg
         dev = self.device
         if cfg.family == "encdec":
@@ -281,19 +352,23 @@ class Model:
         """Logits of the last position (B, 1, vocab) and the cache,
         padded to ``cache_len`` (an ``ssm`` model's cache is its layers'
         final states, whatever ``cache_len`` is)."""
-        x = self._embed(params, batch)
-        positions = self._positions(batch, x.shape[1], x.shape[0])
-        if self.cfg.family == "encdec":
-            enc_out, x = self._encode(params, batch, x)
-            x, cache = T.decoder_prefill_encdec(self.cfg, params.stack, x,
-                                                positions, enc_out, cache_len)
-        elif self.cfg.family == "hybrid":
-            x, cache = T.hybrid_prefill(self.cfg, params.stack, x, positions,
-                                        cache_len)
-        else:
-            x, cache = T.stack_prefill(self.cfg, params.stack, x, positions,
-                                       cache_len)
-        return self._logits(params, x[:, -1:]), cache
+        pol, unroll = self.policy, self.unroll
+        with self._sharded():
+            batch = self._batch(batch)
+            x = self._act(self._embed(params, batch))
+            positions = self._positions(batch, x.shape[1], x.shape[0])
+            if self.cfg.family == "encdec":
+                enc_out, x = self._encode(params, batch, x)
+                x, cache = T.decoder_prefill_encdec(
+                    self.cfg, params.stack, x, positions, enc_out, cache_len,
+                    pol, unroll)
+            elif self.cfg.family == "hybrid":
+                x, cache = T.hybrid_prefill(self.cfg, params.stack, x,
+                                            positions, cache_len, pol, unroll)
+            else:
+                x, cache = T.stack_prefill(self.cfg, params.stack, x,
+                                           positions, cache_len, pol, unroll)
+            return self._logits(params, x[:, -1:]), cache
 
     @torch.no_grad()
     def decode_step(self, params: LMParams, batch: Dict[str, Any],
@@ -302,21 +377,24 @@ class Model:
         lengths (B,) or a scalar, the current cache fill.  Writes the
         cache in place.  An encoder-decoder adds the decoder position of
         each row's fill, clamped to the table's last row."""
-        x = self._embed(params, batch)
-        lengths = torch.as_tensor(batch["lengths"],
-                                  device=self.device).to(torch.int32)
-        if self.cfg.family == "encdec":
-            pos = lengths.expand(x.shape[0]).clamp(max=DEC_POS_ROWS - 1)
-            x = x + params.dec_pos[pos.long()][:, None]
-            x, cache = T.decoder_decode_encdec(self.cfg, params.stack, x,
-                                               cache, lengths)
-        elif self.cfg.family == "hybrid":
-            x, cache = T.hybrid_decode(self.cfg, params.stack, x, cache,
-                                       lengths)
-        else:
-            x, cache = T.stack_decode(self.cfg, params.stack, x, cache,
-                                      lengths)
-        return self._logits(params, x), cache
+        pol, unroll = self.policy, self.unroll
+        with self._sharded():
+            batch = self._batch(batch)
+            x = self._act(self._embed(params, batch))
+            lengths = torch.as_tensor(batch["lengths"],
+                                      device=self.device).to(torch.int32)
+            if self.cfg.family == "encdec":
+                pos = lengths.expand(x.shape[0]).clamp(max=DEC_POS_ROWS - 1)
+                x = x + params.dec_pos[pos.long()][:, None]
+                x, cache = T.decoder_decode_encdec(self.cfg, params.stack, x,
+                                                   cache, lengths, pol, unroll)
+            elif self.cfg.family == "hybrid":
+                x, cache = T.hybrid_decode(self.cfg, params.stack, x, cache,
+                                           lengths, pol, unroll)
+            else:
+                x, cache = T.stack_decode(self.cfg, params.stack, x, cache,
+                                          lengths, pol, unroll)
+            return self._logits(params, x), cache
 
     # --------------------------------------------------------- input specs
     def input_specs(self, shape: ShapeConfig,

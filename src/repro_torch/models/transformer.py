@@ -25,6 +25,19 @@ The full-sequence stacks the training loss runs (``stack_forward``,
 the backward pass, ``"dots"`` keeps only the outputs of its 2-D matrix
 products.  ``train`` sends a mamba layer's SSD scan through its plain
 version under autograd (see :func:`.mamba2.ssd_chunked`).
+
+Every function takes ``policy``, a :class:`repro_torch.sharding.ShardingPolicy`
+or None, and calls it where the JAX package does: ``attn_qkv`` on q/k/v
+before attention, ``act`` on each block's output, ``mamba_inner`` in the
+mamba block, ``sharded_decode_attention`` in a decode step over a
+sequence-sharded cache.  Under a policy the tensors are DTensors;
+attention, the SSD scan and the MoE experts run on each rank's local
+shards through the policy, and the prefill stacks build their caches
+as the JAX package does (padded per layer, then stacked) and lay them
+out by the policy's ``cache_spec``.  With ``policy=None`` every path is
+the single-device one.  The stacks also take ``unroll``, for the JAX
+package's signature: the depth loop here is Python, so it changes
+nothing (the dry run reads it).
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
@@ -111,22 +125,46 @@ def init_decoder_layer(cfg: ModelConfig, gen: torch.Generator,
                         **ffn)
 
 
+def _gathered(policy, h):
+    return h if policy is None else policy.gathered(h)
+
+
+def _heads_ready(policy):
+    return None if policy is None else policy.heads_ready
+
+
+def _attention(cfg: ModelConfig, q, k, v, causal: bool = True,
+               q_offset: int = 0, policy=None):
+    """``layers.run_attention``, on each rank's heads under a policy."""
+    if policy is None:
+        return L.run_attention(cfg, q, k, v, causal=causal,
+                               q_offset=q_offset)
+    return policy.local_attention(
+        functools.partial(L.run_attention, cfg, causal=causal,
+                          q_offset=q_offset), q, k, v)
+
+
 def attn_block_full(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
                     positions: torch.Tensor, q_offset: int = 0,
-                    causal: bool = True
+                    causal: bool = True, policy=None
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over the layer's own sequence (prefill).  Returns
     (out, (k, v)) so prefill can stash the cache."""
-    h = L.apply_norm(cfg, p.norm1, x)
-    q, k, v = L.qkv_project(cfg, p.attn, h, positions)
-    o = L.run_attention(cfg, q, k, v, causal=causal, q_offset=q_offset)
+    h = _gathered(policy, L.apply_norm(cfg, p.norm1, x))
+    q, k, v = L.qkv_project(cfg, p.attn, h, positions,
+                            heads=_heads_ready(policy))
+    if policy is not None:
+        q, k, v = policy.attn_qkv(q, k, v)
+    o = _attention(cfg, q, k, v, causal, q_offset, policy)
     o = o.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
-    return x + o @ p.attn.wo, (k, v)
+    if policy is None:
+        return x + o @ p.attn.wo, (k, v)
+    return x + policy.act(o @ p.attn.wo), (k, v)
 
 
 def attn_block_decode(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
-                      lengths: torch.Tensor):
+                      lengths: torch.Tensor, policy=None):
     """One-token decode against the cache.  x: (B, 1, D).
 
     Sliding-window archs may hand a *ring buffer* cache of size == window:
@@ -138,66 +176,91 @@ def attn_block_decode(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
     pos = lengths.reshape(-1, 1).expand(b, 1)
     if cfg.mrope:  # decode: all three M-RoPE components advance together
         pos = pos[None].expand((3,) + pos.shape)
-    q, k, v = L.qkv_project(cfg, p.attn, h, pos)
+    q, k, v = L.qkv_project(cfg, p.attn, h, pos, heads=_heads_ready(policy))
     cache_size = k_cache.shape[2]
     window = cfg.sliding_window
     ring = window is not None and cache_size == window
     write_at = lengths % cache_size if ring else lengths
-    k_cache, v_cache = update_kv_cache(k_cache, v_cache, k, v, write_at)
+    write = update_kv_cache if policy is None else policy.update_kv_cache
+    k_cache, v_cache = write(k_cache, v_cache, k, v, write_at)
     valid = (lengths + 1).expand(b)
     if ring:
         valid = torch.clamp(valid, max=cache_size)
         window = None  # the ring already implements the window
-    o = L.decode_attention(q, k_cache, v_cache, valid, window)
+    if policy is None:
+        o = L.decode_attention(q, k_cache, v_cache, valid, window)
+    elif policy.seq_sharded_decode:
+        o = policy.sharded_decode_attention(q, k_cache, v_cache, valid,
+                                            window)
+    else:
+        o = policy.decode_attention(q, k_cache, v_cache, valid, window)
     o = o.transpose(1, 2).reshape(b, 1, -1)
-    return x + o @ p.attn.wo, (k_cache, v_cache)
+    if policy is None:
+        return x + o @ p.attn.wo, (k_cache, v_cache)
+    # the residual stream leaves every block in one layout, as the
+    # full-sequence blocks leave it (DTensor would keep a pending sum)
+    return x + policy.act(o @ p.attn.wo), (k_cache, v_cache)
 
 
-def mlp_block(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor):
+def mlp_block(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
+              policy=None):
     """The feed-forward half of a layer.  Returns (x, aux): the MoE's
     load-balancing loss (float32), or 0.0 without experts."""
-    h = L.apply_norm(cfg, p.norm2, x)
+    h = _gathered(policy, L.apply_norm(cfg, p.norm2, x))
+    if policy is None:
+        if cfg.family == "moe":
+            y, aux = L.moe(cfg, p.moe, h)
+            return x + y, aux
+        return x + L.mlp(cfg, p.mlp, h), 0.0
+    aux = 0.0
     if cfg.family == "moe":
-        y, aux = L.moe(cfg, p.moe, h)
-        return x + y, aux
-    return x + L.mlp(cfg, p.mlp, h), 0.0
+        y, aux = policy.local_moe(functools.partial(L.moe, cfg), p.moe, h)
+    else:
+        y = L.mlp(cfg, p.mlp, h)
+    return x + policy.act(y), aux
+
+
+def _act(policy, y):
+    return y if policy is None else policy.act(y)
 
 
 def decoder_layer_full(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
                        positions: torch.Tensor, q_offset: int = 0,
-                       train: bool = False):
+                       train: bool = False, policy=None):
     """Full-sequence pass of one layer.  Returns (x, (k, v), aux), or
     (x, None, 0.0) for a mamba layer."""
     if cfg.family in MAMBA_FAMILIES:
-        h = L.apply_norm(cfg, p.norm1, x)
-        return (x + M.mamba2_forward(cfg, p.mamba, h, train=train), None,
-                0.0)
-    x, kv = attn_block_full(cfg, p, x, positions, q_offset)
-    x, aux = mlp_block(cfg, p, x)
+        h = _gathered(policy, L.apply_norm(cfg, p.norm1, x))
+        y = M.mamba2_forward(cfg, p.mamba, h, train=train, policy=policy)
+        return x + _act(policy, y), None, 0.0
+    x, kv = attn_block_full(cfg, p, x, positions, q_offset, policy=policy)
+    x, aux = mlp_block(cfg, p, x, policy)
     return x, kv, aux
 
 
 def decoder_layer_full_with_state(cfg: ModelConfig, p: MambaLayer,
-                                  x: torch.Tensor
+                                  x: torch.Tensor, policy=None
                                   ) -> Tuple[torch.Tensor, Cache]:
     """Mamba layer full pass that also returns the final SSM/conv state
     (the prefill path of ``ssm`` and ``hybrid``)."""
-    h = L.apply_norm(cfg, p.norm1, x)
-    y, state = M.mamba2_forward(cfg, p.mamba, h, return_state=True)
-    return x + y, state
+    h = _gathered(policy, L.apply_norm(cfg, p.norm1, x))
+    y, state = M.mamba2_forward(cfg, p.mamba, h, return_state=True,
+                                policy=policy)
+    return x + _act(policy, y), state
 
 
 def decoder_layer_decode(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
-                         cache: Cache, lengths: torch.Tensor):
+                         cache: Cache, lengths: torch.Tensor, policy=None):
     """One-token step of one layer against its cache, written in place.
     Returns (x, the layer's cache, aux)."""
     if cfg.family in MAMBA_FAMILIES:
         h = L.apply_norm(cfg, p.norm1, x)
-        y, state = M.mamba2_decode_step(cfg, p.mamba, h, cache)
-        return x + y, state, 0.0
+        y, state = M.mamba2_decode_step(cfg, p.mamba, h, cache,
+                                        policy=policy)
+        return x + _act(policy, y), state, 0.0
     x, (kc, vc) = attn_block_decode(cfg, p, x, cache["k"], cache["v"],
-                                    lengths)
-    x, aux = mlp_block(cfg, p, x)
+                                    lengths, policy)
+    x, aux = mlp_block(cfg, p, x, policy)
     return x, {"k": kc, "v": vc}, aux
 
 
@@ -247,12 +310,14 @@ def empty_stack(cfg: ModelConfig, n_layers: int,
 
 def stack_forward(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
                   positions: torch.Tensor, remat: str = "none",
-                  train: bool = False) -> Tuple[torch.Tensor, Any]:
+                  train: bool = False, policy=None, unroll: bool = False
+                  ) -> Tuple[torch.Tensor, Any]:
     """Full-sequence pass over all layers.  Returns (x, the sum of the
     layers' aux losses): a float32 scalar tensor, or 0.0 without
     experts."""
     def body(p, h):
-        h, _kv, aux = decoder_layer_full(cfg, p, h, positions, train=train)
+        h, _kv, aux = decoder_layer_full(cfg, p, h, positions, train=train,
+                                         policy=policy)
         return h, aux
 
     body = _maybe_remat(body, remat)
@@ -263,23 +328,44 @@ def stack_forward(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
     return x, total
 
 
+def _stack(policy, ts):
+    return torch.stack(ts) if policy is None else policy.stack(ts)
+
+
+def _padded_kv(k: torch.Tensor, cache_len: int) -> torch.Tensor:
+    return F.pad(k, (0, 0, 0, cache_len - k.shape[2]))
+
+
+def _laid_out(policy, cache: Cache) -> Cache:
+    return cache if policy is None else policy.distribute_cache(cache)
+
+
 def stack_prefill(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
-                  positions: torch.Tensor, cache_len: int
-                  ) -> Tuple[torch.Tensor, Cache]:
+                  positions: torch.Tensor, cache_len: int, policy=None,
+                  unroll: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence pass returning the populated cache, padded with zeros
     to ``cache_len`` (which must hold the sequence).  A mamba stack's
     cache is its layers' final states, whatever ``cache_len`` is."""
     if cfg.family in MAMBA_FAMILIES:
         states = []
         for p in stack:
-            x, st = decoder_layer_full_with_state(cfg, p, x)
+            x, st = decoder_layer_full_with_state(cfg, p, x, policy)
             states.append(st)
-        return x, {k: torch.stack([st[k] for st in states])
-                   for k in states[0]}
+        return x, _laid_out(policy, {k: _stack(policy, [st[k] for st in states])
+                                     for k in states[0]})
     b, s, _ = x.shape
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{s}-token sequence")
+    if policy is not None:
+        ks, vs = [], []
+        for p in stack:
+            x, (k, v), _aux = decoder_layer_full(cfg, p, x, positions,
+                                                 policy=policy)
+            ks.append(_padded_kv(k, cache_len))
+            vs.append(_padded_kv(v, cache_len))
+        return x, policy.distribute_cache({"k": policy.stack(ks),
+                                           "v": policy.stack(vs)})
     shape = (len(stack), b, cfg.n_kv_heads, cache_len, cfg.hd)
     cache = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
     for i, p in enumerate(stack):
@@ -290,11 +376,11 @@ def stack_prefill(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
 
 
 def stack_decode(cfg: ModelConfig, stack: nn.ModuleList, x: torch.Tensor,
-                 cache: Cache, lengths: torch.Tensor
-                 ) -> Tuple[torch.Tensor, Cache]:
+                 cache: Cache, lengths: torch.Tensor, policy=None,
+                 unroll: bool = False) -> Tuple[torch.Tensor, Cache]:
     for i, p in enumerate(stack):
         x, _, _aux = decoder_layer_decode(
-            cfg, p, x, {k: v[i] for k, v in cache.items()}, lengths)
+            cfg, p, x, {k: v[i] for k, v in cache.items()}, lengths, policy)
     return x, cache
 
 
@@ -344,21 +430,22 @@ def _group(cfg: ModelConfig, p: HybridStack, gi: int) -> nn.ModuleList:
 
 def hybrid_forward(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
                    positions: torch.Tensor, remat: str = "none",
-                   train: bool = False) -> torch.Tensor:
+                   train: bool = False, policy=None,
+                   unroll: bool = False) -> torch.Tensor:
     """The mamba groups under ``remat``, one wrap a layer; the shared
     block unwrapped, as in the JAX package."""
     dense_cfg = _as_dense(cfg)
     for gi in range(hybrid_groups(cfg)[0]):
         x, _aux = stack_forward(cfg, _group(cfg, p, gi), x, positions,
-                                remat, train)
+                                remat, train, policy, unroll)
         x, _kv, _aux = decoder_layer_full(dense_cfg, p.shared_attn, x,
-                                          positions)
+                                          positions, policy=policy)
     return x
 
 
 def hybrid_prefill(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
-                   positions: torch.Tensor, cache_len: int
-                   ) -> Tuple[torch.Tensor, Cache]:
+                   positions: torch.Tensor, cache_len: int, policy=None,
+                   unroll: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Full pass returning ``{"mamba": states (groups, every, ...),
     "attn": k/v (groups, B, HKV, cache_len, hd)}``."""
     b, s, _ = x.shape
@@ -367,32 +454,39 @@ def hybrid_prefill(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
                          f"{s}-token sequence")
     dense_cfg = _as_dense(cfg)
     groups, _ = hybrid_groups(cfg)
-    shape = (groups, b, cfg.n_kv_heads, cache_len, cfg.hd)
-    attn = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
-    states = []
+    states, ks, vs = [], [], []
+    if policy is None:
+        shape = (groups, b, cfg.n_kv_heads, cache_len, cfg.hd)
+        attn = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
     for gi in range(groups):
         x, st = stack_prefill(cfg, _group(cfg, p, gi), x, positions,
-                              cache_len)
+                              cache_len, policy, unroll)
         states.append(st)
         x, (k, v), _aux = decoder_layer_full(dense_cfg, p.shared_attn, x,
-                                             positions)
-        attn["k"][gi, :, :, :s] = k
-        attn["v"][gi, :, :, :s] = v
-    mamba = {k: torch.stack([st[k] for st in states]) for k in states[0]}
-    return x, {"mamba": mamba, "attn": attn}
+                                             positions, policy=policy)
+        if policy is None:
+            attn["k"][gi, :, :, :s] = k
+            attn["v"][gi, :, :, :s] = v
+        else:
+            ks.append(_padded_kv(k, cache_len))
+            vs.append(_padded_kv(v, cache_len))
+    mamba = {k: _stack(policy, [st[k] for st in states]) for k in states[0]}
+    if policy is not None:
+        attn = {"k": policy.stack(ks), "v": policy.stack(vs)}
+    return x, _laid_out(policy, {"mamba": mamba, "attn": attn})
 
 
 def hybrid_decode(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
-                  cache: Cache, lengths: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Cache]:
+                  cache: Cache, lengths: torch.Tensor, policy=None,
+                  unroll: bool = False) -> Tuple[torch.Tensor, Cache]:
     dense_cfg = _as_dense(cfg)
     for gi in range(hybrid_groups(cfg)[0]):
         x, _ = stack_decode(cfg, _group(cfg, p, gi), x,
                             {k: v[gi] for k, v in cache["mamba"].items()},
-                            lengths)
+                            lengths, policy, unroll)
         x, _, _aux = decoder_layer_decode(
             dense_cfg, p.shared_attn, x,
-            {k: v[gi] for k, v in cache["attn"].items()}, lengths)
+            {k: v[gi] for k, v in cache["attn"].items()}, lengths, policy)
     return x, cache
 
 
@@ -463,66 +557,88 @@ def empty_encdec(cfg: ModelConfig, device=None) -> EncDecStack:
 
 
 def encoder_forward(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
-                    remat: str = "none") -> torch.Tensor:
+                    remat: str = "none", policy=None,
+                    unroll: bool = False) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings x (B, Se,
     D), positions 0..Se-1."""
     positions = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[:2])
 
     def body(layer, h):
-        h, _kv = attn_block_full(cfg, layer, h, positions, causal=False)
-        return mlp_block(cfg, layer, h)[0]
+        h, _kv = attn_block_full(cfg, layer, h, positions, causal=False,
+                                 policy=policy)
+        return mlp_block(cfg, layer, h, policy)[0]
 
     body = _maybe_remat(body, remat)
     for layer in p.encoder:
         x = body(layer, x)
-    return L.apply_norm(cfg, p.enc_norm, x)
+    return _gathered(policy, L.apply_norm(cfg, p.enc_norm, x))
 
 
 def cross_attention(cfg: ModelConfig, p: CrossLayer, x: torch.Tensor,
-                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    policy=None) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V (B, HKV,
     Se, hd): q's bias only, no mask."""
     b, s, _ = x.shape
-    hn = L.apply_norm(cfg, p.norm_x, x)
+    hn = _gathered(policy, L.apply_norm(cfg, p.norm_x, x))
     q = hn @ p.xattn.wq
     if cfg.qkv_bias:
         q = q + p.xattn.bq
+    if policy is not None:
+        q = policy.heads_ready(q, cfg.n_heads)
     q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
     k, v = enc_kv
-    o = L.run_attention(cfg, q, k, v, causal=False)
-    return x + o.transpose(1, 2).reshape(b, s, -1) @ p.xattn.wo
+    o = _attention(cfg, q, k, v, causal=False, policy=policy)
+    o = o.transpose(1, 2).reshape(b, s, -1) @ p.xattn.wo
+    return x + _act(policy, o)
 
 
 def encoder_kv(cfg: ModelConfig, decoder: nn.ModuleList,
-               enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               enc_out: torch.Tensor, policy=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross K/V from the encoder's output, stacked
-    (L, B, HKV, Se, hd)."""
+    (L, B, HKV, Se, hd): written into one buffer, or under a policy
+    (DTensors) computed per layer and stacked."""
+    stacked = policy is not None
+    heads_ready = _heads_ready(policy)
     b, se, _ = enc_out.shape
     shape = (len(decoder), b, cfg.n_kv_heads, se, cfg.hd)
-    xk, xv = enc_out.new_empty(shape), enc_out.new_empty(shape)
+    if not stacked:
+        xk, xv = enc_out.new_empty(shape), enc_out.new_empty(shape)
+    ks, vs = [], []
     for i, layer in enumerate(decoder):
         k = enc_out @ layer.xattn.wk
         v = enc_out @ layer.xattn.wv
         if cfg.qkv_bias:
             k, v = k + layer.xattn.bk, v + layer.xattn.bv
-        xk[i] = k.reshape(b, se, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-        xv[i] = v.reshape(b, se, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+        if stacked:
+            k, v = (heads_ready(t, cfg.n_kv_heads) for t in (k, v))
+        k = k.reshape(b, se, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+        v = v.reshape(b, se, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+        if stacked:
+            ks.append(k)
+            vs.append(v)
+        else:
+            xk[i], xv[i] = k, v
+    if stacked:
+        return policy.stack(ks), policy.stack(vs)
     return xk, xv
 
 
 def decoder_forward_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
                            positions: torch.Tensor, enc_out: torch.Tensor,
-                           remat: str = "none") -> torch.Tensor:
+                           remat: str = "none", policy=None,
+                           unroll: bool = False) -> torch.Tensor:
     """The decoder over the encoder's output: the cross K/V of every
     layer first, then each layer (self-attention, cross-attention, MLP)
     under ``remat``."""
-    xk, xv = encoder_kv(cfg, p.decoder, enc_out)
+    xk, xv = encoder_kv(cfg, p.decoder, enc_out, policy)
 
     def body(layer, h, ek, ev):
-        h, _kv = attn_block_full(cfg, layer, h, positions)
-        h = cross_attention(cfg, layer, h, (ek, ev))
-        return mlp_block(cfg, layer, h)[0]
+        h, _kv = attn_block_full(cfg, layer, h, positions, policy=policy)
+        h = cross_attention(cfg, layer, h, (ek, ev), policy)
+        return mlp_block(cfg, layer, h, policy)[0]
 
     body = _maybe_remat(body, remat)
     for i, layer in enumerate(p.decoder):
@@ -532,34 +648,46 @@ def decoder_forward_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
 
 def decoder_prefill_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
                            positions: torch.Tensor, enc_out: torch.Tensor,
-                           cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                           cache_len: int, policy=None,
+                           unroll: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Full decoder pass returning the cache: the self-attention's
     ``k``/``v`` padded with zeros to ``cache_len``, and ``xk``/``xv``."""
     b, s, _ = x.shape
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{s}-token sequence")
-    xk, xv = encoder_kv(cfg, p.decoder, enc_out)
+    xk, xv = encoder_kv(cfg, p.decoder, enc_out, policy)
     shape = (len(p.decoder), b, cfg.n_kv_heads, cache_len, cfg.hd)
-    cache = {"k": x.new_zeros(shape), "v": x.new_zeros(shape),
-             "xk": xk, "xv": xv}
+    if policy is None:
+        cache = {"k": x.new_zeros(shape), "v": x.new_zeros(shape),
+                 "xk": xk, "xv": xv}
+    ks, vs = [], []
     for i, layer in enumerate(p.decoder):
-        x, (k, v) = attn_block_full(cfg, layer, x, positions)
-        cache["k"][i, :, :, :s] = k
-        cache["v"][i, :, :, :s] = v
-        x = cross_attention(cfg, layer, x, (xk[i], xv[i]))
-        x, _aux = mlp_block(cfg, layer, x)
+        x, (k, v) = attn_block_full(cfg, layer, x, positions, policy=policy)
+        if policy is None:
+            cache["k"][i, :, :, :s] = k
+            cache["v"][i, :, :, :s] = v
+        else:
+            ks.append(_padded_kv(k, cache_len))
+            vs.append(_padded_kv(v, cache_len))
+        x = cross_attention(cfg, layer, x, (xk[i], xv[i]), policy)
+        x, _aux = mlp_block(cfg, layer, x, policy)
+    if policy is not None:
+        cache = policy.distribute_cache({"k": policy.stack(ks),
+                                         "v": policy.stack(vs),
+                                         "xk": xk, "xv": xv})
     return x, cache
 
 
 def decoder_decode_encdec(cfg: ModelConfig, p: EncDecStack, x: torch.Tensor,
-                          cache: Cache, lengths: torch.Tensor
-                          ) -> Tuple[torch.Tensor, Cache]:
+                          cache: Cache, lengths: torch.Tensor, policy=None,
+                          unroll: bool = False) -> Tuple[torch.Tensor, Cache]:
     """One-token step: the causal self-attention cache, written in place,
     and the static cross K/V."""
     for i, layer in enumerate(p.decoder):
         x, _ = attn_block_decode(cfg, layer, x, cache["k"][i],
-                                 cache["v"][i], lengths)
-        x = cross_attention(cfg, layer, x, (cache["xk"][i], cache["xv"][i]))
-        x, _aux = mlp_block(cfg, layer, x)
+                                 cache["v"][i], lengths, policy)
+        x = cross_attention(cfg, layer, x, (cache["xk"][i], cache["xv"][i]),
+                            policy)
+        x, _aux = mlp_block(cfg, layer, x, policy)
     return x, cache

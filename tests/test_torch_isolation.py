@@ -55,7 +55,10 @@ def test_port_imports_without_jax_or_the_jax_package():
             "repro_torch.launch.profile", "repro_torch.optim",
             "repro_torch.checkpoint", "repro_torch.data.pipeline",
             "repro_torch.distributed",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train", "repro_torch.sharding",
+            "repro_torch.roofline", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.perf"
+            } <= set(names)
 
 
 _FORBIDDEN = re.compile(
