@@ -8,10 +8,12 @@ sequence lengths coexist in one batch.  For the ``ssm`` and ``hybrid``
 families the cache also holds each slot's conv and SSM states; as in the
 JAX package, a reused slot keeps the previous request's states (only its
 length is reset) and idle slots advance on token 0.  Each decode step
-is an eager call of ``Model.decode_step``.  The launcher serves under a
-host mesh and a ``ShardingPolicy`` with unsharded decode caches, as the
-JAX package's does: it starts a one-process world (NCCL on CUDA, gloo
-on the CPU) for the run.
+is an eager call of ``Model.decode_step``.  On one rank the launcher
+serves with no sharding policy.  Under ``torchrun`` with more than one
+rank it starts the process world (NCCL on CUDA, gloo on the CPU) and
+serves under a host mesh over those ranks (heads on ``"model"``) and a
+``ShardingPolicy`` with unsharded decode caches, as the JAX package's
+launcher does; every rank runs the same scheduler on the same requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --preset smoke --slots 4 --requests 8 --max-new 16 [--device cpu]
@@ -24,6 +26,7 @@ of one token, as the JAX package's server does.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -275,19 +278,31 @@ def main(argv=None) -> int:
     cfg = (configs.get_smoke(args.arch) if args.preset == "smoke"
            else configs.get(args.arch))
     from repro_torch import device as tdevice
+    tdevice.resolve(args.device)
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks == 1:
+        # the JAX launcher's host mesh on one device is 1 x 1, where its
+        # policy shards nothing: no policy gives the same outputs without
+        # DTensor's dispatch on every op
+        return _serve(args, cfg, Model(cfg, device=args.device))
+    if args.deadline_s is not None:
+        raise ValueError("--deadline-s runs on one rank: each rank's "
+                         "clock would expire other requests")
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.sharding import PolicyOptions, ShardingPolicy
     dev = tdevice.resolve(args.device)
     with mesh_mod.world("nccl" if dev.type == "cuda" else "gloo"):
-        mesh = mesh_mod.make_host_mesh()
+        mesh = mesh_mod.make_host_mesh(1, ranks)
         policy = ShardingPolicy(mesh, cfg,
                                 PolicyOptions(seq_shard_decode=False))
         model = Model(cfg, device=args.device, policy=policy)
         with mesh_mod.set_mesh(mesh):
-            return _serve(args, cfg, model)
+            return _serve(args, cfg, model,
+                          verbose=torch.distributed.get_rank() == 0)
 
 
-def _serve(args, cfg, model: Model) -> int:
+def _serve(args, cfg, model: Model, verbose: bool = True) -> int:
+    say = print if verbose else (lambda *a: None)
     rng = np.random.default_rng(args.seed)
     params = model.init(torch.Generator(model.device).manual_seed(args.seed))
     server = Server(model, params, args.slots, args.cache_len,
@@ -306,7 +321,7 @@ def _serve(args, cfg, model: Model) -> int:
             raise RuntimeError("serving loop did not converge")
     dt = time.perf_counter() - t0
     toks = sum(len(r.output) for r in reqs)
-    print(f"served {len(reqs)} requests on {model.device}, {toks} tokens in "
+    say(f"served {len(reqs)} requests on {model.device}, {toks} tokens in "
           f"{dt:.2f}s ({toks / dt:.1f} tok/s, {steps} engine steps)")
     stats = server.stats()
     lat = stats["latency_s"]
@@ -315,15 +330,15 @@ def _serve(args, cfg, model: Model) -> int:
         return f"{v * 1e3:.1f}ms" if v is not None else "n/a"
 
     tps = stats["tokens_per_s"]
-    print(f"latency: p50={_ms(lat['p50'])} p95={_ms(lat['p95'])} "
+    say(f"latency: p50={_ms(lat['p50'])} p95={_ms(lat['p95'])} "
           f"p99={_ms(lat['p99'])} over {lat['count']} requests; "
           "telemetry tokens/s="
           f"{f'{tps:.1f}' if tps is not None else 'n/a'}")
     if server.rejected or server.expired:
-        print(f"admission: rejected={stats['rejected']} "
+        say(f"admission: rejected={stats['rejected']} "
               f"expired={stats['expired']}")
     if any(stats["guard"].values()):
-        print("guard: " + " ".join(f"{k}={v}" for k, v
+        say("guard: " + " ".join(f"{k}={v}" for k, v
                                    in stats["guard"].items() if v))
     if not all(r.done for r in reqs):
         raise RuntimeError("a request was left unfinished")

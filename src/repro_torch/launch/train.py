@@ -26,13 +26,16 @@ the CPU), lays the parameters and the ZeRO-1 optimizer state out by a
 
 Checkpoints gather the sharded state to full tensors, which rank 0
 writes in the same byte format; a restore lays each rank's shards out
-again.
+again.  A gather is collective, so on a mesh the ranks agree after
+every step on whether to snapshot: a straggler snapshot or a SIGTERM
+seen by any rank makes every rank save (and, after a SIGTERM, stop).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import signal
 import types
 from typing import Any, Dict, Optional
 
@@ -93,6 +96,15 @@ def _gathered(state: Dict[str, Any]) -> Dict[str, Any]:
     out["params"] = types.SimpleNamespace(
         named_parameters=lambda: iter(named.items()))
     return out
+
+
+def _any_rank(flags, device) -> list:
+    """Each of ``flags`` (bools) OR-ed over the ranks of the world: one
+    all-reduce, so every rank takes the same branch."""
+    t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                     device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return [bool(v) for v in t.tolist()]
 
 
 def _full_skeleton(cfg, state: Dict[str, Any]) -> Dict[str, Any]:
@@ -188,16 +200,24 @@ def main(argv=None) -> int:
         return convert.train_state_to_tree(
             cfg, state if policy is None else _gathered(state))
 
-    def save(at: int) -> None:
+    def save(at: int, extra=None) -> None:
         tree = snapshot()           # every rank takes part in the gathers
         if rank0:
-            checkpointer.save_async(at, tree)
+            checkpointer.save_async(at, tree, extra)
 
     monitor = StragglerMonitor()
     metrics_log = []
-    if checkpointer is not None:
+    # on one card the SIGTERM hook saves at once; on a mesh it only flags
+    # the signal, and the ranks save together after the step
+    preempted = [False]
+    old_handler = None
+    if checkpointer is not None and policy is None:
         checkpointer.install_preemption_hook(
             lambda: (state["step"], snapshot()))
+    elif checkpointer is not None:
+        def flag_preempted(signum, frame):
+            preempted[0] = True
+        old_handler = signal.signal(signal.SIGTERM, flag_preempted)
     try:
         for step in range(start_step, args.steps):
             batch = {k: torch.as_tensor(v, device=model.device)
@@ -210,7 +230,17 @@ def main(argv=None) -> int:
             if ev is not None:
                 print(f"[straggler] step {ev.step}: {ev.duration_s:.2f}s "
                       f"({ev.ratio:.1f}x median)")
-            if monitor.should_checkpoint and checkpointer is not None:
+            straggling, stop = monitor.should_checkpoint, False
+            if policy is not None and checkpointer is not None:
+                straggling, stop = _any_rank((straggling, preempted[0]),
+                                             model.device)
+            if stop:
+                save(step + 1, {"preempted": True})
+                checkpointer.wait()
+                print(f"preempted: saved step {step + 1}", flush=True)
+                torch.distributed.barrier()
+                raise SystemExit(128 + signal.SIGTERM)
+            if straggling and checkpointer is not None:
                 save(step + 1)
             if step % args.log_every == 0 or step == args.steps - 1:
                 gn = float(metrics["grad_norm"])
@@ -227,6 +257,8 @@ def main(argv=None) -> int:
     finally:
         if checkpointer is not None:
             checkpointer.remove_preemption_hook()
+        if old_handler is not None:
+            signal.signal(signal.SIGTERM, old_handler)
         if policy is not None:
             from repro_torch.launch import mesh as mesh_mod
             mesh_mod.destroy_world()

@@ -133,6 +133,10 @@ def _heads_ready(policy):
     return None if policy is None else policy.heads_ready
 
 
+def _act(policy, y):
+    return y if policy is None else policy.act(y)
+
+
 def _attention(cfg: ModelConfig, q, k, v, causal: bool = True,
                q_offset: int = 0, policy=None):
     """``layers.run_attention``, on each rank's heads under a policy."""
@@ -157,9 +161,7 @@ def attn_block_full(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
         q, k, v = policy.attn_qkv(q, k, v)
     o = _attention(cfg, q, k, v, causal, q_offset, policy)
     o = o.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
-    if policy is None:
-        return x + o @ p.attn.wo, (k, v)
-    return x + policy.act(o @ p.attn.wo), (k, v)
+    return x + _act(policy, o @ p.attn.wo), (k, v)
 
 
 def attn_block_decode(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
@@ -187,19 +189,15 @@ def attn_block_decode(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
     if ring:
         valid = torch.clamp(valid, max=cache_size)
         window = None  # the ring already implements the window
-    if policy is None:
-        o = L.decode_attention(q, k_cache, v_cache, valid, window)
-    elif policy.seq_sharded_decode:
-        o = policy.sharded_decode_attention(q, k_cache, v_cache, valid,
-                                            window)
-    else:
-        o = policy.decode_attention(q, k_cache, v_cache, valid, window)
+    attend = (L.decode_attention if policy is None
+              else policy.sharded_decode_attention
+              if policy.seq_sharded_decode else policy.decode_attention)
+    o = attend(q, k_cache, v_cache, valid, window)
     o = o.transpose(1, 2).reshape(b, 1, -1)
-    if policy is None:
-        return x + o @ p.attn.wo, (k_cache, v_cache)
-    # the residual stream leaves every block in one layout, as the
-    # full-sequence blocks leave it (DTensor would keep a pending sum)
-    return x + policy.act(o @ p.attn.wo), (k_cache, v_cache)
+    # under a policy the residual stream leaves every block in one
+    # layout, as the full-sequence blocks leave it (DTensor would keep a
+    # pending sum)
+    return x + _act(policy, o @ p.attn.wo), (k_cache, v_cache)
 
 
 def mlp_block(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
@@ -207,21 +205,12 @@ def mlp_block(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor,
     """The feed-forward half of a layer.  Returns (x, aux): the MoE's
     load-balancing loss (float32), or 0.0 without experts."""
     h = _gathered(policy, L.apply_norm(cfg, p.norm2, x))
-    if policy is None:
-        if cfg.family == "moe":
-            y, aux = L.moe(cfg, p.moe, h)
-            return x + y, aux
-        return x + L.mlp(cfg, p.mlp, h), 0.0
-    aux = 0.0
-    if cfg.family == "moe":
-        y, aux = policy.local_moe(functools.partial(L.moe, cfg), p.moe, h)
-    else:
-        y = L.mlp(cfg, p.mlp, h)
-    return x + policy.act(y), aux
-
-
-def _act(policy, y):
-    return y if policy is None else policy.act(y)
+    if cfg.family != "moe":
+        return x + _act(policy, L.mlp(cfg, p.mlp, h)), 0.0
+    moe = functools.partial(L.moe, cfg)
+    y, aux = (moe(p.moe, h) if policy is None
+              else policy.local_moe(moe, p.moe, h))
+    return x + _act(policy, y), aux
 
 
 def decoder_layer_full(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,

@@ -5,7 +5,9 @@ that parallel workers never share a port.  Each test reads one check of
 that run: flash-decoding against both packages' decode attention, a
 sharded train step and every family's gradient against one rank's,
 ``compressed_psum`` with distinct shards, the ZeRO-1 state, sharded
-serving, and the kernel wrappers refusing DTensors."""
+serving, and the kernel wrappers refusing DTensors.  The train
+launcher runs under ``torchrun --standalone``, which rendezvouses on a
+free port."""
 import os
 import re
 import subprocess
@@ -77,8 +79,8 @@ def test_train_launcher_on_four_ranks_checkpoints_as_one_card(tmp_path):
         text=True, timeout=300)
     assert one.returncode == 0, one.stderr[-2000:]
     four = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "4", "-m", "repro_torch.launch.train", *common, "--data-par", "2",
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *common, "--data-par", "2",
          "--model-par", "2", "--ckpt-dir", str(tmp_path / "four")],
         env=env, capture_output=True, text=True, timeout=300)
     assert four.returncode == 0, four.stderr[-2000:]
@@ -125,10 +127,48 @@ def test_train_launcher_on_four_ranks_checkpoints_as_one_card(tmp_path):
         total += la[k].size
     assert beyond <= 1e-3 * total, (beyond, total)
     resumed = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "4", "-m", "repro_torch.launch.train",
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
          *[c if c != "3" else "4" for c in common], "--data-par", "2",
          "--model-par", "2", "--ckpt-dir", str(tmp_path / "four")],
         env=env, capture_output=True, text=True, timeout=300)
     assert resumed.returncode == 0, resumed.stderr[-2000:]
     assert "resumed from step 3" in resumed.stdout
+
+
+@pytest.mark.timeout(300)
+def test_train_launcher_snapshots_on_every_rank_when_one_rank_asks(tmp_path):
+    """Two gloo ranks, where only rank 1 sees a sustained straggler (after
+    step 1) and a SIGTERM (during step 3): the ranks agree, so both take
+    part in each snapshot's gathers instead of one waiting alone.  Rank 0
+    writes the straggler snapshot at step 2 and the preemption snapshot
+    at step 4, and both ranks stop there."""
+    import json
+    ck = tmp_path / "ck"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # a hang is the failure this test looks for: the script ends its
+    # ranks after 90 s, and torchrun tears down what is left on SIGTERM
+    run = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2",
+         os.path.join(ROOT, "tests", "torch_train_agreement_script.py"),
+         "--device", "cpu", "--model-par", "2", "--steps", "6",
+         "--seq-len", "32", "--global-batch", "4", "--ckpt-every", "0",
+         "--log-every", "1", "--ckpt-dir", str(ck)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = run.communicate(timeout=150)
+    except subprocess.TimeoutExpired:
+        run.terminate()
+        out, err = run.communicate(timeout=60)
+    assert "Alarm clock" not in err and "SIGALRM" not in err, \
+        f"the ranks hung:\n{err[-2000:]}"
+    assert run.returncode != 0
+    assert "preempted: saved step 4" in out, err[-2000:]
+    assert "step     3 loss" not in out
+    assert sorted(os.listdir(ck)) == ["LATEST", "step_00000002",
+                                      "step_00000004"]
+    with open(ck / "step_00000004" / "manifest.json") as f:
+        assert json.load(f)["extra"] == {"preempted": True}
+    with open(ck / "step_00000002" / "manifest.json") as f:
+        assert json.load(f)["extra"] == {}

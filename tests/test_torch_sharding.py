@@ -235,7 +235,42 @@ def test_a_one_rank_policy_gives_the_unsharded_outputs(gloo_world, arch):
             assert (g0[n] - g).abs().max().item() <= 1e-6 * top, n
 
 
+SERVE_ARGS = ["--device", "cpu", "--requests", "3", "--slots", "2",
+              "--max-new", "4"]
+
+
+@pytest.mark.timeout(300)
 def test_the_serve_launcher_runs_under_its_policy():
+    """Two gloo ranks under ``torchrun --standalone`` (a free port): the
+    launcher serves under a 1 x 2 host mesh and its policy, and rank 0
+    alone reports."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         *SERVE_ARGS], env=dict(os.environ,
+                                PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=240)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert run.stdout.count("served 3 requests on cpu, 12 tokens") == 1
+
+
+def test_the_serve_launcher_on_one_rank_serves_without_a_policy(
+        monkeypatch):
+    """One rank: the JAX launcher's 1 x 1 host mesh, whose policy shards
+    nothing, so the port serves with no policy (and no process world)."""
+    import torch.distributed as dist
     from repro_torch.launch import serve
-    assert serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
-                       "--max-new", "4"]) == 0
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    served = []
+    run = serve._serve
+
+    def spy(args, cfg, model, verbose=True):
+        served.append((model.policy, dist.is_initialized()))
+        return run(args, cfg, model, verbose)
+    monkeypatch.setattr(serve, "_serve", spy)
+    assert serve.main(SERVE_ARGS) == 0
+    assert served == [(None, False)]
