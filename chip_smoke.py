@@ -75,10 +75,21 @@ Eleven phases, each printing one JSON line per check:
    googlenet_tiny with faults on a concat-fused producer's slice.  Every
    report (outcome, flagged stages, actions, ``replayed``) and output
    equal to the same plan's on the plain path.  SER campaigns (weight
-   bit, dropped tile, activation bit; seed 0, 2 checkpoints): VGG-16, 64
-   trials, and mobilenet_tiny@224, 32, every trial record equal to the
-   plain path's, with counts, Wilson intervals, trials/s and the derived
-   audit set.  The audit's cost (guarded vs unguarded walls, taking
+   bit, dropped tile, activation bit; seed 0, 2 checkpoints, chunks of
+   32 trials, each chunk one call of the executor's trial form, so that
+   its stages with trial weights launch the kernels' trial forms):
+   VGG-16, 64 trials, mobilenet_tiny@224, googlenet_tiny, dw_concat and
+   alexnet_2tower, 32 each, every trial record equal to the plain path's
+   and to a per-trial yardstick's (each plan through ``inject`` and the
+   audited executor alone), with counts, Wilson intervals, trials/s of
+   all three, a one-chunk campaign's device ms, the peak memory and the
+   derived audit set; then each trial form (dense, into, grouped and
+   depthwise convs, the GEMM) at the campaigns' shapes with T = 32, N =
+   1 (VGG-16's 13 convs and 3 FCs, mobilenet_tiny@224's depthwise
+   stages, googlenet_tiny's concat producers, dw_concat's depthwise
+   producer, alexnet_2tower's grouped convs) ``torch.equal`` to its
+   plain version and to the single kernel's loop over the trials, timed
+   beside both and its bound.  The audit's cost (guarded vs unguarded walls, taking
    turns), the stage-timed VGG-16 ``torch.equal`` to the executor with
    every stage timed, and ``profile_model`` for VGG-16 and AlexNet;
 5. lm, the dense-LM serving path in bf16 with random weights from a
@@ -315,13 +326,23 @@ def time_ms(torch, fn, reps: int = TIME_REPS, flush=None) -> float:
 
 def wrappers():
     """The kernel wrappers the executor and the LM layers call, by name:
-    {name: (module, wrapper, plain version)}."""
-    from repro_torch.kernels import flash_attention as fa, qconv, qgemm
+    {name: (module, wrapper, plain version)}; the convs' and the GEMM's
+    trial forms (an SER campaign's chunk) with the loops of
+    ``kernels/ref.py``."""
+    from repro_torch.kernels import flash_attention as fa, qconv, qgemm, ref
     from repro_torch.kernels import ssd_scan as ssd
     return {"qconv2d": (qconv, qconv.qconv2d, qconv.qconv2d_plain),
             "qdwconv2d": (qconv, qconv.qdwconv2d, qconv.qdwconv2d_plain),
             "qgconv2d": (qconv, qconv.qgconv2d, qconv.qconv2d_plain),
             "qgemm": (qgemm, qgemm.qgemm, qgemm.qgemm_plain),
+            "qconv2d_trials": (qconv, qconv.qconv2d_trials,
+                               ref.qconv2d_trials_ref),
+            "qdwconv2d_trials": (qconv, qconv.qdwconv2d_trials,
+                                 ref.qdwconv2d_trials_ref),
+            "qgconv2d_trials": (qconv, qconv.qgconv2d_trials,
+                                ref.qgconv2d_trials_ref),
+            "qgemm_trials": (qgemm, qgemm.qgemm_trials,
+                             ref.qgemm_trials_ref),
             "flash_attention": (fa, fa.flash_attention,
                                 fa.flash_attention_plain),
             "ssd_scan": (ssd, ssd.ssd_scan, ssd.ssd_scan_plain)}
@@ -350,11 +371,12 @@ def plain_ops():
 def recorded_calls(calls: list):
     """Record (kernel name, args, kwargs) of every kernel wrapper call the
     executor makes inside the block; a call into a concat buffer is
-    named ``<wrapper>_into``."""
+    named ``<wrapper>_into`` (a trial form's ``<wrapper>_into_trials``)."""
     def make(name, fn, _plain):
         def rec(*a, **kw):
             into = "_into" if kw.get("out_buf") is not None else ""
-            calls.append((name + into, a, kw))
+            base = name.removesuffix("_trials")
+            calls.append((base + into + name[len(base):], a, kw))
             return fn(*a, **kw)
         return rec
     return patched_wrappers(make)
@@ -1610,38 +1632,144 @@ def first_upset(gx, qm, faults_mod, candidates):
     return gxf, plan
 
 
-def campaign_pair(torch, gate, x, tag, trials, card):
-    """One SER campaign on the kernel path and the same on the plain
-    path: every trial record equal; print counts, Wilson intervals and
-    trials/s, and the derived audit set (or the silent trials)."""
+def campaign_yardstick(torch, gate, x, *, trials, kinds, seed, checkpoints,
+                       flips=1):
+    """The campaign one trial at a time, as the port ran it before its
+    trial form: each plan through ``faults.inject`` and the audited
+    executor alone, each detected trial's snapshot replayed alone through
+    the golden ``replay_from`` executor.  Returns its ``TrialRecord``s, the
+    yardstick ``run_campaign``'s are held to."""
+    from repro_torch.core import faults as F
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core import resources as R
     from repro_torch.core import ser
+
+    qm = gate.quantized
+    stages = qm.layers
+    names = [ql.info.name for ql in stages]
+    plans = [F.FaultPlan.sample(qm, flips, kinds=kinds, seed=seed + 17 * t)
+             for t in range(trials)]
+    a_touched = sorted({f.tensor for p in plans for f in p.faults
+                        if f.kind == F.ACTIVATION_BIT})
+    slots = max([sum(1 for f in p.faults if f.kind == F.ACTIVATION_BIT)
+                 for p in plans] + [1])
+    bnd = R.plan_checkpoints(gate.parsed, checkpoints)
+
+    def run(qm_t, plan):
+        ex = pipe.make_executor(qm_t, audit=True, checkpoints=bnd or None,
+                                fault_args=tuple(a_touched))
+        extra = ((ser._trial_payload(plan, a_touched, slots),)
+                 if a_touched else ())
+        res = ex(x, *extra)
+        return res[0], pipe.stats_to_host(res[1]), (res[2] if bnd else {})
+
+    y0, st0, _ = run(qm, F.FaultPlan(()))
+    audited = sorted(st0)
+    t2s = {ql.info.output: ql.info.name for ql in stages}
+    replays = {b: pipe.make_executor(qm, audit=True, replay_from=b)
+               for b in bnd}
+    records = []
+    for plan in plans:
+        y, st, ck = run(F.inject(qm, plan), plan)
+        flags = ser._flag_matrix({t: st[t][None] for t in audited}, st0,
+                                 audited, 0.0, 0.0)[0]
+        differs = not torch.equal(y, y0)
+        flagged = tuple(t2s[t] for t, hit in zip(audited, flags)
+                        if hit and t in t2s)
+        rec = ser.TrialRecord(
+            plan=plan, stages=tuple(dict.fromkeys(f.stage
+                                                  for f in plan.faults)),
+            flagged=flagged, outcome=("detected" if flagged else
+                                      "masked" if not differs else "silent"),
+            output_differs=differs)
+        if flagged:
+            first = min(names.index(s) for s in flagged)
+            b = max([c for c in bnd if c < first], default=None)
+            rec.recovered = True
+            if b is None:
+                rec.escalated, rec.replayed = True, len(stages)
+            else:
+                yr, sr = replays[b](ck[names[b]])
+                sr = pipe.stats_to_host(sr)
+                clean = not ser._flag_matrix(
+                    {t: sr[t][None] for t in sr}, st0, list(sr), 0.0,
+                    0.0)[0].any() and torch.equal(yr, y0)
+                rec.escalated = not clean
+                rec.replayed = (len(stages) - (b + 1) if clean
+                                else len(stages))
+        records.append(rec)
+    return records
+
+
+def campaign_pair(torch, gate, x, tag, trials, card, launched):
+    """One SER campaign on the kernel path (its chunks on the kernels'
+    trial forms; the launches they make are added to ``launched``), the
+    same on the plain path and the per-trial yardstick
+    (:func:`campaign_yardstick`): every trial record equal to both.
+    Print counts, Wilson intervals, trials/s of all three (the kernel
+    path's from a second, timed run: the first also pays the caching
+    allocator's first requests, printed as ``cold_seconds``), the device
+    ms of a one-chunk campaign, the peak memory, and the derived audit
+    set (or the silent trials)."""
+    from repro_torch.core import ser
+    from repro_torch.kernels import ops
 
     kw = dict(trials=trials, kinds=ser.CAMPAIGN_KINDS, seed=SEED,
               checkpoints=2, chunk=32)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
     t0 = time.perf_counter()
     camp = ser.run_campaign(gate, x, **kw)
     torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for k, n in ops.launch_counts().items():
+        launched[k] = launched.get(k, 0) + n - before[k]
+    t0 = time.perf_counter()
+    again = ser.run_campaign(gate, x, **kw)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check("resilience", f"{tag}_campaign_repeats_its_records",
+          [record_key(r) for r in again.records]
+          == [record_key(r) for r in camp.records], trials=trials)
     with plain_ops():
         t0 = time.perf_counter()
         plain = ser.run_campaign(gate, x, **kw)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-    same = [record_key(a) == record_key(b)
-            for a, b in zip(camp.records, plain.records)]
+    t0 = time.perf_counter()
+    yard = campaign_yardstick(torch, gate, x, trials=trials,
+                              kinds=kw["kinds"], seed=SEED, checkpoints=2)
+    torch.cuda.synchronize()
+    yard_wall = time.perf_counter() - t0
+    for other, name in ((plain.records, "plain_path"), (yard, "yardstick")):
+        same = [record_key(a) == record_key(b)
+                for a, b in zip(camp.records, other)]
+        check("resilience", f"{tag}_campaign_records_equal_{name}",
+              all(same) and len(same) == trials == len(other),
+              trials=trials, differing=[i for i, v in enumerate(same)
+                                        if not v],
+              kinds=list(kw["kinds"]))
+    one = dict(kw, trials=kw["chunk"])
+    t0 = time.perf_counter()
+    ser.run_campaign(gate, x, **one)
+    torch.cuda.synchronize()
+    one_wall = (time.perf_counter() - t0) * 1e3
+    chunk_dev = device_time(torch, lambda: ser.run_campaign(gate, x, **one),
+                            one_wall)
     s = camp.summary()
-    check("resilience", f"{tag}_campaign_records_equal_plain_path",
-          all(same) and len(same) == trials, trials=trials,
-          differing=[i for i, v in enumerate(same) if not v],
-          kinds=list(kw["kinds"]))
     emit(phase="resilience", model=tag, what="ser_campaign",
-         trials=trials, counts=s["counts"], rates=s["rates"],
-         mean_replayed_stages=s["mean_replayed_stages"],
+         trials=trials, chunk=kw["chunk"], counts=s["counts"],
+         rates=s["rates"], mean_replayed_stages=s["mean_replayed_stages"],
          n_stages=s["n_stages"], boundaries=s["checkpoints"]["stages"],
-         seconds=wall, trials_per_s=trials / wall,
+         seconds=wall, trials_per_s=trials / wall, cold_seconds=cold,
          plain_seconds=plain_wall, plain_trials_per_s=trials / plain_wall,
-         card=card)
+         yardstick_seconds=yard_wall,
+         yardstick_trials_per_s=trials / yard_wall,
+         max_memory_allocated_gb=peak / 1e9,
+         one_chunk_campaign_wall_ms=one_wall,
+         one_chunk_campaign_device=chunk_dev, card=card)
     silent = [dict(plan=[dataclasses.asdict(f) for f in r.plan.faults],
                    flagged=r.flagged) for r in camp.records
               if r.outcome == "silent"]
@@ -1657,6 +1785,159 @@ def campaign_pair(torch, gate, x, tag, trials, card):
     return camp
 
 
+#: The single-trial wrapper, the trial form and its plain version of each
+#: kernel a campaign's chunk runs, by the recorded name of the single call.
+def trial_forms():
+    from repro_torch.kernels import qconv, qgemm, ref
+    return {"qconv2d": (qconv.qconv2d, qconv.qconv2d_trials,
+                        ref.qconv2d_trials_ref),
+            "qconv2d_into": (qconv.qconv2d, qconv.qconv2d_trials,
+                             ref.qconv2d_into_trials_ref),
+            "qdwconv2d": (qconv.qdwconv2d, qconv.qdwconv2d_trials,
+                          ref.qdwconv2d_trials_ref),
+            "qdwconv2d_into": (qconv.qdwconv2d, qconv.qdwconv2d_trials,
+                               ref.qdwconv2d_into_trials_ref),
+            "qgconv2d": (qconv.qgconv2d, qconv.qgconv2d_trials,
+                         ref.qgconv2d_trials_ref),
+            "qgemm": (qgemm.qgemm, qgemm.qgemm_trials, ref.qgemm_trials_ref)}
+
+
+def trial_kernel_checks(torch, dev, run, x, kinds, tag, out,
+                        trials: int = 32) -> None:
+    """Each ``kinds`` call of one batch-1 forward of ``run`` at its shapes,
+    as a campaign's chunk makes it: ``trials`` trials' inputs (random
+    int8) against ``trials`` random weight images, through the kernel's
+    trial form (one launch), its trial-batched plain version and the loop
+    of the single-trial kernel over the trials (each with its own
+    staged copy); all three ``torch.equal``.  Times the trial form and
+    the loop (L2 flushed before each) and the plain version, and adds
+    each call's times, bytes and int8 operations to ``out[<name>_trials]``
+    (the into forms as ``<name>_into_trials``)."""
+    from repro_torch.kernels import qconv, qgemm
+    calls: list = []
+    with recorded_calls(calls):
+        run(x)
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
+    forms = trial_forms()
+    for name, a, kw in calls:
+        if name not in kinds:
+            continue
+        single, trial_fn, plain = forms[name]
+        x1, w1, b = a[0], a[1], a[2]
+        n = x1.shape[0]
+        xs = rand_i8(torch, (trials * n,) + tuple(x1.shape[1:]), gen, dev)
+        ws = rand_i8(torch, (trials,) + tuple(w1.shape), gen, dev)
+        kw = {k: v for k, v in kw.items() if k != "w_k"}
+        dw = name.startswith("qdwconv2d")
+        wk = (None if dw else qgemm.stage_kmajor(ws) if name == "qgemm"
+              else qconv.stage_kmajor(ws))
+        if kw.get("skip") is not None:
+            sk = kw["skip"]
+            kw["skip"] = rand_i8(torch, (trials * sk.shape[0],)
+                                 + tuple(sk.shape[1:]), gen, dev)
+        buf = kw.pop("out_buf", None)
+
+        def bufs():
+            if buf is None:
+                return {}
+            return dict(out_buf=torch.full((trials * n,) + tuple(
+                buf.shape[1:]), 77, dtype=torch.int8, device=dev))
+
+        def rows(t, extra):
+            sl = slice(t * n, (t + 1) * n)
+            part = {k: v[sl] for k, v in extra.items()}
+            if kw.get("skip") is not None:
+                part["skip"] = kw["skip"][sl]
+            return sl, part
+
+        wkw = {} if dw else {"w_k": wk}
+        ob = bufs()
+        y = trial_fn(xs, ws, b, **wkw, **ob, **kw)
+        yp = plain(xs, ws, b, **bufs(), **kw)
+        lb = bufs()
+
+        def loop(lb=lb):
+            outs = []
+            for t in range(trials):
+                sl, part = rows(t, lb)
+                wkt = {} if dw else {"w_k": wk[t]}
+                outs.append(single(xs[sl], ws[t], b, **wkt,
+                                   **dict(kw, **part)))
+            return lb["out_buf"] if lb else torch.cat(outs)
+        yl = loop()
+        torch.cuda.synchronize()
+        err = max((y.int() - yp.int()).abs().max().item(),
+                  (y.int() - yl.int()).abs().max().item())
+        key = name + "_trials"
+        r = out.setdefault(key, dict(ms=0.0, plain_ms=0.0, loop_ms=0.0,
+                                     bytes=0, ops=0, calls=0, err=0,
+                                     path=tag, trials=trials))
+        check("resilience", f"{tag}_{key}_call{r['calls']}_equals_plain_"
+              "and_the_single_kernel_loop", err == 0, max_abs_err=err,
+              shapes=[list(xs.shape), list(ws.shape)])
+        ms = time_ms(torch, lambda: trial_fn(xs, ws, b, **wkw, **ob, **kw),
+                     flush=flush)
+        loop_ms = time_ms(torch, loop, flush=flush)
+        plain_ms = time_ms(torch, lambda: plain(xs, ws, b, **bufs(), **kw),
+                           reps=3)
+        if name == "qgemm":
+            m, k = n, x1.shape[1]
+            cout = w1.shape[1]
+            nbytes = trials * (m * k + k * cout + m * cout) + 4 * cout
+            nops = 2 * trials * m * k * cout
+        else:
+            _nb, hp, wp, _cin = x1.shape
+            kh, kw_, cin_g, cout = w1.shape
+            sh, sw = kw["strides"]
+            ho, wo = (hp - kh) // sh + 1, (wp - kw_) // sw + 1
+            pool = kw.get("pool")
+            oh, ow = ((ho - pool[0]) // pool[1] + 1,
+                      (wo - pool[0]) // pool[1] + 1) if pool else (ho, wo)
+            nbytes = (xs.numel() + ws.numel() + 4 * cout
+                      + trials * n * oh * ow * cout)
+            if kw.get("skip") is not None:
+                nbytes += kw["skip"].numel()
+            nops = 2 * trials * n * ho * wo * cout * kh * kw_ * cin_g
+        emit(phase="trial_timing", kernel=key, path=tag, call=r["calls"],
+             trials=trials, shapes=[list(xs.shape), list(ws.shape)],
+             ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+             bound_ms=max(nbytes / card().hbm_bandwidth,
+                          nops / card().peak_int8_ops) * 1e3)
+        r["ms"] += ms
+        r["loop_ms"] += loop_ms
+        r["plain_ms"] += plain_ms
+        r["bytes"] += nbytes
+        r["ops"] += nops
+        r["calls"] += 1
+        r["err"] = max(r["err"], err)
+
+
+def trial_records(out, launched, card_name) -> dict:
+    """The ``kernels`` line's records of the trial forms: launches from
+    the campaigns (``launched``), times and bounds from
+    :func:`trial_kernel_checks` (``out``)."""
+    recs = {}
+    for key, r in out.items():
+        t_bytes = r["bytes"] / card().hbm_bandwidth * 1e3
+        t_ops = r["ops"] / card().peak_int8_ops * 1e3
+        recs[key] = dict(
+            launches=launched.get(key, 0), max_abs_err=r["err"],
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None,
+            extra=dict(loop_ms=r["loop_ms"], trials=r["trials"],
+                       calls_timed=r["calls"], path=r["path"],
+                       card=card_name))
+        emit(phase="resilience", what="trial_form", kernel=key,
+             **{k: v for k, v in recs[key].items() if k != "extra"},
+             **recs[key]["extra"])
+    return recs
+
+
 def phase_resilience(torch, dev, records):
     """The resilience layer and the stage-timed profile on the int8 CNN
     path: guarded VGG-16 at full width (clean, a weight flip replayed
@@ -1665,11 +1946,15 @@ def phase_resilience(torch, dev, records):
     ResNet-18 per-channel (a shift-lane fault to the per-tensor rung),
     googlenet_tiny (faults on a concat-fused producer's slice), each
     report and output equal to the same plan's on the plain path; SER
-    campaigns on VGG-16 and mobilenet_tiny@224 with every trial record
-    equal to the plain path's; the audit's cost beside the unguarded
-    executor; the stage-timed VGG-16 and ``profile_model`` for VGG-16 and
-    AlexNet.  The launch counts are set to 0 before the phase's kernel
-    runs and read after them."""
+    campaigns on VGG-16, mobilenet_tiny@224, googlenet_tiny, dw_concat
+    and alexnet_2tower, each chunk on the kernels' trial forms, every
+    trial record equal to the plain path's and the per-trial
+    yardstick's; the trial forms held against their plain versions and
+    the single kernel's loop at the campaigns' shapes; the audit's cost
+    beside the unguarded executor; the stage-timed VGG-16 and
+    ``profile_model`` for VGG-16 and AlexNet.  The launch counts are set
+    to 0 before the phase's kernel runs and read after them; the trial
+    forms' launches are those the kernel-path campaigns made."""
     from repro_torch.core import faults as F
     from repro_torch.core import pipeline as pipe
     from repro_torch.core.guard import GuardPolicy
@@ -1784,18 +2069,51 @@ def phase_resilience(torch, dev, records):
     guarded_run(torch, gxf, xg, "googlenet_tiny_concat_producer_weight_bit",
                 g_golden, ok=True)
 
-    # SER campaigns
-    campaign_pair(torch, gate, x, "vgg16", 64, card)
+    # SER campaigns, every chunk one call of the executor's trial form:
+    # VGG-16 and mobilenet_tiny@224, then the nets whose chunks take the
+    # other trial forms (googlenet_tiny's concat producers, dw_concat's
+    # depthwise producer, alexnet_2tower's grouped convs)
+    launched: dict = {}
+    campaign_pair(torch, gate, x, "vgg16", 64, card, launched)
     gm = CNN2Gate.from_graph(cnn.mobilenet_tiny(batch=1, in_hw=224,
                                                 seed=SEED))
     xm = torch.as_tensor(rng.standard_normal(gm.parsed.input_shape)
                          .astype(np.float32), device=dev)
     gm.calibrate_quantization(xm)
-    campaign_pair(torch, gm, xm, "mobilenet_tiny_224", 32, card)
+    campaign_pair(torch, gm, xm, "mobilenet_tiny_224", 32, card, launched)
+    campaign_pair(torch, gg, xg, "googlenet_tiny", 32, card, launched)
+    more = {}
+    for name, graph in (("dw_concat", dw_concat_graph(cnn)),
+                        ("alexnet_2tower", alexnet_2tower_graph(cnn))):
+        gn = CNN2Gate.from_graph(graph)
+        xn = torch.as_tensor(rng.standard_normal(gn.parsed.input_shape)
+                             .astype(np.float32), device=dev)
+        gn.calibrate_quantization(xn)
+        campaign_pair(torch, gn, xn, name, 32, card, launched)
+        more[name] = (gn, xn)
     counts = ops.launch_counts()
+    trial_keys = [k for k in SOURCES if k.endswith("_trials")]
     check("resilience", "every_kernel_of_the_path_launched",
           all(counts[k] > 0 for k in ("qconv2d", "qconv2d_into", "qgemm",
-                                      "qdwconv2d")), counts=counts)
+                                      "qdwconv2d"))
+          and all(launched.get(k, 0) > 0 for k in trial_keys),
+          counts=counts,
+          campaign_trial_launches={k: launched.get(k, 0)
+                                   for k in trial_keys})
+
+    # the trial forms at the campaigns' shapes, T = 32, N = 1
+    out: dict = {}
+    trial_kernel_checks(torch, dev, eager, x, ("qconv2d", "qgemm"), "vgg16",
+                        out)
+    trial_kernel_checks(torch, dev, gm.build(), xm, ("qdwconv2d",),
+                        "mobilenet_tiny_224", out)
+    trial_kernel_checks(torch, dev, gg.build(), xg, ("qconv2d_into",),
+                        "googlenet_tiny", out)
+    for name, kinds in (("dw_concat", ("qdwconv2d_into",)),
+                        ("alexnet_2tower", ("qgconv2d",))):
+        gn, xn = more[name]
+        trial_kernel_checks(torch, dev, gn.build(), xn, kinds, name, out)
+    records.update(trial_records(out, launched, card))
 
     # the audit's cost: guarded clean runs beside the unguarded executor,
     # on 8 requests near the calibration input (each one clean under the
@@ -4056,6 +4374,20 @@ SOURCES = {
                        "src/repro/kernels/qconv.py:770"),
     "qgconv2d": ("src/repro_torch/csrc/qconv.cu",
                  "src/repro/kernels/qconv.py:877"),
+    # the trial forms: the same Pallas kernels under jax.vmap in an SER
+    # campaign (src/repro/core/ser.py:315)
+    "qgemm_trials": ("src/repro_torch/csrc/qgemm.cu",
+                     "src/repro/kernels/qgemm.py:60"),
+    "qconv2d_trials": ("src/repro_torch/csrc/qconv.cu",
+                       "src/repro/kernels/qconv.py:493"),
+    "qconv2d_into_trials": ("src/repro_torch/csrc/qconv.cu",
+                            "src/repro/kernels/qconv.py:352"),
+    "qdwconv2d_trials": ("src/repro_torch/csrc/qdwconv.cu",
+                         "src/repro/kernels/qconv.py:654"),
+    "qdwconv2d_into_trials": ("src/repro_torch/csrc/qdwconv.cu",
+                              "src/repro/kernels/qconv.py:770"),
+    "qgconv2d_trials": ("src/repro_torch/csrc/qconv.cu",
+                        "src/repro/kernels/qconv.py:877"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:24"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",

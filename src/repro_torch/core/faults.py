@@ -37,6 +37,10 @@ would change the plain versions and leave the kernels' output alone).
 Activation faults are handed to ``pipeline.make_executor(faults=...)``
 and applied to the stage outputs as the executor runs.
 
+:func:`trial_weights` builds a campaign chunk's weight images at once,
+on the device: each trial's image of a stage is the golden weight with
+that trial's plan applied, equal to :func:`inject`'s.
+
 Everything is derived from ``np.random.default_rng(seed)``: the same
 seed over the same model yields the same plan, byte for byte — the
 property the SER campaigns and the determinism tests rely on (and the
@@ -297,3 +301,76 @@ def inject(qm: pipe.QuantizedModel, plan: FaultPlan) -> pipe.QuantizedModel:
     return pipe.QuantizedModel(
         name=qm.name, layers=layers, input_m=qm.input_m,
         output_m=qm.output_m, parsed=qm.parsed, device=qm.device)
+
+
+def trial_weights(qm: pipe.QuantizedModel, plans: Sequence[FaultPlan],
+                  names: Sequence[str]
+                  ) -> Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """The weight images of a batch of trials, built on the model's
+    device: ``{stage: (w_q, w_k)}`` for each stage in ``names``, ``w_q``
+    a (T, ...) int8 stack whose image t is the golden ``w_q`` with
+    ``plans[t]``'s faults on that stage applied, equal to ``inject(qm,
+    plans[t])``'s ``w_q``, and ``w_k`` the stack of the K-major copies
+    the kernels read, equal to ``inject``'s ``w_k`` (None for a
+    depthwise conv, whose kernel reads ``w_q``).  Both start as copies of
+    the build's staged weights, then each plan's dropped tiles are zeroed
+    (a column range of ``w_q``, a row range of ``w_k``) and its bit flips
+    XORed in by one scatter a stack: no stack is transposed.  Only the
+    kinds that change nothing but a weight image (weight bits, dropped
+    tiles) can be batched so: every image shares the stage's bias, spec
+    and ``shift_vec``.  Plans apply their faults in order, as
+    :func:`inject` does: a tile dropped after a flip in its columns
+    erases the flip."""
+    by_name = {ql.info.name: ql for ql in qm.layers}
+    unknown = set(names) - {n for n, ql in by_name.items()
+                            if ql.w_q is not None}
+    if unknown:
+        raise KeyError(f"no staged weight for stages {sorted(unknown)}")
+    trials = len(plans)
+    out: Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+    for name in names:
+        ql = by_name[name]
+        size, cout = ql.w_q.numel(), int(ql.w_q.shape[-1])
+        tiles: List[Tuple[int, int, int]] = []   # (trial, start, stop)
+        flips: Dict[Tuple[int, int], int] = {}   # (trial, flat) -> bits
+        for t, plan in enumerate(plans):
+            for f in plan.program_faults:
+                if f.stage != name:
+                    continue
+                if f.kind == WEIGHT_BIT:
+                    key = (t, f.index % size)
+                    flips[key] = flips.get(key, 0) ^ (1 << (f.bit % 8))
+                elif f.kind == DROPPED_TILE:
+                    t0 = min(max(f.tile[0], 0), cout)
+                    t1 = min(max(f.tile[1], t0), cout)
+                    tiles.append((t, t0, t1))
+                    for key in [k for k in flips if k[0] == t
+                                and t0 <= k[1] % cout < t1]:
+                        del flips[key]
+                else:
+                    raise ValueError(
+                        f"a {f.kind!r} fault changes more than the weight "
+                        f"image of {name!r}: use inject() for its program")
+        w = torch.stack([ql.w_q] * trials)
+        wk = None if ql.w_k is None else torch.stack([ql.w_k] * trials)
+        for t, t0, t1 in tiles:
+            w[t, ..., t0:t1] = 0
+            if wk is not None:
+                wk[t, t0:t1] = 0
+        flips = {k: m for k, m in flips.items() if m}
+        if flips:
+            dev = w.device
+            rows = torch.as_tensor([t for t, _e in flips], device=dev)
+            flat_ix = np.asarray([e for _t, e in flips], np.int64)
+            bits = torch.as_tensor(
+                np.asarray(list(flips.values()), np.uint8).astype(np.int8),
+                device=dev)
+            flat = w.view(trials, -1)
+            cols = torch.as_tensor(flat_ix, device=dev)
+            flat[rows, cols] = torch.bitwise_xor(flat[rows, cols], bits)
+            if wk is not None:   # element (k, n) of w_q is wk[n, k]
+                kk = torch.as_tensor(flat_ix // cout, device=dev)
+                nn = torch.as_tensor(flat_ix % cout, device=dev)
+                wk[rows, nn, kk] = torch.bitwise_xor(wk[rows, nn, kk], bits)
+        out[name] = (w, wk)
+    return out

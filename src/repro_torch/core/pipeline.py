@@ -340,65 +340,106 @@ def _concat_axis(axis: int, ndim: int) -> int:
     return axis
 
 
-def _xor_payload(idx, mask) -> Tuple[np.ndarray, np.ndarray]:
-    """Host side of an activation-fault XOR: ``(flat indices, int8
-    masks)`` with the masks of a repeated index XOR-combined (two upsets
-    of one bit cancel) and zero masks dropped (a zero mask is the
-    identity), so the device scatter sees each index once."""
+def _host(a) -> np.ndarray:
+    """A host array of ``a`` (array, list or tensor on any device)."""
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _flat_index(idx, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Flat indices into ``n`` elements as the JAX package's scatter
+    takes them: a negative index counts from the end, and one outside
+    ``[-n, n)`` is dropped (its update never lands; a sampled flip on a
+    fused concat producer's pooled slice can lie past it).  Returns the
+    kept indices and the mask of the kept slots."""
+    ix = _host(idx).astype(np.int64).reshape(-1)
+    keep = (ix >= -n) & (ix < n)
+    return np.where(ix < 0, ix + n, ix)[keep], keep
+
+
+def _xor_payload(idx, mask, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host side of an activation-fault XOR into ``n`` elements, with the
+    JAX package's semantics: its payload is one scatter that writes
+    ``x[i] ^ mask[k]`` from the original value and keeps the last write
+    of a repeated index.  So here a repeated index keeps the mask of its
+    LAST slot, and an index whose last mask is zero is dropped (that slot
+    writes the original back: a no-op slot after a real flip undoes it),
+    and the device scatter sees each index once: ``(flat indices, int8
+    masks)``.  Indices go through :func:`_flat_index`."""
+    ix, kept = _flat_index(idx, n)
     merged: Dict[int, int] = {}
-    for i, m in zip(np.asarray(idx, np.int64).reshape(-1).tolist(),
-                    np.asarray(mask).astype(np.int8).reshape(-1).tolist()):
-        merged[i] = merged.get(i, 0) ^ (m & 0xFF)
+    for i, m in zip(ix.tolist(), _host(mask).astype(np.int8).reshape(-1)
+                    [kept].tolist()):
+        merged[i] = m & 0xFF
     keep = [(i, m) for i, m in merged.items() if m]
     return (np.asarray([i for i, _ in keep], np.int64),
             np.asarray([m for _, m in keep], np.uint8).astype(np.int8))
 
 
-def _corrupt(h: torch.Tensor, idx: np.ndarray, mask: np.ndarray,
-             zero: Optional[np.ndarray] = None) -> torch.Tensor:
-    """A corrupted copy of ``h``: ``mask[k]`` XORed into flat element
-    ``idx[k]`` (unique indices, :func:`_xor_payload`), then the flat
-    indices ``zero`` cleared.  Flat order is ``h``'s logical order (NHWC,
-    batch included).  ``h`` itself is never written: a snapshot or the
-    caller may hold it."""
-    n = h.numel()
-    for name, ix in (("xor", idx), ("zero", zero)):
-        if ix is not None and len(ix) and not (0 <= ix.min()
-                                               and ix.max() < n):
-            raise IndexError(f"activation fault {name} index outside the "
-                             f"{n} elements of a {tuple(h.shape)} tensor")
+def _corrupt(h: torch.Tensor, xor, zero=None, trials: int = 1
+             ) -> torch.Tensor:
+    """A corrupted copy of ``h``: for each trial ``t`` of the ``trials``
+    that ``h`` holds along its batch, its pair ``xor[t] = (flat indices,
+    int8 masks)`` (unique indices in range, :func:`_xor_payload`) XORed
+    in, then its flat indices ``zero[t]`` (in range) cleared.  Flat order
+    is one trial's logical order (NHWC, its batch included).  ``h``
+    itself is never written: a snapshot or the caller may hold it."""
+    n = h.numel() // trials
+    flat_ix = {name: [np.asarray(ix, np.int64) + t * n
+                      for t, ix in enumerate(per_trial) if len(ix)]
+               for name, per_trial in (("xor", [ix for ix, _m in xor]),
+                                       ("zero", zero or []))}
     flat = h.reshape(-1).clone()
-    if len(idx):
-        ji = torch.as_tensor(idx, device=h.device)
-        flat[ji] = torch.bitwise_xor(
-            flat[ji], torch.as_tensor(mask, device=h.device))
-    if zero is not None and len(zero):
-        flat[torch.as_tensor(zero, device=h.device)] = 0
+    if flat_ix["xor"]:
+        ji = torch.as_tensor(np.concatenate(flat_ix["xor"]), device=h.device)
+        masks = np.concatenate([m for ix, m in xor if len(ix)])
+        flat[ji] = torch.bitwise_xor(flat[ji],
+                                     torch.as_tensor(masks, device=h.device))
+    if flat_ix["zero"]:
+        flat[torch.as_tensor(np.concatenate(flat_ix["zero"]),
+                             device=h.device)] = 0
     return flat.view(h.shape)
 
 
-def _apply_tensor_faults(h: torch.Tensor, f: Dict) -> torch.Tensor:
+def _apply_tensor_faults(h: torch.Tensor, f: Dict,
+                         trials: int = 1) -> torch.Tensor:
     """Apply a static activation-fault payload (``core/faults.py``:
     ``FaultPlan.activation_faults``) to one named tensor: XOR bit masks
     at flat indices (SEU bit flips) and zeroed flat ranges (dropped
-    bursts)."""
-    idx, mask = (_xor_payload(f["xor_idx"], f["xor_mask"])
-                 if f.get("xor_idx") is not None
-                 else (np.zeros(0, np.int64), np.zeros(0, np.int8)))
+    bursts); the same payload to each of the ``trials`` that ``h`` holds
+    along its batch."""
+    n = h.numel() // trials
+    pair = (_xor_payload(f["xor_idx"], f["xor_mask"], n)
+            if f.get("xor_idx") is not None
+            else (np.zeros(0, np.int64), np.zeros(0, np.int8)))
     z = f.get("zero_idx")
-    return _corrupt(h, idx, mask,
-                    None if z is None else np.asarray(z, np.int64))
+    return _corrupt(h, [pair] * trials,
+                    None if z is None else [_flat_index(z, n)[0]] * trials,
+                    trials)
 
 
-def _apply_arg_faults(h: torch.Tensor, entry) -> torch.Tensor:
+def _apply_arg_faults(h: torch.Tensor, entry,
+                      trials: Optional[int] = None) -> torch.Tensor:
     """Apply a *call-time* activation-fault payload ``(idx, mask)`` (host
-    arrays) to one tensor: XOR ``mask[k]`` into flat element ``idx[k]``.
-    A zero mask is the identity, which is how the padded slots of a
-    campaign's fixed-shape payload ride along (``core/ser.py``)."""
-    return _corrupt(h, *_xor_payload(*entry))
+    arrays) to one tensor: XOR ``mask[k]`` into flat element ``idx[k]``,
+    a repeated index keeping its last slot, an index out of range
+    dropped (:func:`_xor_payload`).  A zero mask alone is the identity,
+    which is how the padded slots of a campaign's fixed-shape payload
+    ride along (``core/ser.py``).  With
+    ``trials``, ``h`` holds that many trials along its batch and
+    ``idx``/``mask`` one row of slots a trial."""
+    if trials is None:
+        return _corrupt(h, [_xor_payload(*entry, h.numel())])
+    idx, mask = (_host(a) for a in entry)
+    if idx.shape[:1] != (trials,) or mask.shape[:1] != (trials,):
+        raise ValueError(f"a payload of {trials} trials needs one row of "
+                         f"slots a trial, got {idx.shape} and {mask.shape}")
+    n = h.numel() // trials
+    return _corrupt(h, [_xor_payload(idx[t], mask[t], n)
+                        for t in range(trials)], trials=trials)
 
 
-def _stage_stats(h: torch.Tensor) -> torch.Tensor:
+def _stage_stats(h: torch.Tensor,
+                 trials: Optional[int] = None) -> torch.Tensor:
     """int8-domain audit statistics of one stage output, on its device:
     ``[saturation fraction, max |value|, mean |value|]`` (float32).  The
     saturation count and ``sum |h|`` are exact integers, scaled once at
@@ -407,13 +448,50 @@ def _stage_stats(h: torch.Tensor) -> torch.Tensor:
     not depend on a reduction order: it is the same on the CPU and the
     card, and equals the JAX package's wherever that is exact (sums
     below 2^24).  The guard (``core/guard.py``) dequantizes these
-    host-side with the tensor's fixed-point position."""
-    inv_n = float(np.float32(1) / np.float32(h.numel()))
-    sat = ((h == INT8_MAX) | (h == INT8_MIN)).sum()
-    a = h.to(torch.int32).abs()
-    return torch.stack([sat.to(torch.float32) * inv_n,
-                        a.max().to(torch.float32),
-                        a.sum().to(torch.float32) * inv_n])
+    host-side with the tensor's fixed-point position.  With ``trials``,
+    ``h`` holds that many trials along its batch and the result is one
+    row of the three a trial, each equal to its trial's alone."""
+    rows = h.reshape(1 if trials is None else trials, -1)
+    inv_n = float(np.float32(1) / np.float32(rows.shape[1]))
+    sat = ((rows == INT8_MAX) | (rows == INT8_MIN)).sum(1)
+    a = rows.to(torch.int32).abs()
+    st = torch.stack([sat.to(torch.float32) * inv_n,
+                      a.amax(1).to(torch.float32),
+                      a.sum(1).to(torch.float32) * inv_n], dim=1)
+    return st[0] if trials is None else st
+
+
+class _TrialBatch:
+    """The state of one trial-batched run (:func:`vmap_trials`): the
+    number of trials, and the environment keys whose tensors hold every
+    trial along their batch (trial t's rows ``[t*N, (t+1)*N)``).  Every
+    other tensor is shared by the trials, at the batch of one."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.varying: set = set()
+
+    def expand(self, h: torch.Tensor) -> torch.Tensor:
+        """A shared tensor, repeated for every trial (a new tensor)."""
+        return torch.cat([h] * self.n)
+
+    def unfold(self, h: torch.Tensor, varying: bool) -> torch.Tensor:
+        """(T*N, ...) -> (T, N, ...); a shared (N, ...) as a view."""
+        if varying:
+            return h.reshape((self.n, h.shape[0] // self.n)
+                             + tuple(h.shape[1:]))
+        return h.unsqueeze(0).expand((self.n,) + tuple(h.shape))
+
+
+def _trial_count(arrays) -> int:
+    """The trial axis' length that every array of a trial-batched call
+    shares (their leading dimension)."""
+    sizes = {int(a.shape[0]) for a in arrays}
+    if len(sizes) != 1:
+        raise ValueError("a trial-batched call needs its weights, payload "
+                         "and environment to share one leading trial axis, "
+                         f"got leading sizes {sorted(sizes) or 'none'}")
+    return sizes.pop()
 
 
 def stats_to_host(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -489,7 +567,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         argument (``ex(x, {stage: w_q})``): a campaign runs every
         trial's corrupted weights through one executor.  The kernels'
         K-major operand is staged from the call-time weight
-        (:func:`stage_kmajor`), never taken from the build.
+        (:func:`stage_kmajor`), never taken from the build, unless the
+        caller passes it with the weight as a ``(w_q, w_k)`` pair.
       * ``fault_args`` — tensor names whose activation-fault payload
         ``(idx, mask)`` becomes a call-time argument (``ex(x, ...,
         {tensor: (idx, mask)})``); a zero mask is a no-op slot.
@@ -499,6 +578,11 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
     slice of the shared buffer, which faults and audits address as if
     it stood alone (the corrupted slice is written back into the
     buffer).
+
+    Every executor but the stage-timed one has a trial form,
+    :func:`vmap_trials`: the counterpart of the JAX package's
+    ``jax.vmap(ex, in_axes=(None, 0, 0))``, which runs many trials'
+    weights and payloads through one call.
 
     ``stage_timed=True`` builds the **stage-timed executor** instead:
     ingress, every DAG stage and egress run in schedule order, with
@@ -600,15 +684,24 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             out += (ckpts,)
         return out if len(out) > 1 else logits
 
-    def _weights(ql: QuantizedLayer, weights):
+    def _weights(ql: QuantizedLayer, weights, tr=None):
         """(w_q, w_k) of a weighted stage: the build's, or a call-time
-        weight with its K-major copy staged from it."""
+        weight with its K-major copy staged from it, or a call-time
+        ``(w_q, w_k)`` pair staged by the caller (``faults.trial_weights``).
+        In a trial-batched run, stacks of one image a trial."""
         if weights is not None and ql.info.name in weight_arg_set:
-            w = torch.as_tensor(weights[ql.info.name], device=dev)
-            return w, stage_kmajor(ql.info, w)
+            w = weights[ql.info.name]
+            w, w_k = w if isinstance(w, tuple) else (w, None)
+            w = torch.as_tensor(w, device=dev)
+            want = ((tr.n,) if tr is not None else ()) + tuple(ql.w_q.shape)
+            if tuple(w.shape) != want:
+                raise ValueError(f"weight of {ql.info.name!r}: expected "
+                                 f"{want}, got {tuple(w.shape)}")
+            return w, (stage_kmajor(ql.info, w) if w_k is None else w_k)
         return ql.w_q, ql.w_k
 
-    def _conv(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights):
+    def _conv(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights,
+              tr):
         li = ql.info
         pool = None
         if li.pool is not None:
@@ -634,17 +727,18 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                             concat_shift=cq.operand_shifts[
                                 cc.inputs.index(li.output)],
                             concat_relu=cc.relu)
-        w_q, w_k = _weights(ql, weights)
+        w_q, w_k = _weights(ql, weights, tr)
         return ops.qconv2d_nhwc(
             env[li.inputs[0]], w_q, ql.b_q, strides=li.strides,
             pads=li.pads, shift=ql.spec.requant_shift, relu=li.relu,
             pool=pool, groups=li.group, w_k=w_k,
             shift_vec=ql.shift_vec, **merge_kw)
 
-    def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights):
+    def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights,
+               tr):
         li = ql.info
         if li.kind == P.CONV:
-            return _conv(ql, env, weights)
+            return _conv(ql, env, weights, tr)
         if li.kind == P.POOL:
             pool_fn = (ops.avgpool2d_nhwc if li.pool_type == "avg"
                        else ops.maxpool2d_nhwc)
@@ -655,7 +749,7 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             if h.ndim > 2:
                 # NHWC flatten: rows were permuted at staging time
                 h = h.reshape(h.shape[0], -1)
-            w_q, w_k = _weights(ql, weights)
+            w_q, w_k = _weights(ql, weights, tr)
             return ops.qgemm(h, w_q, ql.b_q, shift=ql.spec.requant_shift,
                              relu=li.relu, shift_vec=ql.shift_vec, w_k=w_k)
         if li.kind == P.ADD:
@@ -674,41 +768,75 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                                     relu=li.relu)
         raise ValueError(li.kind)  # the parser only emits the five kinds
 
-    def _resilience(h: torch.Tensor, t: str, payload, stats):
+    def _resilience(h: torch.Tensor, t: str, payload, stats, tr=None):
         """The hooks on one stage output ``h`` named ``t``: static and
-        call-time faults, then the audit."""
+        call-time faults, then the audit (in a trial-batched run ``tr``,
+        of each trial: a tensor the trials share is audited once)."""
+        n = tr.n if tr is not None and t in tr.varying else None
         if faults and t in faults:
-            h = _apply_tensor_faults(h, faults[t])
+            h = _apply_tensor_faults(h, faults[t], n or 1)
         if t in fault_arg_set:
-            h = _apply_arg_faults(h, payload[t])
+            h = _apply_arg_faults(h, payload[t], n)
         if _audited(t):
-            stats[t] = _stage_stats(h)
+            st = _stage_stats(h, n)
+            stats[t] = st if tr is None or n else st.expand(tr.n, 3)
         return h
 
+    def _trial_inputs(ql: QuantizedLayer, env, weights, tr) -> bool:
+        """Whether a stage of a trial-batched run varies by trial (a
+        call-time weight, or an operand that varies); if so its shared
+        operands are repeated for every trial first, so that it runs once
+        at the batch of all trials.  A stage that does not vary runs
+        once, at the batch of one, as under ``jax.vmap``."""
+        li = ql.info
+        keys = [t for t in li.inputs if t in env]
+        if li.kind == P.CONCAT and li.concat_fused:
+            keys = [_cbuf_key(li)]
+        elif li.kind == P.CONV and li.concat is not None \
+                and _cbuf_key(li.concat) in env:
+            keys.append(_cbuf_key(li.concat))
+        varying = (weights is not None and li.name in weight_arg_set) \
+            or any(k in tr.varying for k in keys)
+        if varying:
+            for k in keys:
+                if k not in tr.varying:
+                    env[k] = tr.expand(env[k])
+                    tr.varying.add(k)
+        return varying
+
     def _exec_stages(env: Dict[str, torch.Tensor], weights, payload,
-                     start: int, stop: int, stats, ckpts) -> None:
+                     start: int, stop: int, stats, ckpts, tr=None) -> None:
         """Interpret stages ``[start, stop)`` over a live tensor
         environment, updating ``env``/``stats``/``ckpts`` in place — the
-        shared core of the forward, replay and stage-timed paths."""
+        shared core of the forward, replay and stage-timed paths and of
+        their trial forms (``tr``, :class:`_TrialBatch`)."""
         for idx in range(start, stop):
             ql = stages[idx]
             li = ql.info
-            h = _stage(ql, env, weights)
+            varying = tr is not None and _trial_inputs(ql, env, weights, tr)
+            h = _stage(ql, env, weights, tr)
+            t = li.output
+            if tr is not None and t in fault_arg_set and not varying:
+                h = tr.expand(h)   # a payload varies by trial
+                varying = True
             if li.kind == P.CONV and li.concat is not None:
                 # h IS the shared buffer; the producer's own output
                 # tensor exists only as a channel slice of it, which the
                 # hooks address (a corrupted slice is written back)
-                t = li.output
+                if varying:
+                    tr.varying.update((_cbuf_key(li.concat), t))
                 if (faults and t in faults) or t in fault_arg_set \
                         or _audited(t):
                     off = li.concat_offset
                     sl = h[..., off:off + li.c_out]
-                    new = _resilience(sl, t, payload, stats)
+                    new = _resilience(sl, t, payload, stats, tr)
                     if new is not sl:
                         sl.copy_(new)
                 env[_cbuf_key(li.concat)] = h
             else:
-                env[li.output] = _resilience(h, li.output, payload, stats)
+                if varying:
+                    tr.varying.add(t)
+                env[t] = _resilience(h, t, payload, stats, tr)
             for t in li.inputs:     # liveness-based buffer release
                 if last_use.get(t) == idx:
                     env.pop(t, None)  # pop: an operand may repeat (x + x)
@@ -716,7 +844,9 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                 # snapshot AFTER the liveness release: the environment
                 # holds exactly the live set — what a replay from this
                 # boundary needs, and nothing more
-                ckpts[li.name] = dict(env)
+                ckpts[li.name] = (dict(env) if tr is None else
+                                  {k: tr.unfold(v, k in tr.varying)
+                                   for k, v in env.items()})
 
     def _egress(env: Dict[str, torch.Tensor]) -> torch.Tensor:
         h = env[out_name]
@@ -727,7 +857,7 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             logits = torch.softmax(logits, dim=-1)
         return logits
 
-    def _ingress(x_float, payload) -> torch.Tensor:
+    def _ingress(x_float, payload, tr=None) -> torch.Tensor:
         x = torch.as_tensor(x_float, dtype=torch.float32, device=dev)
         h = torch.clamp(torch.round(x * (2.0 ** qm.input_m)), -128, 127)
         h = h.to(torch.int8)
@@ -736,14 +866,32 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         if faults and in_name in faults:
             h = _apply_tensor_faults(h, faults[in_name])
         if in_name in fault_arg_set:
-            h = _apply_arg_faults(h, payload[in_name])
+            n = None
+            if tr is not None:   # the input is shared; its payload is not
+                h, n = tr.expand(h), tr.n
+                tr.varying.add(in_name)
+            h = _apply_arg_faults(h, payload[in_name], n)
         return h
 
-    def _run(env: Dict[str, torch.Tensor], weights, payload, start: int):
+    def _run(env: Dict[str, torch.Tensor], weights, payload, start: int,
+             tr=None):
         stats: Dict[str, torch.Tensor] = {}
         ckpts: Dict[str, Dict[str, torch.Tensor]] = {}
-        _exec_stages(env, weights, payload, start, len(stages), stats, ckpts)
-        return _egress(env), stats, ckpts
+        _exec_stages(env, weights, payload, start, len(stages), stats, ckpts,
+                     tr)
+        logits = _egress(env)
+        if tr is not None:
+            logits = tr.unfold(logits, out_name in tr.varying)
+        return logits, stats, ckpts
+
+    def _batch(weights, payload, env=None) -> _TrialBatch:
+        """The trial batch of a trial-form call, from the leading axis of
+        its trial-varying arguments."""
+        arrays = [w[0] if isinstance(w, tuple) else w
+                  for w in (weights or {}).values()]
+        arrays += [a for entry in (payload or {}).values() for a in entry]
+        arrays += list((env or {}).values())
+        return _TrialBatch(_trial_count(arrays))
 
     if stage_timed:
         run = _make_stage_timed(qm, in_name, _ingress, _exec_stages,
@@ -764,8 +912,56 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             logits, stats, ckpts = _run(env, weights, payload, 0)
             return _pack(logits, stats, ckpts)
 
+    if not stage_timed:
+        if replay_from is not None:
+            @torch.no_grad()
+            def trials(env: Dict[str, torch.Tensor], *extra):
+                weights, payload = _extra(extra)
+                tr = _batch(weights, payload, env)
+                tr.varying.update(env)
+                folded = {k: torch.as_tensor(v, device=dev).reshape(
+                    (-1,) + tuple(v.shape[2:])) for k, v in env.items()}
+                logits, stats, _ = _run(folded, weights, payload,
+                                        replay_from + 1, tr)
+                return _pack(logits, stats, {})
+        else:
+            @torch.no_grad()
+            def trials(x_float, *extra):
+                weights, payload = _extra(extra)
+                tr = _batch(weights, payload)
+                env = {in_name: _ingress(x_float, payload, tr)}
+                return _pack(*_run(env, weights, payload, 0, tr))
+        run.trials = trials
     run.design_point = (n_i, n_l, block_h)
     return run
+
+
+def vmap_trials(ex: Callable) -> Callable:
+    """The trial form of an executor of :func:`make_executor`: the
+    counterpart of the JAX package's ``jax.vmap(ex, in_axes=(None, 0,
+    0))`` (``src/repro/core/ser.py``), many trials in one call.
+
+    The forward's trial form takes ``x`` shared by every trial, then the
+    executor's call-time arguments with a leading trial axis T: weights
+    ``{stage: (T, ...) int8}`` (one image a trial) and a payload
+    ``{tensor: (idx (T, slots), mask (T, slots))}``.  It returns the
+    logits (T, N, ...), the audit stats ``{tensor: (T, 3)}`` and the
+    checkpoints ``{stage: {tensor: (T, N, ...)}}``, each row equal, bit
+    for bit, to the executor's own call with that trial's arguments.  A
+    replay executor's trial form takes an environment ``{tensor: (T, N,
+    ...)}``.
+
+    Inside, the trials ride the batch: a stage with a call-time weight
+    takes its kernel's trial form (one launch for all trials, each with
+    its own weight image, ``kernels/ops.py``); a stage whose operands
+    vary by trial runs once at the batch of all trials on the weight they
+    share; a stage before the first that varies runs once for all, at
+    the batch of one.  Each trial's flat payload indices address its own
+    rows, the audit reduces each trial's rows alone."""
+    fn = getattr(ex, "trials", None)
+    if fn is None:
+        raise TypeError("the stage-timed executor has no trial form")
+    return fn
 
 
 def _make_stage_timed(qm: QuantizedModel, in_name: str, ingress: Callable,

@@ -4,12 +4,13 @@ A campaign pushes many sampled :class:`~.faults.FaultPlan` trials —
 weight-bit flips, dropped tiles, in-flight activation flips — through
 ONE executor: ``make_executor``'s ``weight_args``/``fault_args`` hooks
 make the staged weights and the activation-fault payload *call-time
-arguments*, so no trial rebuilds a program.  The JAX package vmaps the
-trials through one compiled closure; here they run one after another
-through the same executor (a vmap cannot pass through the kernels'
-launches), and the results of ``chunk`` trials come back to the host
-per read-back.  A zero XOR mask is the no-op padding slot of a
-fixed-shape payload.
+arguments*, so no trial rebuilds a program, and the executor's trial
+form (``pipeline.vmap_trials``, the counterpart of the JAX package's
+``jax.vmap(_call, in_axes=(None, 0, 0))``) runs a whole chunk of trials
+in one call: every stage with a trial's weight launches its kernel's
+trial form once for the chunk, each trial reading its own weight image
+(``faults.trial_weights`` builds them on the device).  A zero XOR mask
+is the no-op padding slot of a fixed-shape payload.
 
 Per trial the campaign classifies the upset against the golden run on
 the same input (the audit envelope is the golden run's own stats, the
@@ -22,11 +23,12 @@ guard's zero-slack configuration):
                    mission-critical deployment must drive to zero.
 
 Detected trials are then pushed through the recovery path: localize
-(earliest flagged stage), take the nearest upstream checkpoint, and
-replay the trial's snapshot through the golden program's cached
-``replay_from`` executor.  A replay whose stats re-flag (snapshot
-poisoned by an un-audited upstream upset) counts as ``escalated`` — the
-ladder's full golden reexecution recovers it, at full-depth cost.
+(earliest flagged stage), group by nearest upstream checkpoint, and
+replay each group's snapshots through the trial form of the golden
+program's cached ``replay_from`` executor, one call a group.  A replay
+whose stats re-flag (snapshot poisoned by an un-audited upstream upset)
+counts as ``escalated`` — the ladder's full golden reexecution recovers
+it, at full-depth cost.
 
 Rates carry Wilson score confidence intervals — at the campaign sizes
 CI bounds matter more than point estimates (3/3 detected says almost
@@ -187,16 +189,6 @@ class Campaign:
 
 # -------------------------------------------------------- the campaign
 
-def _trial_weights(qm: pipe.QuantizedModel, plan: F.FaultPlan,
-                   wnames: Sequence[str]) -> Dict[str, torch.Tensor]:
-    """The per-trial weight images for the executor's ``weight_args``:
-    golden weights with the plan's program faults applied (reusing the
-    canonical :func:`faults.inject` so the two paths can never drift)."""
-    inj = F.inject(qm, plan)
-    by = {ql.info.name: ql.w_q for ql in inj.layers}
-    return {n: by[n] for n in wnames}
-
-
 def _trial_payload(plan: F.FaultPlan, tensors: Sequence[str],
                    slots: int) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """Fixed-shape ``(idx, mask)`` XOR payload per fault-arg tensor.
@@ -242,14 +234,17 @@ def _flag_matrix(stats: Dict[str, np.ndarray],
     return np.stack(cols, axis=1)
 
 
-def _read_back(runs, order: Sequence[str], y0: torch.Tensor):
-    """One chunk's results on the host, in one copy each: the audited
-    stats as ``{tensor: (T, 3)}`` over ``order`` and, per run, whether
-    its output differs from ``y0``."""
-    st = torch.stack([torch.stack([s[t] for t in order])
-                      for _y, s in runs]).cpu().numpy()
-    diff = torch.stack([(y != y0).any() for y, _s in runs]).cpu().numpy()
-    return {t: st[:, j] for j, t in enumerate(order)}, diff
+def _read_back(ys: torch.Tensor, stats: Dict[str, torch.Tensor],
+               order: Sequence[str], y0: torch.Tensor):
+    """A trial-batched call's results on the host, in one copy: the
+    audited stats as ``{tensor: (T, 3)}`` over ``order`` and, per trial,
+    whether its output ``ys[t]`` differs from ``y0``."""
+    trials = ys.shape[0]
+    diff = (ys != y0).reshape(trials, -1).any(1).to(torch.float32)
+    st = torch.stack([stats[t] for t in order], dim=1).reshape(trials, -1)
+    host = torch.cat([st, diff[:, None]], dim=1).cpu().numpy()
+    return ({t: host[:, 3 * j:3 * j + 3] for j, t in enumerate(order)},
+            host[:, -1] != 0)
 
 
 def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
@@ -259,14 +254,15 @@ def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
                  n_i: int = 16, n_l: int = 32,
                  block_h: Optional[int] = None) -> Campaign:
     """Run one SER campaign: ``trials`` sampled ``flips``-fault plans
-    through a single executor on the gate's device.
+    through a single executor on the gate's device, one call a chunk.
 
     ``gate`` is a calibrated :class:`~.synthesis.CNN2Gate`; ``x`` the
     (float, NCHW) input the golden reference and every trial share.
     ``checkpoints`` arms the recovery path with the equal-cumulative-MAC
     plan (0 = every detected trial escalates to full reexecution).
-    ``chunk`` is the number of trials whose results are read back to
-    the host at once (memory and syncs, not correctness).
+    ``chunk`` bounds the trials of one call (memory, not correctness):
+    each touched stage holds ``chunk`` weight images and their K-major
+    copies.
     """
     for k in kinds:
         if k not in CAMPAIGN_KINDS:
@@ -299,13 +295,13 @@ def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
                             weight_args=tuple(w_touched),
                             fault_args=tuple(a_touched))
 
-    def _call(xv, w, p):
+    def _call(fn, xv, w, p):
         extra = []
         if w_touched:
             extra.append(w)
         if a_touched:
             extra.append(p)
-        res = ex(xv, *extra)
+        res = fn(xv, *extra)
         return res[0], res[1], (res[2] if boundaries else {})
 
     xt = torch.as_tensor(x, dtype=torch.float32, device=qm.device)
@@ -315,7 +311,7 @@ def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
               for n in w_touched}
     nop = {t: (np.zeros(slots, np.int32), np.zeros(slots, np.int8))
            for t in a_touched}
-    y0, stats0, _ = _call(xt, gold_w, nop)
+    y0, stats0, _ = _call(ex, xt, gold_w, nop)
     stats0 = pipe.stats_to_host(stats0)
     # the audited tensors in sorted name order: the order the JAX
     # package's jitted closure returns its stats dict in (pytree keys),
@@ -323,17 +319,22 @@ def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
     audited = sorted(stats0)
     t2s = {ql.info.output: ql.info.name for ql in stages}
 
+    # weights/payload dicts are always passed (possibly empty — _call
+    # drops what the executor was not built to take)
+    vex = pipe.vmap_trials(ex)
+
     records: List[TrialRecord] = []
     replay_ex: Dict[int, Callable] = {}
     for lo in range(0, trials, chunk):
         batch = plans[lo:lo + chunk]
-        runs, snaps = [], []
-        for p in batch:
-            y, st, ck = _call(xt, _trial_weights(qm, p, w_touched),
-                              _trial_payload(p, a_touched, slots))
-            runs.append((y, st))
-            snaps.append(ck)
-        sts, diff = _read_back(runs, audited, y0)
+        bw = F.trial_weights(qm, batch, w_touched)
+        pays = [_trial_payload(p, a_touched, slots) for p in batch]
+        bp = {t: (np.stack([pp[t][0] for pp in pays]),
+                  np.stack([pp[t][1] for pp in pays]))
+              for t in a_touched}
+        ys, sts, ckpts = _call(vex, xt, bw, bp)
+        del bw   # the chunk's weight stacks go before its replays run
+        sts, diff = _read_back(ys, sts, audited, y0)
         flags = _flag_matrix(sts, stats0, audited, margin, sat_tol)
         chunk_recs: List[TrialRecord] = []
         for i, p in enumerate(batch):
@@ -364,12 +365,14 @@ def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
                     chunk_recs[i].replayed = len(stages)
                 continue
             if b not in replay_ex:
-                replay_ex[b] = pipe.make_executor(
+                replay_ex[b] = pipe.vmap_trials(pipe.make_executor(
                     qm, n_i=n_i, n_l=n_l, block_h=block_h, audit=True,
-                    replay_from=b)
-            rruns = [replay_ex[b](snaps[i][stage_names[b]]) for i in idxs]
-            order = list(rruns[0][1])
-            str_, rdiff = _read_back(rruns, order, y0)
+                    replay_from=b))
+            sel = torch.as_tensor(idxs, device=qm.device)
+            env = {t: a[sel] for t, a in ckpts[stage_names[b]].items()}
+            yr, str_ = replay_ex[b](env)
+            order = list(str_)
+            str_, rdiff = _read_back(yr, str_, order, y0)
             rf = _flag_matrix(str_, stats0, order, margin, sat_tol)
             for j, i in enumerate(idxs):
                 clean = (not rf[j].any()) and not rdiff[j]

@@ -72,6 +72,18 @@
 // * The epilogue runs over the int32 tile staged in shared memory, one
 //   (row, channel) pair a thread at a time, and pooled rows leave in
 //   16-byte stores where the output's offset allows.
+//
+// The trial form (`trials` T > 1) is what the JAX package's qconv2d,
+// _qconv2d_into and qgconv2d become under jax.vmap in an SER campaign
+// (src/repro/core/ser.py:315): trial t convolves its own N images of the
+// (T*N, Hp, Wp, Cin) input, and writes its own N images of the output,
+// with its own weight image, rows [t*Cout, (t+1)*Cout) of a K-major stack
+// (T*Cout, K_pad); biases and shifts are shared.  The trial rides
+// gridDim.x beside the trial's row tiles, so a tile, which reads one
+// weight image, never holds rows of two trials, and the K splits of a
+// cluster (gridDim.z) never straddle two trials.  Columns a weight box
+// reads past Cout belong to the next trial's image, as past a group's
+// edge they belong to the next group: they are masked in the epilogue.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -87,7 +99,7 @@ struct ConvArgs {
   const int8_t* wk;         // (Cout, k_pad), K-major
   int8_t* y;                // (N, OH, OW, c_tot)
   Epilogue ep;
-  int n, hp, wp, cin, kh, kw, cout, sh, sw;
+  int n, hp, wp, cin, kh, kw, cout, sh, sw;  // n: images of one trial
   int cin_g, cout_g;         // channels of one group
   int ho, wo, oh, ow;       // conv and output (pooled) geometry
   int pw, ps;               // pool window and stride; 1, 1 without a pool
@@ -95,6 +107,7 @@ struct ConvArgs {
   int k_pad, splits, chunk;  // padded K, K split, K tiles a split
   int mode;                 // A gather: 16-, 4- or 1-byte loads
   int wide;                 // c_tot, out_off and y allow 16-byte stores
+  int m_tiles;              // row tiles of one trial
 };
 
 // The conv pixel that GEMM row `row` of block `blk` computes, for blocks of
@@ -239,10 +252,12 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   auto bar = [&](int s) { return smem_u32(&bars[s]); };
 
   const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
+  const int trial = blockIdx.x / a.m_tiles;
+  const int blk = blockIdx.x - trial * a.m_tiles;  // row tile of the trial
   const int g = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
   const int c0 = blockIdx.y * BN;       // within the group
   const int cg0 = g * a.cout_g + c0;    // weight row / output channel
+  const int w_row0 = trial * a.cout + cg0;  // in the trials' weight stack
   const int k_total = a.kh * a.kw * a.cin_g;
   const int kt0 = split * a.chunk;
   const int n_k = min(a.chunk, a.k_pad / kBK - kt0);
@@ -253,7 +268,7 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   auto load_b = [&](int j) {
     const int s = j % kStages;
     mbar_expect_tx(bar(s), T::kBTile);
-    tma_load(b_tile(s), &map_w, bar(s), (kt0 + j) * kBK, cg0);
+    tma_load(b_tile(s), &map_w, bar(s), (kt0 + j) * kBK, w_row0);
   };
   auto load_a = [&](int j) {
     const int s = j % kStages;
@@ -319,6 +334,7 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   if (tid < kRows) {
     int img, ch, cw;
     const bool valid = row_pixel(a, blk, tid, kRows, &img, &ch, &cw);
+    img += trial * a.n;  // the image in the whole (trials * n) batch
     row_off[tid] =
         valid ? ((static_cast<long long>(img) * a.hp + ch * a.sh) * a.wp +
                  cw * a.sw) * a.cin + g * a.cin_g
@@ -446,6 +462,7 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   // max over each window, 16 channels at a time (a byte-wise signed max
   // of four words); 16-byte stores where the destination allows
   const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
+  const long long pooled0 = trial * n_pooled;  // the trial's first output
   const bool wide = a.wide && (cg0 & 15) == 0;
   for (int idx = tid; idx < (w1 - w0) * (BN / 16); idx += kThreads) {
     const int p = w0 + idx / (BN / 16), q = idx % (BN / 16);
@@ -460,7 +477,8 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
       m.z = __vmaxs4(m.z, v.z);
       m.w = __vmaxs4(m.w, v.w);
     }
-    int8_t* const dst = a.y + pooled * a.c_tot + a.out_off + cg0 + 16 * q;
+    int8_t* const dst =
+        a.y + (pooled0 + pooled) * a.c_tot + a.out_off + cg0 + 16 * q;
     if (wide && 16 * q + 16 <= ncols) {
       *reinterpret_cast<uint4*>(dst) = m;
     } else {
@@ -473,11 +491,12 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
 }
 
 template <int BN>
-int launch(const ConvArgs& a, int groups, cudaStream_t st) {
-  // the K-major weight in boxes of 128 K bytes x BN rows (rows past Cout
-  // read as zero)
+int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
+  // the K-major weight (stack) in boxes of 128 K bytes x BN rows (rows
+  // past the last read as zero)
   CUtensorMap map;
-  const int err = cached_u8_map(&map, a.wk, a.k_pad, a.cout, a.k_pad, BN);
+  const int err =
+      cached_u8_map(&map, a.wk, a.k_pad, trials * a.cout, a.k_pad, BN);
   if (err != 0) return err;
   // the shared-memory allowance, set once a device
   static bool allowed[64] = {};
@@ -493,7 +512,8 @@ int launch(const ConvArgs& a, int groups, cudaStream_t st) {
   }
   const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
   const int per_block = kRows / (a.pw * a.pw);
-  const dim3 grid(static_cast<unsigned>((n_pooled + per_block - 1) / per_block),
+  a.m_tiles = static_cast<int>((n_pooled + per_block - 1) / per_block);
+  const dim3 grid(static_cast<unsigned>(trials) * a.m_tiles,
                   (a.cout_g + BN - 1) / BN, groups * a.splits);
   if (a.splits == 1) {
     qconv_wgmma_kernel<BN><<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
@@ -528,8 +548,11 @@ int launch(const ConvArgs& a, int groups, cudaStream_t st) {
 // channels a tile; `splits` (at most 8, a cluster) K splits of `chunk` K
 // tiles.  mode is the A gather's load width (16: Cin/G % 16 == 0 and x
 // 16-byte aligned; 4: Cin/G % 4 == 0 and x 4-byte aligned; else 1); wide
-// says that c_tot, out_off and y allow 16-byte stores.  Returns
-// cudaGetLastError() or the error of encoding the weight's tensor map.
+// says that c_tot, out_off and y allow 16-byte stores.  With `trials`
+// T > 1, x holds n = T * (images of a trial) images, wk is the trials'
+// stack (T * Cout, k_pad) and y (and skip) hold n images: trial t's images
+// against its own weight image.  Returns cudaGetLastError() or the error
+// of encoding the weight's tensor map.
 extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
                         const void* shift_vec, const void* skip, void* y,
                         int n, int hp, int wp, int cin, int kh, int kw,
@@ -538,10 +561,11 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
                         int merge_relu, int concat_shift, int concat_relu,
                         int c_tot, int out_off, int groups, int bn,
                         int k_pad, int splits, int chunk, int mode, int wide,
-                        void* stream) {
+                        int trials, void* stream) {
   if (wk == nullptr || k_pad % tc::kBK != 0 || splits < 1
       || splits > tc::kMaxSplits || chunk < 1
-      || (splits - 1) * chunk >= k_pad / tc::kBK)
+      || (splits - 1) * chunk >= k_pad / tc::kBK || trials < 1
+      || n % trials != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
@@ -554,7 +578,7 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   a.ep.a_conv = a_conv; a.ep.a_skip = a_skip;
   a.ep.merge_shift = merge_shift; a.ep.merge_relu = merge_relu;
   a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;
-  a.n = n; a.hp = hp; a.wp = wp; a.cin = cin; a.kh = kh; a.kw = kw;
+  a.n = n / trials; a.hp = hp; a.wp = wp; a.cin = cin; a.kh = kh; a.kw = kw;
   a.cout = cout; a.sh = sh; a.sw = sw;
   a.cin_g = cin / groups; a.cout_g = cout / groups;
   a.ho = (hp - kh) / sh + 1;
@@ -566,7 +590,7 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   a.k_pad = k_pad; a.splits = splits; a.chunk = chunk; a.mode = mode;
   a.wide = wide;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 128) return tc::launch<128>(a, groups, st);
-  if (bn == 64) return tc::launch<64>(a, groups, st);
+  if (bn == 128) return tc::launch<128>(a, groups, trials, st);
+  if (bn == 64) return tc::launch<64>(a, groups, trials, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

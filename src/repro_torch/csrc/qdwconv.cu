@@ -44,6 +44,13 @@
 //   are computed once, through the epilogue, into shared memory, and the
 //   window max is then taken from there (windows that straddle two bands
 //   see the halo conv rows that each band computes for itself).
+//
+// The trial form (`trials` T > 1) is what the JAX package's qdwconv2d
+// becomes under jax.vmap in an SER campaign (src/repro/core/ser.py:315):
+// the batch holds T trials of n / T images each, and trial t's images
+// read their own filter image, the t-th of a (T, KH, KW, 1, Cout) stack.
+// A block owns one image, so it reads one filter image: the trial only
+// moves the filter pointer, by the block's image / (n / T).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -62,10 +69,11 @@ constexpr int kMaxCb = 32;  // output channels a block (the plan's cap)
 
 struct DwArgs {
   const int8_t* x;  // (N, Hp, Wp, Cin)
-  const int8_t* w;  // (KH, KW, 1, Cout) == (KH * KW, Cout)
+  const int8_t* w;  // (T, KH, KW, 1, Cout) == (T, KH * KW, Cout)
   int8_t* y;        // (N, OH, OW, c_tot)
   Epilogue ep;
   int n, hp, wp, cin, kh, kw, cout, m, sh, sw;
+  int n_trial;      // images of one trial: image i reads filter i / n_trial
   int ho, wo, oh, ow;  // conv and output (pooled) geometry
   int pw, ps;          // pool window and stride; 1, 1 without a pool
   int c_tot, out_off;
@@ -147,6 +155,8 @@ __global__ void __launch_bounds__(kThreads) qdwconv_kernel(DwArgs a) {
   const int q0 = (blockIdx.x % bands_w) * a.cp;  // first output column
   const int c0 = blockIdx.y * a.cb;              // first output channel
   const int img = blockIdx.z;
+  const int8_t* const w_img =
+      a.w + static_cast<long long>(img / a.n_trial) * a.kh * a.kw * a.cout;
   const int rp = min(a.rp, a.oh - p0), cp = min(a.cp, a.ow - q0);
   const int rc = (rp - 1) * a.ps + a.pw;  // the band's conv rows
   const int wc = (cp - 1) * a.ps + a.pw;  // and columns
@@ -210,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) qdwconv_kernel(DwArgs a) {
       const int ch = c0 + 4 * qd + e;
       if (ch < a.cout)
         word |= static_cast<uint32_t>(static_cast<uint8_t>(
-                    a.w[t * a.cout + ch])) << (8 * e);
+                    w_img[t * a.cout + ch])) << (8 * e);
     }
     return word;
   });
@@ -354,8 +364,10 @@ int launch(const DwArgs& a, cudaStream_t st) {
 // a block; mode is the input copies' width (16: m == 1, Cin % 16 == 0,
 // cb % 16 == 0 and x 16-byte aligned; 4: m == 1, Cin % 4 == 0 and x 4-byte
 // aligned; else 1); wide says that c_tot, out_off and y allow 4-byte
-// stores.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan
-// outside those ranges or over kMaxSmem bytes of shared memory.
+// stores.  With `trials` T > 1, w is a stack of T filter images and
+// image i of the n reads image i / (n / T).  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a plan outside those ranges, a T that does
+// not divide n, or over kMaxSmem bytes of shared memory.
 extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
                           const void* shift_vec, const void* skip, void* y,
                           int n, int hp, int wp, int cin, int kh, int kw,
@@ -363,7 +375,7 @@ extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
                           int relu, int a_conv, int a_skip, int merge_shift,
                           int merge_relu, int concat_shift, int concat_relu,
                           int c_tot, int out_off, int rp, int cp, int cb,
-                          int mode, int wide, void* stream) {
+                          int mode, int wide, int trials, void* stream) {
   DwArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
@@ -384,7 +396,9 @@ extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
   a.ow = (a.wo - pw) / ps + 1;
   a.c_tot = c_tot; a.out_off = out_off;
   a.rp = rp; a.cp = cp; a.cb = cb; a.mode = mode; a.wide = wide;
-  if (rp < 1 || cp < 1 || cb < 4 || cb > kMaxCb || cb % 4 != 0
+  a.n_trial = trials > 0 ? n / trials : 0;
+  if (trials < 1 || n % trials != 0 || rp < 1 || cp < 1 || cb < 4
+      || cb > kMaxCb || cb % 4 != 0
       || (mode != 1 && mode != 4 && mode != 16) || cb % mode != 0
       || (mode > 1 && a.m != 1))
     return static_cast<int>(cudaErrorInvalidValue);

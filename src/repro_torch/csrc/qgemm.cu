@@ -35,6 +35,17 @@
 //   requant with bias and shift, in the same launch: no scratch, no
 //   atomics, no second kernel.  Integer sums are exact in any order.
 // Ragged edges: TMA reads zeros past N, M and K; stores are masked.
+//
+// The trial form (`trials` > 1) is what the JAX package's qgemm becomes
+// under jax.vmap in an SER campaign (src/repro/core/ser.py:315): trial t
+// multiplies its own M rows of x, rows [t*M, (t+1)*M), by its own weight
+// image, rows [t*N, (t+1)*N) of a K-major stack (T*N, K_pad), with the
+// biases and shifts the trials share.  The trial rides gridDim.y beside
+// the trial's M tiles, so a tile, and the K splits of its cluster, never
+// mix two trials.  Rows a box reads past a trial's M or N belong to the
+// next trial (or read as zero past the last): their sums are computed
+// and never stored.  At batch 1 each trial's weight is read once, T
+// times the bytes of one call (VGG-16's fc6 at T = 32: 3.3 GB).
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -71,6 +82,7 @@ struct GemmArgs {
   const int32_t* shift_vec;  // (N,) per-column shifts, or null: `shift`
   int8_t* y;                 // (M, N)
   int m, n, k_tiles, splits, chunk, shift, relu;
+  int m_tiles;               // tiles of a trial's M rows
   int wide;                  // N % 4 == 0 and y 4-byte aligned
 };
 
@@ -91,7 +103,10 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * NW;
+  const int trial = blockIdx.y / a.m_tiles;
+  const int n0 = blockIdx.x * BN, m0 = (blockIdx.y - trial * a.m_tiles) * NW;
+  const int x_row0 = trial * a.m + m0;  // the tile's rows of x, of y
+  const int w_row0 = trial * a.n + n0;  // and of the weight stack
   const int split = blockIdx.z;  // the block's rank in its cluster
   const int kt0 = split * a.chunk;
   const int n_k = min(a.chunk, a.k_tiles - kt0);
@@ -133,8 +148,9 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
           mbar_wait(smem_u32(&empty_bar[s]), ((j / kStages) - 1) & 1);
         const uint32_t bar = smem_u32(&full_bar[s]);
         mbar_expect_tx(bar, T::kStage);
-        tma_load_policy(a_tile(s), &map_w, bar, (kt0 + j) * kBK, n0, once);
-        tma_load(b_tile(s), &map_x, bar, (kt0 + j) * kBK, m0);
+        tma_load_policy(a_tile(s), &map_w, bar, (kt0 + j) * kBK, w_row0,
+                        once);
+        tma_load(b_tile(s), &map_x, bar, (kt0 + j) * kBK, x_row0);
       }
     }
     __syncwarp();
@@ -226,7 +242,8 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
         packed |= static_cast<uint32_t>(static_cast<uint8_t>(out)) << (8 * e);
       }
     }
-    int8_t* const dst = a.y + static_cast<size_t>(row) * a.n + col;
+    int8_t* const dst =
+        a.y + static_cast<size_t>(x_row0 + r) * a.n + col;
     if (a.wide && col + 4 <= a.n) {
       *reinterpret_cast<uint32_t*>(dst) = packed;
     } else {
@@ -242,13 +259,13 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 }
 
 template <int BN, int NW>
-int launch(const void* x, const void* wk, const GemmArgs& a, int kx,
-           int k_pad, cudaStream_t st) {
+int launch(const void* x, const void* wk, GemmArgs a, int kx, int k_pad,
+           int trials, cudaStream_t st) {
   using T = Tile<BN, NW>;
   CUtensorMap map_w, map_x;
-  int err = cached_u8_map(&map_w, wk, k_pad, a.n, k_pad, BN);
+  int err = cached_u8_map(&map_w, wk, k_pad, trials * a.n, k_pad, BN);
   if (err != 0) return err;
-  err = cached_u8_map(&map_x, x, kx, a.m, kx, NW);
+  err = cached_u8_map(&map_x, x, kx, trials * a.m, kx, NW);
   if (err != 0) return err;
   // the shared-memory allowance, set once a device
   static bool allowed[64] = {};
@@ -262,7 +279,8 @@ int launch(const void* x, const void* wk, const GemmArgs& a, int kx,
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
     if (dev < 64) allowed[dev] = true;
   }
-  const dim3 grid((a.n + BN - 1) / BN, (a.m + NW - 1) / NW, a.splits);
+  a.m_tiles = (a.m + NW - 1) / NW;
+  const dim3 grid((a.n + BN - 1) / BN, trials * a.m_tiles, a.splits);
   if (a.splits == 1) {
     qgemm_wgmma_kernel<BN, NW><<<grid, T::kThreads, T::kSmem, st>>>(
         map_w, map_x, a);
@@ -289,10 +307,10 @@ int launch(const void* x, const void* wk, const GemmArgs& a, int kx,
 
 template <int BN>
 int launch_nw(int nw, const void* x, const void* wk, const GemmArgs& a,
-              int kx, int k_pad, cudaStream_t st) {
-  if (nw == 8) return launch<BN, 8>(x, wk, a, kx, k_pad, st);
-  if (nw == 16) return launch<BN, 16>(x, wk, a, kx, k_pad, st);
-  if (nw == 32) return launch<BN, 32>(x, wk, a, kx, k_pad, st);
+              int kx, int k_pad, int trials, cudaStream_t st) {
+  if (nw == 8) return launch<BN, 8>(x, wk, a, kx, k_pad, trials, st);
+  if (nw == 16) return launch<BN, 16>(x, wk, a, kx, k_pad, trials, st);
+  if (nw == 32) return launch<BN, 32>(x, wk, a, kx, k_pad, trials, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -301,7 +319,8 @@ int launch_nw(int nw, const void* x, const void* wk, const GemmArgs& a,
 // y = requant(x @ w + bias), one launch.  x is (M, kx) int8 with kx a
 // multiple of 16 (the wrapper zero-pads a ragged K), 16-byte aligned; wk
 // is w staged K-major, (N, k_pad) int8 with k_pad a multiple of 128,
-// 16-byte aligned.  bias and shift_vec may be null (no bias; the scalar
+// 16-byte aligned.  With `trials` T > 1, x is (T*M, kx), wk (T*N, k_pad)
+// and y (T*M, N): trial t's rows of x against its own weight image.  bias and shift_vec may be null (no bias; the scalar
 // shift).  The wrapper plans the launch (kernels/qgemm.py:plan): bn (64
 // or 128) output columns a tile, nw (8, 16 or 32) rows of x a tile, and
 // `splits` (at most 8, a cluster) K splits of `chunk` K tiles.  Returns
@@ -310,9 +329,10 @@ int launch_nw(int nw, const void* x, const void* wk, const GemmArgs& a,
 extern "C" int qgemm_s8(const void* x, const void* wk, const void* bias,
                         const void* shift_vec, void* y, int m, int n, int kx,
                         int k_pad, int bn, int nw, int splits, int chunk,
-                        int shift, int relu, void* stream) {
+                        int shift, int relu, int trials, void* stream) {
   const int k_tiles = k_pad / kBK;
-  if (x == nullptr || wk == nullptr || m < 1 || n < 1 || kx % 16 != 0
+  if (x == nullptr || wk == nullptr || m < 1 || n < 1 || trials < 1
+      || kx % 16 != 0
       || kx < 16 || kx > k_pad || k_pad % kBK != 0 || splits < 1
       || splits > kMaxSplits || chunk < 1 || (splits - 1) * chunk >= k_tiles
       || splits * chunk < k_tiles
@@ -327,7 +347,7 @@ extern "C" int qgemm_s8(const void* x, const void* wk, const void* bias,
   a.shift = shift; a.relu = relu;
   a.wide = n % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 4 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 128) return launch_nw<128>(nw, x, wk, a, kx, k_pad, st);
-  if (bn == 64) return launch_nw<64>(nw, x, wk, a, kx, k_pad, st);
+  if (bn == 128) return launch_nw<128>(nw, x, wk, a, kx, k_pad, trials, st);
+  if (bn == 64) return launch_nw<64>(nw, x, wk, a, kx, k_pad, trials, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

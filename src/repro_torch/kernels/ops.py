@@ -23,6 +23,14 @@ fails): both refuse, on every device, inputs that require grad while
 grad mode is on, so that no training step silently drops the gradient
 of what lies upstream of them.
 
+A conv or GEMM weight with one more leading axis than the layer's own
+(a stack of T trials' weight images: (T, KH, KW, Cin/G, Cout) or
+(T, K, N)) takes the kernel's trial form (``qconv.qconv2d_trials``,
+``qdwconv2d_trials``, ``qgconv2d_trials``, ``qgemm.qgemm_trials``): the
+batch holds T trials of N rows each, trial t's rows against ``w[t]``,
+one launch for all of them; what the JAX package's kernels become under
+``jax.vmap`` in an SER campaign (``core/pipeline.py:vmap_trials``).
+
 Conv pads are zero (the symmetric quantization zero-point) and applied
 here; max-pool pads take INT8_MIN.
 
@@ -94,10 +102,11 @@ def qgemm(x, w, b=None, *, shift, relu: bool = False,
     """``shift`` is an int (per-tensor) or a length-N tuple (per-output-
     channel weight scales — the per-lane shift vector path), which
     ``shift_vec`` may carry staged on the card; ``w_k`` is ``w`` staged
-    K-major (:func:`qgemm.stage_kmajor`)."""
+    K-major (:func:`qgemm.stage_kmajor`).  A (T, K, N) weight stack takes
+    the trial form (:func:`qgemm.qgemm_trials`)."""
     _record("qgemm", x, w, b, shift_vec, w_k)
-    return _qgemm.qgemm(x, w, b, shift=shift, relu=relu, shift_vec=shift_vec,
-                        w_k=w_k)
+    fn = _qgemm.qgemm_trials if w.ndim == 3 else _qgemm.qgemm
+    return fn(x, w, b, shift=shift, relu=relu, shift_vec=shift_vec, w_k=w_k)
 
 
 def _no_backward(name: str, *operands) -> None:
@@ -163,7 +172,7 @@ def conv_route(groups: int, cin: int, w_shape) -> str:
     ``"grouped"`` (see :func:`qconv2d_nhwc`)."""
     if groups == 1:
         return "dense"
-    if groups == cin and w_shape[-1] % cin == 0 and w_shape[2] == 1:
+    if groups == cin and w_shape[-1] % cin == 0 and w_shape[-2] == 1:
         return "depthwise"
     return "grouped"
 
@@ -204,28 +213,31 @@ def qconv2d_nhwc(
     (per-output-channel weight scales).  ``w_k`` (``w`` staged K-major,
     :func:`qconv.stage_kmajor`) and ``shift_vec`` (the per-lane shifts
     staged on the card) are what a built layer made once; without them
-    a CUDA launch stages its own."""
+    a CUDA launch stages its own.  A (T, KH, KW, Cin/G, Cout) weight
+    stack (``w_k`` (T, Cout, K_pad)) takes the route's trial form over
+    an input of T*N images."""
     _record("qconv2d_nhwc", x, w, b, skip, out_buf, w_k, shift_vec)
     route = conv_route(groups, x.shape[-1], w.shape)
+    trials = w.ndim == 5
     x = ref.pad_nhwc(x, pads).contiguous()
     merge_kw = dict(skip=skip, skip_shifts=skip_shifts,
                     merge_shift=merge_shift, merge_relu=merge_relu,
                     out_buf=out_buf, out_off=out_off,
                     concat_shift=concat_shift, concat_relu=concat_relu)
     if route == "dense":
-        return _qconv.qconv2d(x, w, b, strides=strides, shift=shift,
-                              relu=relu, pool=pool, w_k=w_k,
-                              shift_vec=shift_vec, **merge_kw)
+        fn = _qconv.qconv2d_trials if trials else _qconv.qconv2d
+        return fn(x, w, b, strides=strides, shift=shift, relu=relu,
+                  pool=pool, w_k=w_k, shift_vec=shift_vec, **merge_kw)
     if route == "depthwise":
-        return _qconv.qdwconv2d(x, w, b, strides=strides, shift=shift,
-                                relu=relu, pool=pool, shift_vec=shift_vec,
-                                **merge_kw)
+        fn = _qconv.qdwconv2d_trials if trials else _qconv.qdwconv2d
+        return fn(x, w, b, strides=strides, shift=shift, relu=relu,
+                  pool=pool, shift_vec=shift_vec, **merge_kw)
     if skip is not None or out_buf is not None:
         raise ValueError("merge fusion requires the dense or depthwise "
                          "conv")
-    return _qconv.qgconv2d(x, w, b, groups=groups, strides=strides,
-                           shift=shift, relu=relu, pool=pool, w_k=w_k,
-                           shift_vec=shift_vec)
+    fn = _qconv.qgconv2d_trials if trials else _qconv.qgconv2d
+    return fn(x, w, b, groups=groups, strides=strides, shift=shift,
+              relu=relu, pool=pool, w_k=w_k, shift_vec=shift_vec)
 
 
 def qadd_nhwc(xs, align_shifts, *, shift=0,

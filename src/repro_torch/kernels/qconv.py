@@ -38,6 +38,14 @@ tensors and launch.
 All of them share one epilogue (``csrc/requant.cuh``), in the order
 :func:`qconv2d_plain` spells out.
 
+Each has a trial form, what the JAX package's kernel becomes under
+``jax.vmap`` in an SER campaign (``src/repro/core/ser.py:315``):
+:func:`qconv2d_trials` (with ``out_buf`` the into form),
+:func:`qdwconv2d_trials` and :func:`qgconv2d_trials` take a weight with
+a leading trial axis T and an input of T*N images, trial t's images
+``[t*N, (t+1)*N)`` against its own weight image, in one launch of the
+same kernel.  Their plain versions are the loops of ``kernels/ref.py``.
+
 The functions at the end of the file, from :func:`band_geometry` to
 :func:`gconv_vmem_bytes`, are the design-space exploration's row-band
 working-set model (the paper's FPGA line buffers, the JAX package's
@@ -75,12 +83,14 @@ DW_THREADS, DW_RUN = 128, 2
 
 #: Launches of each wrapper's kernel (plain-version calls are not counted).
 launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
-            "qdwconv2d_into": 0, "qgconv2d": 0}
+            "qdwconv2d_into": 0, "qgconv2d": 0, "qconv2d_trials": 0,
+            "qconv2d_into_trials": 0, "qdwconv2d_trials": 0,
+            "qdwconv2d_into_trials": 0, "qgconv2d_trials": 0}
 
 _SIGNATURES = {
-    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28
+    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 29
               + [ctypes.c_void_p]},
-    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 26
+    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 27
                 + [ctypes.c_void_p]},
 }
 
@@ -162,8 +172,10 @@ def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
     (Cout, K_pad) int8: row c holds output channel c's weights in the
     contraction order (kh, kw, ci), zero-padded from K = KH*KW*Cin/G to
     :func:`k_padded` (:func:`qgemm.stage_kmajor` of the (K, Cout)
-    matrix).  Made once per layer."""
-    return qgemm.stage_kmajor(w.reshape(-1, w.shape[-1]))
+    matrix).  Made once per layer.  A trials' stack (T, KH, KW, Cin/G,
+    Cout) becomes (T, Cout, K_pad)."""
+    return qgemm.stage_kmajor(w.reshape(tuple(w.shape[:-4])
+                                        + (-1, w.shape[-1])))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,14 +213,16 @@ class Plan:
 def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
          strides: Tuple[int, int] = (1, 1),
          pool: Optional[Tuple[int, int]] = None, groups: int = 1,
-         sms: int = H100_SMS) -> Plan:
+         sms: int = H100_SMS, trials: int = 1) -> Plan:
     """The tiles and K split of a conv, from its shapes alone: 128-row
     tiles holding ``TILE_M // taps`` whole pool windows, 128 channels a
     tile where Cout/G >= 128, else 64.  Where the tiles do not fill
     ``sms`` blocks, each tile's K tiles are split over
     ``min(sms // tiles, MAX_SPLITS)`` blocks at most: the smallest chunk
     of K tiles a block that keeps the grid within one wave, and as few
-    splits as that chunk needs."""
+    splits as that chunk needs.  With ``trials``, ``n`` is the images of
+    one trial, and each trial has its own row tiles (a tile reads one
+    trial's weight image)."""
     sh, sw = strides
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
     pw, ps = pool if pool is not None else (1, 1)
@@ -218,7 +232,7 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
     n_pooled = n * oh * ow
     bn = 128 if cout_g >= 128 else 64
     per_block = TILE_M // (pw * pw)
-    m_tiles = math.ceil(n_pooled / per_block)
+    m_tiles = trials * math.ceil(n_pooled / per_block)
     n_tiles = math.ceil(cout_g / bn)
     k_pad = k_padded(k)
     k_tiles = k_pad // K_TILE
@@ -232,11 +246,15 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
 
 def plan_of(x: torch.Tensor, w: torch.Tensor, strides, pool,
             groups: int) -> Plan:
-    """:func:`plan` of a call, with the SM count of the card it runs on."""
-    return plan(*x.shape, w.shape[0], w.shape[1], w.shape[3],
+    """:func:`plan` of a call, single or trial form (a weight with a
+    leading trial axis), with the SM count of the card it runs on."""
+    trials = w.shape[0] if w.ndim == 5 else 1
+    kh, kw, _cin_g, cout = w.shape[-4:]
+    return plan(x.shape[0] // trials, *x.shape[1:], kh, kw, cout,
                 tuple(strides), None if pool is None else tuple(pool),
                 groups, qgemm.sms_of(x.device.index
-                                     if x.device.type == "cuda" else None))
+                                     if x.device.type == "cuda" else None),
+                trials)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,6 +352,7 @@ class _Geometry:
 
     head: tuple      # n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps
     tail: tuple      # c_tot, out_off
+    trials: int      # weight images (1: the single form)
     plan: object     # Plan, or the depthwise kernel's DwPlan
     width: int       # widest input load the channels allow: 16, 4 or 1
     store: int       # output store width: 16 (dense), 4 (depthwise)
@@ -343,10 +362,19 @@ class _Geometry:
 @functools.lru_cache(maxsize=4096)
 def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
               pool, out_off: int, b_shape, skip_shape, options,
-              device_index: Optional[int]) -> _Geometry:
+              device_index: Optional[int],
+              trial_form: bool = False) -> _Geometry:
     """Check the shapes and integer ``options`` (a_conv, a_skip,
     merge_shift, concat_shift) of a launch of ``kernel`` and plan it;
-    worked out once for each distinct call and kept."""
+    worked out once for each distinct call and kept.  The trial form's
+    weight carries a leading trial axis that divides the batch."""
+    trials = 1
+    if trial_form:
+        if len(ws) != 5 or ws[0] < 1 or len(xs) != 4 or xs[0] % ws[0]:
+            raise ValueError(f"{what}: NHWC input of T*N images and a (T, "
+                             f"KH, KW, Cin/G, Cout) weight stack, got "
+                             f"{tuple(xs)} and {tuple(ws)}")
+        trials, ws = ws[0], ws[1:]
     if len(xs) != 4 or len(ws) != 4:
         raise ValueError(f"{what}: NHWC input and HWIO weight, got "
                          f"{tuple(xs)} and {tuple(ws)}")
@@ -389,8 +417,8 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
             raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
     pool = None if pool is None else (pw, ps)
     if kernel == "qconv":
-        pl = plan(n, hp, wp, cin, kh, kw, cout, (sh, sw), pool, groups,
-                  qgemm.sms_of(device_index))
+        pl = plan(n // trials, hp, wp, cin, kh, kw, cout, (sh, sw), pool,
+                  groups, qgemm.sms_of(device_index), trials)
         width = 16 if cin_g % 16 == 0 else 4 if cin_g % 4 == 0 else 1
         store = 16
     else:
@@ -400,7 +428,7 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
                  and pl.cb % 16 == 0 else 4 if cin % 4 == 0 else 1)
         store = 4
     return _Geometry((n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps),
-                     (c_tot, out_off), pl, width, store,
+                     (c_tot, out_off), trials, pl, width, store,
                      c_tot % store == 0 and out_off % store == 0)
 
 
@@ -413,7 +441,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     (:func:`stage_kmajor`; made here when none is given), ``shift_vec``
     the per-lane shifts staged on the card.  Every check comes before
     the device's, so a tensor on any device reports a bad operand
-    first."""
+    first.  A ``what`` ending in ``_trials`` is the trial form: ``w``
+    and ``w_k`` carry a leading trial axis."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
     dev = x.device
@@ -423,7 +452,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
                     tuple(strides), None if pool is None else tuple(pool),
                     int(out_off), None if b is None else b.shape,
                     None if skip is None else skip.shape, options,
-                    dev.index if dev.type == "cuda" else None)
+                    dev.index if dev.type == "cuda" else None,
+                    what.endswith("_trials"))
     if out.dtype != torch.int8:
         raise TypeError(f"{what}: output must be int8, got {out.dtype}")
     if b is not None and b.dtype != torch.int32:
@@ -438,12 +468,13 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     cout = w.shape[-1]
     s, svec = shift_args(shift, cout, dev, shift_vec)
     pl = geo.plan
+    staged = w_k is not None and tuple(w.shape[:-4]) + (cout, pl.k_pad)
     if w_k is not None and (w_k.dtype != torch.int8
-                            or w_k.shape != (cout, pl.k_pad)
+                            or tuple(w_k.shape) != staged
                             or w_k.device != dev
                             or not w_k.is_contiguous()):
         raise ValueError(f"{what}: staged weight must be contiguous int8 "
-                         f"({cout}, {pl.k_pad}) on {dev}, got "
+                         f"{staged} on {dev}, got "
                          f"{w_k.dtype} {tuple(w_k.shape)} on {w_k.device}")
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or the CPU, not {dev}")
@@ -458,7 +489,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     wide = int(geo.wide and out.data_ptr() % geo.store == 0)
     if kernel == "qdwconv":
         err = lib.qdwconv_s8(p(x), p(w), p(b), p(svec), p(skip), p(out),
-                             *args, pl.rp, pl.cp, pl.cb, width, wide, stream)
+                             *args, pl.rp, pl.cp, pl.cb, width, wide,
+                             geo.trials, stream)
     else:
         if w_k is None:
             w_k = stage_kmajor(w)
@@ -466,15 +498,15 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
             w_k = w_k.clone()
         err = lib.qconv_s8(p(x), p(w_k), p(b), p(svec), p(skip), p(out),
                            *args, int(groups), pl.bn, pl.k_pad, pl.splits,
-                           pl.chunk, width, wide, stream)
+                           pl.chunk, width, wide, geo.trials, stream)
     _build.check(err, what)
 
 
 def _out_hw(x, w, strides, pool):
     """Output (pooled) height and width; 0 where the window does not fit,
     which :func:`_launch` then rejects."""
-    ho = (x.shape[1] - w.shape[0]) // strides[0] + 1
-    wo = (x.shape[2] - w.shape[1]) // strides[1] + 1
+    ho = (x.shape[1] - w.shape[-4]) // strides[0] + 1
+    wo = (x.shape[2] - w.shape[-3]) // strides[1] + 1
     if pool is not None:
         ho, wo = (ho - pool[0]) // pool[1] + 1, (wo - pool[0]) // pool[1] + 1
     return max(ho, 0), max(wo, 0)
@@ -605,6 +637,71 @@ def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), shift=0, relu=True,
                 skip_shifts=(0, 0), merge_shift=0, merge_relu=False,
                 concat_shift=0, concat_relu=False, w_k=w_k,
                 shift_vec=shift_vec, **kw_)
+
+
+def qconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
+                   out_off: int = 0, w_k: Optional[torch.Tensor] = None,
+                   shift_vec: Optional[torch.Tensor] = None,
+                   **kw) -> torch.Tensor:
+    """The trial form of :func:`qconv2d` (and, with ``out_buf``, of
+    :func:`qconv2d_into`): x (T*N, Hp, Wp, Cin) holds T trials' N images
+    each, w (T, KH, KW, Cin, Cout) one weight image a trial (``w_k`` the
+    stack staged K-major, (T, Cout, K_pad)); bias, shifts and every
+    epilogue option are shared, a skip or ``out_buf`` has T*N images.
+    Trial t's images ``[t*N, (t+1)*N)`` come out as :func:`qconv2d` of
+    them with ``w[t]``, from one launch.  On a CPU tensor this is the
+    plain version :func:`ref.qconv2d_trials_ref`; on a CUDA tensor it
+    launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return ref.qconv2d_trials_ref(x, w, b, out_buf=out_buf,
+                                      out_off=out_off, **kw)
+    what = "qconv2d_trials" if out_buf is None else "qconv2d_into_trials"
+    return _run("qconv", what, x, w, b, groups=1, out_buf=out_buf,
+                out_off=out_off, w_k=w_k, shift_vec=shift_vec, **_merge(kw))
+
+
+def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
+                     out_off: int = 0,
+                     shift_vec: Optional[torch.Tensor] = None,
+                     **kw) -> torch.Tensor:
+    """The trial form of :func:`qdwconv2d` (its ``out_buf`` form counted
+    as ``qdwconv2d_into_trials``): w (T, KH, KW, 1, Cout) one filter
+    image a trial, x of T*N images, trial t's images against ``w[t]``,
+    from one launch.  On a CPU tensor this is the plain version
+    :func:`ref.qdwconv2d_trials_ref`; on a CUDA tensor it launches the
+    kernel or raises."""
+    if x.device.type == "cpu":
+        return ref.qdwconv2d_trials_ref(x, w, b, out_buf=out_buf,
+                                        out_off=out_off, **kw)
+    what = ("qdwconv2d_trials" if out_buf is None
+            else "qdwconv2d_into_trials")
+    return _run("qdwconv", what, x, w, b, groups=x.shape[-1],
+                out_buf=out_buf, out_off=out_off, shift_vec=shift_vec,
+                **_merge(kw))
+
+
+def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1), shift=0,
+                    relu=True, pool=None, w_k: Optional[torch.Tensor] = None,
+                    shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The trial form of :func:`qgconv2d`: w (T, KH, KW, Cin/groups,
+    Cout) one weight image a trial (``w_k`` staged K-major, (T, Cout,
+    K_pad)), x of T*N images, from one launch.  On a CPU tensor this is
+    the plain version :func:`ref.qgconv2d_trials_ref`; on a CUDA tensor
+    it launches the kernel or raises."""
+    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
+    if x.device.type == "cpu":
+        return ref.qgconv2d_trials_ref(x, w, b, groups=groups, **kw_)
+    return _run("qconv", "qgconv2d_trials", x, w, b, groups=groups,
+                w_k=w_k, shift_vec=shift_vec, **_merge(kw_))
+
+
+def _merge(kw: dict) -> dict:
+    """``kw`` with each epilogue option the caller left out at its
+    default (no skip, no concat step), as :func:`_launch` takes them."""
+    return dict(dict(strides=(1, 1), shift=0, relu=True, pool=None,
+                     skip=None, skip_shifts=(0, 0), merge_shift=0,
+                     merge_relu=False, concat_shift=0, concat_relu=False),
+                **kw)
 
 
 # ------------------------------------ the DSE's row-band working-set model

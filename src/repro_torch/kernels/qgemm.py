@@ -12,6 +12,12 @@ thread-block cluster so that one wave fills the card (:func:`plan`), and
 the split sums reduced through distributed shared memory and
 requantized in the same launch: one launch per call (see the note at the
 top of the source).
+
+``qgemm_trials`` is the trial form, what the JAX package's ``qgemm``
+becomes under ``jax.vmap`` in an SER campaign
+(``src/repro/core/ser.py:315``): T trials' rows of x, each against its
+own weight image (T, K, N), in one launch of the same kernel (its plan
+from :func:`plan` with ``trials``).
 """
 from __future__ import annotations
 
@@ -36,9 +42,9 @@ H100_SMS = 132
 #: thread-block cluster, and 8 is the portable cluster size.
 MAX_SPLITS = 8
 #: Launches of the kernel (plain-version calls are not counted).
-launches = {"qgemm": 0}
+launches = {"qgemm": 0, "qgemm_trials": 0}
 
-_SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+_SIGNATURES = {"qgemm_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                + [ctypes.c_void_p]}
 
 
@@ -51,10 +57,12 @@ def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 -> the kernels' K-major (N, K_pad) int8: row n holds
     column n of ``w``, zero-padded from K to :func:`k_padded` (every row
     a multiple of 16 bytes, as TMA needs; the padding adds 0 to every
-    sum).  Made once per layer."""
-    k, n = w.shape
-    wk = torch.zeros((n, k_padded(k)), dtype=torch.int8, device=w.device)
-    wk[:, :k] = w.t()
+    sum).  Made once per layer.  Leading axes stay: a trials' stack
+    (T, K, N) becomes (T, N, K_pad)."""
+    k, n = w.shape[-2:]
+    wk = torch.zeros(tuple(w.shape[:-2]) + (n, k_padded(k)),
+                     dtype=torch.int8, device=w.device)
+    wk[..., :k] = w.transpose(-1, -2)
     return wk
 
 
@@ -89,7 +97,8 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(m: int, n: int, k: int, sms: int = H100_SMS) -> Plan:
+def plan(m: int, n: int, k: int, sms: int = H100_SMS,
+         trials: int = 1) -> Plan:
     """The tiles and K split of an (M, K) x (K, N) call, from its shapes
     and the card's SM count alone.  NW is the smallest wgmma N of 8, 16
     and 32 that holds M (32 and M tiles past it).  For a tile of 128 and
@@ -97,9 +106,10 @@ def plan(m: int, n: int, k: int, sms: int = H100_SMS) -> Plan:
     ``min(sms // tiles, MAX_SPLITS)`` blocks at most (the smallest chunk
     that keeps the grid within one wave, and as few splits as that chunk
     needs); the 64-column tile is taken where it puts more blocks on the
-    card within one wave."""
+    card within one wave.  With ``trials``, each of that many trials has
+    its own M rows and weight image: its own M tiles."""
     nw = 8 if m <= 8 else 16 if m <= 16 else 32
-    m_tiles = math.ceil(m / nw)
+    m_tiles = trials * math.ceil(m / nw)
     k_tiles = k_padded(k) // K_TILE
 
     def tiled(bn: int) -> Plan:
@@ -184,35 +194,63 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     copies unused); on a CUDA tensor it launches the kernel or raises."""
     if x.device.type == "cpu":
         return qgemm_plain(x, w, b, shift=shift, relu=relu)
+    return _launch("qgemm", x, w, b, shift, relu, shift_vec, w_k)
+
+
+def qgemm_trials(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, *, shift,
+                 relu: bool = False,
+                 shift_vec: Optional[torch.Tensor] = None,
+                 w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The trial form of :func:`qgemm`: x (T*M, K) int8 holds T trials'
+    M rows each, w (T, K, N) int8 one weight image a trial (``w_k`` the
+    stack staged K-major, (T, N, K_pad)); the bias and shifts are the
+    trials' own shared ones.  Returns (T*M, N) int8, trial t's rows
+    ``x[t*M:(t+1)*M] @ w[t]``, in one launch.  On a CPU tensor this is
+    the plain version :func:`ref.qgemm_trials_ref`; on a CUDA tensor it
+    launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return ref.qgemm_trials_ref(x, w, b, shift=shift, relu=relu)
+    return _launch("qgemm_trials", x, w, b, shift, relu, shift_vec, w_k)
+
+
+def _launch(what: str, x, w, b, shift, relu, shift_vec, w_k) -> torch.Tensor:
+    """Check the operands of a launch of the kernel, single (``w`` of
+    (K, N)) or trial form (``w`` of (T, K, N)), and launch it; count it
+    under ``what``."""
+    trial_form = what == "qgemm_trials"
     if x.device.type != "cuda":
-        raise ValueError(f"qgemm runs on CUDA or the CPU, not {x.device}")
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
     if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"qgemm takes int8 operands, got {x.dtype}, {w.dtype}")
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0] \
-            or x.shape[1] == 0:
-        raise ValueError(f"qgemm shapes {tuple(x.shape)} x {tuple(w.shape)}")
-    m, k = x.shape
-    n = w.shape[1]
+        raise TypeError(f"{what} takes int8 operands, got {x.dtype}, "
+                        f"{w.dtype}")
+    trials = w.shape[0] if trial_form and w.ndim == 3 else 1
+    if x.ndim != 2 or w.ndim != 2 + trial_form \
+            or x.shape[1] != w.shape[-2] or x.shape[1] == 0 or trials < 1 \
+            or x.shape[0] % trials:
+        raise ValueError(f"{what} shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    m, k = x.shape[0] // trials, x.shape[1]
+    n = w.shape[-1]
     for name, t in (("w", w), ("b", b), ("w_k", w_k)):
         if t is not None and t.device != x.device:
-            raise ValueError(f"qgemm: {name} on {t.device}, x on {x.device}")
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
     if b is not None and (b.dtype != torch.int32 or b.shape != (n,)):
-        raise ValueError(f"qgemm bias must be ({n},) int32, got "
+        raise ValueError(f"{what} bias must be ({n},) int32, got "
                          f"{tuple(b.shape)} {b.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()
             and (b is None or b.is_contiguous())):
-        raise ValueError("qgemm takes contiguous tensors")
+        raise ValueError(f"{what} takes contiguous tensors")
+    staged = ((trials,) if trial_form else ()) + (n, k_padded(k))
     if w_k is not None and (w_k.dtype != torch.int8
-                            or w_k.shape != (n, k_padded(k))
+                            or tuple(w_k.shape) != staged
                             or not w_k.is_contiguous()):
-        raise ValueError(f"qgemm: staged weight must be contiguous int8 "
-                         f"({n}, {k_padded(k)}), got {w_k.dtype} "
-                         f"{tuple(w_k.shape)}")
+        raise ValueError(f"{what}: staged weight must be contiguous int8 "
+                         f"{staged}, got {w_k.dtype} {tuple(w_k.shape)}")
     s, svec = shift_args(shift, n, x.device, shift_vec)
-    y = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    y = torch.empty((trials * m, n), dtype=torch.int8, device=x.device)
     if m == 0 or n == 0:
         return y
-    pl = plan(m, n, k, sms_of(x.device.index))
+    pl = plan(m, n, k, sms_of(x.device.index), trials)
     if w_k is None:
         w_k = stage_kmajor(w)
     if w_k.data_ptr() % 16:      # TMA reads 16-byte aligned rows
@@ -226,7 +264,7 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     p = _build.ptr
     err = lib.qgemm_s8(p(x), p(w_k), p(b), p(svec), p(y), m, n, kx,
                        pl.k_pad, pl.bn, pl.nw, pl.splits, pl.chunk, s,
-                       int(relu), _build.stream(x.device))
-    _build.check(err, "qgemm")
-    launches["qgemm"] += 1
+                       int(relu), trials, _build.stream(x.device))
+    _build.check(err, what)
+    launches[what] += 1
     return y

@@ -19,6 +19,13 @@ complement on both devices, as the JAX reference's do.
 :func:`attention_ref` is the float grouped-query attention oracle that
 the LM layers' ``naive`` attention calls; :func:`ssd_ref` is the
 sequential oracle of the Mamba-2 SSD scan.
+
+The ``*_trials_ref`` functions are the plain versions of the kernels'
+trial forms, what the JAX package's kernels become under ``jax.vmap`` in
+an SER campaign: the weight carries a leading trial axis T, the batch
+holds T trials of N rows (images) each, and trial t's rows
+``[t*N, (t+1)*N)`` go through the single-trial plain version with its
+own weight ``w[t]`` (:func:`over_trials`).
 """
 from __future__ import annotations
 
@@ -115,6 +122,76 @@ def qgemm_ref(
     if b is not None:
         acc = acc + b.to(torch.int32)[None, :]
     return requant(acc, shift, relu)
+
+
+def over_trials(fn, x: torch.Tensor, w: torch.Tensor, *operands,
+                skip: Optional[torch.Tensor] = None,
+                out_buf: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """The plain version of a trial form: ``fn`` (a single-trial plain
+    version) on each trial's rows of ``x``, and of ``skip`` and
+    ``out_buf`` where given, with that trial's weight ``w[t]``; the
+    trials' results stacked back along the batch (or ``out_buf``,
+    written in place)."""
+    trials = w.shape[0]
+    if trials < 1 or x.shape[0] % trials:
+        raise ValueError(f"{trials} weight images over a batch of "
+                         f"{x.shape[0]}")
+    n = x.shape[0] // trials
+    ys = []
+    for t in range(trials):
+        rows = slice(t * n, (t + 1) * n)
+        part = {}
+        if skip is not None:
+            part["skip"] = skip[rows]
+        if out_buf is not None:
+            part["out_buf"] = out_buf[rows]
+        ys.append(fn(x[rows], w[t], *operands, **part, **kw))
+    return out_buf if out_buf is not None else torch.cat(ys)
+
+
+def qgemm_trials_ref(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None, *, shift,
+                     relu: bool = False, shift_vec=None,
+                     w_k=None) -> torch.Tensor:
+    """``qgemm``'s trial form: (T*M, K) x (T, K, N) -> (T*M, N), trial t's
+    rows times ``w[t]``.  The staged copies are not read."""
+    return over_trials(lambda xt, wt: qgemm_ref(xt, wt, b, shift, relu),
+                       x, w)
+
+
+def qconv2d_trials_ref(x, w, b, **kw) -> torch.Tensor:
+    """The dense conv's trial form (``kernels/qconv.py:qconv2d_plain`` a
+    trial; with ``out_buf``, :func:`qconv2d_into_trials_ref`)."""
+    from .qconv import qconv2d_plain
+    return over_trials(qconv2d_plain, x, w, b, **kw)
+
+
+def qconv2d_into_trials_ref(x, w, b, out_buf: torch.Tensor, *,
+                            out_off: int, **kw) -> torch.Tensor:
+    """The concat-buffer conv's trial form: each trial's result written
+    into its images of ``out_buf``, channels ``[out_off, out_off +
+    Cout)``, in place."""
+    return qconv2d_trials_ref(x, w, b, out_buf=out_buf, out_off=out_off,
+                              **kw)
+
+
+def qgconv2d_trials_ref(x, w, b, *, groups: int, **kw) -> torch.Tensor:
+    """The ragged grouped conv's trial form."""
+    return qconv2d_trials_ref(x, w, b, groups=groups, **kw)
+
+
+def qdwconv2d_trials_ref(x, w, b, **kw) -> torch.Tensor:
+    """The depthwise conv's trial form (with ``out_buf``,
+    :func:`qdwconv2d_into_trials_ref`)."""
+    from .qconv import qdwconv2d_plain
+    return over_trials(qdwconv2d_plain, x, w, b, **kw)
+
+
+def qdwconv2d_into_trials_ref(x, w, b, out_buf: torch.Tensor, *,
+                              out_off: int, **kw) -> torch.Tensor:
+    """The depthwise concat-buffer conv's trial form."""
+    return qdwconv2d_trials_ref(x, w, b, out_buf=out_buf, out_off=out_off,
+                                **kw)
 
 
 def qconv2d_ref(

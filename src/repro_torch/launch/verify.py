@@ -90,8 +90,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--checkpoints", default="",
                     help="comma-separated boundary indices to prove "
                          "(QV304) and charge (QV402)")
-    ap.add_argument("--probes", action="store_true",
-                    help="also run fused executors for QV501/QV502")
+    ap.add_argument("--probes", "--jaxpr-probes", dest="probes",
+                    action="store_true",
+                    help="also run fused executors for QV501/QV502 "
+                         "(--jaxpr-probes: the JAX package's spelling)")
     ap.add_argument("--device", default=None,
                     help="where the models are built and probed "
                          "(default: cuda)")

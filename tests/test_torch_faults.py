@@ -276,20 +276,33 @@ def test_zero_xor_mask_is_the_identity(gate):
 
 
 def test_xor_payload_combines_repeats_and_drops_no_ops():
-    """Two upsets of one element XOR-combine (two flips of one bit
-    cancel) and a zero mask is the identity, in any slot order."""
+    """Repeated indices combine as the JAX package's scatter combines
+    them: each writes ``x[i] ^ mask`` from the original value and the
+    last slot wins (a zero mask last writes the original back), and a
+    zero mask alone is the identity, in any slot order.  As there, an
+    index past the tensor is dropped and a negative one counts from the
+    end."""
     h = torch.arange(-4, 4, dtype=torch.int8).reshape(2, 4)
-    out = t_pipe._apply_arg_faults(h, (np.asarray([0, 0, 3, 3, 5]),
-                                       np.asarray([64, 0, 1, 1, -128],
-                                                  np.int8)))
+    entry = (np.asarray([0, 0, 3, 3, 5]),
+             np.asarray([64, 0, 1, 2, -128], np.int8))
+    out = t_pipe._apply_arg_faults(h, entry)
     want = h.clone().reshape(-1)
-    want[0] ^= 64
+    want[3] ^= 2
     want[5] ^= -128
     assert torch.equal(out, want.reshape(2, 4))
+    ref = r_pipe._apply_arg_faults(jnp.asarray(h.numpy()), entry)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert torch.equal(h, torch.arange(-4, 4, dtype=torch.int8).reshape(
         2, 4))  # the input is never written
-    with pytest.raises(IndexError, match="outside"):
-        t_pipe._apply_arg_faults(h, (np.asarray([8]), np.asarray([1])))
+    edge = (np.asarray([8, -1, 40, -9, 2]), np.asarray([1, 4, 2, 8, 16],
+                                                       np.int8))
+    out = t_pipe._apply_arg_faults(h, edge)
+    want = h.clone().reshape(-1)
+    want[7] ^= 4
+    want[2] ^= 16
+    assert torch.equal(out, want.reshape(2, 4))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(
+        r_pipe._apply_arg_faults(jnp.asarray(h.numpy()), edge)))
 
 
 def test_weight_args_stage_the_kernel_operand_from_the_call(gate,
@@ -325,17 +338,33 @@ def test_weight_args_stage_the_kernel_operand_from_the_call(gate,
 
 
 def test_a_no_op_slot_after_a_fault_at_index_0():
-    """A difference from the JAX package, pinned at its smallest input.
-    Its call-time payload is one scatter in which a padding slot
-    ``(0, 0)`` after a real fault at flat index 0 writes last and undoes
-    it (XLA keeps the last of repeated indices), so that trial's flip is
-    lost; the port XOR-combines repeated indices, so a zero mask stays
-    the identity it is documented to be."""
+    """The JAX package's call-time payload is one scatter in which a
+    padding slot ``(0, 0)`` after a real fault at flat index 0 writes
+    last and undoes it (XLA keeps the last of repeated indices), so that
+    trial's flip is lost; the port applies the payload the same way."""
     h = np.arange(8, dtype=np.int8)
     entry = (np.asarray([0, 0], np.int32), np.asarray([64, 0], np.int8))
-    want = h.copy()
-    want[0] ^= 64
     ref = np.asarray(r_pipe._apply_arg_faults(jnp.asarray(h), entry))
     np.testing.assert_array_equal(ref, h)
     np.testing.assert_array_equal(
-        t_pipe._apply_arg_faults(torch.from_numpy(h), entry).numpy(), want)
+        t_pipe._apply_arg_faults(torch.from_numpy(h), entry).numpy(), ref)
+
+
+@pytest.mark.parametrize("bits", [(6, 6), (6, 2), (7, 0)],
+                         ids=["same_bit", "two_bits", "sign_and_low"])
+def test_two_static_flips_on_one_element_match_the_reference(bits):
+    """A static ``faults=`` payload with two flips on one element (and a
+    zeroed burst): the JAX package's scatter keeps the last flip, written
+    from the original value, and so does the port."""
+    plan = [TF.Fault(TF.ACTIVATION_BIT, "s", index=5, bit=b, tensor="t")
+            for b in bits]
+    plan.append(TF.Fault(TF.ACTIVATION_TILE, "s", tile=(9, 12), tensor="t"))
+    payload = TF.FaultPlan(tuple(plan)).activation_faults()["t"]
+    h = np.arange(-8, 8, dtype=np.int8).reshape(2, 2, 2, 2)
+    ref = np.asarray(r_pipe._apply_tensor_faults(jnp.asarray(h), payload))
+    got = t_pipe._apply_tensor_faults(torch.from_numpy(h), payload).numpy()
+    np.testing.assert_array_equal(got, ref)
+    want = h.reshape(-1).copy()
+    want[5] ^= np.array(1 << bits[-1], np.uint8).astype(np.int8)
+    want[9:12] = 0
+    np.testing.assert_array_equal(got.reshape(-1), want)

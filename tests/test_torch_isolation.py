@@ -127,17 +127,25 @@ def test_no_plain_fallback_off_the_cpu():
 
 
 def test_launch_counters_count_kernel_launches_only():
-    """Plain versions (every CPU call) leave the counters alone."""
+    """Plain versions (every CPU call, the trial forms' too) leave the
+    counters alone."""
     ops.reset_launch_counts()
     g = cnn.googlenet_tiny()
     gate = CNN2Gate.from_graph(g, device="cpu")
     x = np.random.default_rng(0).standard_normal(g.inputs[0].shape)
     gate.calibrate_quantization(x.astype(np.float32))
     gate.build()(x)
-    assert ops.launch_counts() == {"qgemm": 0, "qconv2d": 0,
-                                   "qconv2d_into": 0, "qdwconv2d": 0,
-                                   "qdwconv2d_into": 0, "qgconv2d": 0,
-                                   "flash_attention": 0, "ssd_scan": 0}
+    names = [ql.info.name for ql in gate.quantized.layers
+             if ql.w_q is not None]
+    ex = tpipe.make_executor(gate.quantized, weight_args=names)
+    tpipe.vmap_trials(ex)(x, {ql.info.name: torch.stack([ql.w_q] * 2)
+                                 for ql in gate.quantized.layers
+                                 if ql.w_q is not None})
+    single = ("qgemm", "qconv2d", "qconv2d_into", "qdwconv2d",
+              "qdwconv2d_into", "qgconv2d")
+    assert ops.launch_counts() == dict(
+        {k: 0 for k in single}, **{k + "_trials": 0 for k in single},
+        flash_attention=0, ssd_scan=0)
 
 
 def test_kernel_sources_and_build_key():

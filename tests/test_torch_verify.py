@@ -487,3 +487,26 @@ def test_verify_cli(capsys):
         cli.main(["--models", "nope", "--device", "cpu"])
     assert cli.main(["--list-rules"]) == 0
     assert "QV502" in capsys.readouterr().out
+
+
+def test_verify_cli_takes_the_reference_flags(capsys, monkeypatch):
+    """The JAX package's command line (``--jaxpr-probes``, its spelling of
+    the probe flag) runs through the port's ``main``: the same probes as
+    ``--probes``, the same report."""
+    from repro_torch.launch import verify as cli
+    ran = []
+    probes = TV.structural_probes
+
+    def spy(*a, **kw):
+        ran.append(a[0].name)
+        return probes(*a, **kw)
+    monkeypatch.setattr(TV, "structural_probes", spy)
+    ref_flags = ["--models", "resnet_tiny,googlenet_tiny", "--per-channel",
+                 "off", "--fused", "on", "--n-i", "16", "--n-l", "32",
+                 "--seed", "0", "--jaxpr-probes"]
+    assert cli.main(ref_flags + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert len(ran) == 2
+    assert cli.main([f for f in ref_flags if f != "--jaxpr-probes"]
+                    + ["--probes", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == out and len(ran) == 4
