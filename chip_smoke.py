@@ -340,7 +340,7 @@ def wrappers():
             "qdwconv2d_trials": (qconv, qconv.qdwconv2d_trials,
                                  ref.qdwconv2d_trials_ref),
             "qgconv2d_trials": (qconv, qconv.qgconv2d_trials,
-                                ref.qgconv2d_trials_ref),
+                                ref.qconv2d_trials_ref),
             "qgemm_trials": (qgemm, qgemm.qgemm_trials,
                              ref.qgemm_trials_ref),
             "flash_attention": (fa, fa.flash_attention,
@@ -1792,13 +1792,13 @@ def trial_forms():
     return {"qconv2d": (qconv.qconv2d, qconv.qconv2d_trials,
                         ref.qconv2d_trials_ref),
             "qconv2d_into": (qconv.qconv2d, qconv.qconv2d_trials,
-                             ref.qconv2d_into_trials_ref),
+                             ref.qconv2d_trials_ref),
             "qdwconv2d": (qconv.qdwconv2d, qconv.qdwconv2d_trials,
                           ref.qdwconv2d_trials_ref),
             "qdwconv2d_into": (qconv.qdwconv2d, qconv.qdwconv2d_trials,
-                               ref.qdwconv2d_into_trials_ref),
+                               ref.qdwconv2d_trials_ref),
             "qgconv2d": (qconv.qgconv2d, qconv.qgconv2d_trials,
-                         ref.qgconv2d_trials_ref),
+                         ref.qconv2d_trials_ref),
             "qgemm": (qgemm.qgemm, qgemm.qgemm_trials, ref.qgemm_trials_ref)}
 
 

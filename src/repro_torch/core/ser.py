@@ -307,7 +307,8 @@ def run_campaign(gate, x, *, trials: int = 100, flips: int = 1,
     xt = torch.as_tensor(x, dtype=torch.float32, device=qm.device)
     # golden reference: golden weights + all-zero payload through the
     # SAME executor (also validates the no-op path end to end)
-    gold_w = {n: next(ql.w_q for ql in stages if ql.info.name == n)
+    gold_w = {n: next((ql.w_q, ql.w_k) for ql in stages
+                      if ql.info.name == n)
               for n in w_touched}
     nop = {t: (np.zeros(slots, np.int32), np.zeros(slots, np.int8))
            for t in a_touched}

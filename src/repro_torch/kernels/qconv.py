@@ -434,15 +434,16 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
 
 def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
             skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
-            concat_relu, what: str, w_k=None, shift_vec=None) -> None:
+            concat_relu, what: str, trials: bool, w_k=None,
+            shift_vec=None) -> None:
     """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
     dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
     ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
     (:func:`stage_kmajor`; made here when none is given), ``shift_vec``
     the per-lane shifts staged on the card.  Every check comes before
     the device's, so a tensor on any device reports a bad operand
-    first.  A ``what`` ending in ``_trials`` is the trial form: ``w``
-    and ``w_k`` carry a leading trial axis."""
+    first.  With ``trials`` (the trial form) ``w`` and ``w_k`` carry a
+    leading trial axis."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
     dev = x.device
@@ -452,8 +453,7 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
                     tuple(strides), None if pool is None else tuple(pool),
                     int(out_off), None if b is None else b.shape,
                     None if skip is None else skip.shape, options,
-                    dev.index if dev.type == "cuda" else None,
-                    what.endswith("_trials"))
+                    dev.index if dev.type == "cuda" else None, trials)
     if out.dtype != torch.int8:
         raise TypeError(f"{what}: output must be int8, got {out.dtype}")
     if b is not None and b.dtype != torch.int32:
@@ -514,10 +514,13 @@ def _out_hw(x, w, strides, pool):
 
 def _run(kernel: str, what: str, x, w, b, *, groups: int,
          out_buf: Optional[torch.Tensor] = None, out_off: int = 0,
-         **kw) -> torch.Tensor:
+         trials: bool = False, **kw) -> torch.Tensor:
     """Launch ``kernel`` on a CUDA tensor into a new (N, OH, OW, Cout)
     output, or into channels ``[out_off, out_off + Cout)`` of ``out_buf``
-    in place; count the launch under ``what``."""
+    in place; count the launch under ``what`` (``what + "_trials"`` for
+    the trial form)."""
+    if trials:
+        what += "_trials"
     if out_buf is None:
         oh, ow = _out_hw(x, w, kw["strides"], kw["pool"])
         out = torch.empty((x.shape[0], oh, ow, w.shape[-1]),
@@ -525,7 +528,7 @@ def _run(kernel: str, what: str, x, w, b, *, groups: int,
     else:
         out = out_buf
     _launch(kernel, x, w, b, out, groups=groups, out_off=out_off, what=what,
-            **kw)
+            trials=trials, **kw)
     launches[what] += 1
     return out
 
@@ -655,9 +658,10 @@ def qconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
     if x.device.type == "cpu":
         return ref.qconv2d_trials_ref(x, w, b, out_buf=out_buf,
                                       out_off=out_off, **kw)
-    what = "qconv2d_trials" if out_buf is None else "qconv2d_into_trials"
+    what = "qconv2d" if out_buf is None else "qconv2d_into"
     return _run("qconv", what, x, w, b, groups=1, out_buf=out_buf,
-                out_off=out_off, w_k=w_k, shift_vec=shift_vec, **_merge(kw))
+                out_off=out_off, trials=True, w_k=w_k, shift_vec=shift_vec,
+                **_merge(kw))
 
 
 def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
@@ -673,11 +677,10 @@ def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
     if x.device.type == "cpu":
         return ref.qdwconv2d_trials_ref(x, w, b, out_buf=out_buf,
                                         out_off=out_off, **kw)
-    what = ("qdwconv2d_trials" if out_buf is None
-            else "qdwconv2d_into_trials")
+    what = "qdwconv2d" if out_buf is None else "qdwconv2d_into"
     return _run("qdwconv", what, x, w, b, groups=x.shape[-1],
-                out_buf=out_buf, out_off=out_off, shift_vec=shift_vec,
-                **_merge(kw))
+                out_buf=out_buf, out_off=out_off, trials=True,
+                shift_vec=shift_vec, **_merge(kw))
 
 
 def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1), shift=0,
@@ -686,12 +689,12 @@ def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1), shift=0,
     """The trial form of :func:`qgconv2d`: w (T, KH, KW, Cin/groups,
     Cout) one weight image a trial (``w_k`` staged K-major, (T, Cout,
     K_pad)), x of T*N images, from one launch.  On a CPU tensor this is
-    the plain version :func:`ref.qgconv2d_trials_ref`; on a CUDA tensor
-    it launches the kernel or raises."""
+    the plain version :func:`ref.qconv2d_trials_ref` with ``groups``; on
+    a CUDA tensor it launches the kernel or raises."""
     kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
     if x.device.type == "cpu":
-        return ref.qgconv2d_trials_ref(x, w, b, groups=groups, **kw_)
-    return _run("qconv", "qgconv2d_trials", x, w, b, groups=groups,
+        return ref.qconv2d_trials_ref(x, w, b, groups=groups, **kw_)
+    return _run("qconv", "qgconv2d", x, w, b, groups=groups, trials=True,
                 w_k=w_k, shift_vec=shift_vec, **_merge(kw_))
 
 

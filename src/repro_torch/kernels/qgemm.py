@@ -194,7 +194,7 @@ def qgemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     copies unused); on a CUDA tensor it launches the kernel or raises."""
     if x.device.type == "cpu":
         return qgemm_plain(x, w, b, shift=shift, relu=relu)
-    return _launch("qgemm", x, w, b, shift, relu, shift_vec, w_k)
+    return _launch(x, w, b, shift, relu, shift_vec, w_k, trial_form=False)
 
 
 def qgemm_trials(x: torch.Tensor, w: torch.Tensor,
@@ -211,14 +211,15 @@ def qgemm_trials(x: torch.Tensor, w: torch.Tensor,
     launches the kernel or raises."""
     if x.device.type == "cpu":
         return ref.qgemm_trials_ref(x, w, b, shift=shift, relu=relu)
-    return _launch("qgemm_trials", x, w, b, shift, relu, shift_vec, w_k)
+    return _launch(x, w, b, shift, relu, shift_vec, w_k, trial_form=True)
 
 
-def _launch(what: str, x, w, b, shift, relu, shift_vec, w_k) -> torch.Tensor:
+def _launch(x, w, b, shift, relu, shift_vec, w_k, *,
+            trial_form: bool) -> torch.Tensor:
     """Check the operands of a launch of the kernel, single (``w`` of
-    (K, N)) or trial form (``w`` of (T, K, N)), and launch it; count it
-    under ``what``."""
-    trial_form = what == "qgemm_trials"
+    (K, N)) or, with ``trial_form``, the trial form (``w`` of (T, K,
+    N)), and launch it; count it under ``qgemm`` or ``qgemm_trials``."""
+    what = "qgemm_trials" if trial_form else "qgemm"
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or the CPU, not {x.device}")
     if x.dtype != torch.int8 or w.dtype != torch.int8:

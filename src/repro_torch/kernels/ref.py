@@ -161,37 +161,18 @@ def qgemm_trials_ref(x: torch.Tensor, w: torch.Tensor,
 
 def qconv2d_trials_ref(x, w, b, **kw) -> torch.Tensor:
     """The dense conv's trial form (``kernels/qconv.py:qconv2d_plain`` a
-    trial; with ``out_buf``, :func:`qconv2d_into_trials_ref`)."""
+    trial): with ``out_buf`` the concat-buffer conv's, each trial's
+    result written into its images of ``out_buf`` in place; with
+    ``groups`` the ragged grouped conv's."""
     from .qconv import qconv2d_plain
     return over_trials(qconv2d_plain, x, w, b, **kw)
 
 
-def qconv2d_into_trials_ref(x, w, b, out_buf: torch.Tensor, *,
-                            out_off: int, **kw) -> torch.Tensor:
-    """The concat-buffer conv's trial form: each trial's result written
-    into its images of ``out_buf``, channels ``[out_off, out_off +
-    Cout)``, in place."""
-    return qconv2d_trials_ref(x, w, b, out_buf=out_buf, out_off=out_off,
-                              **kw)
-
-
-def qgconv2d_trials_ref(x, w, b, *, groups: int, **kw) -> torch.Tensor:
-    """The ragged grouped conv's trial form."""
-    return qconv2d_trials_ref(x, w, b, groups=groups, **kw)
-
-
 def qdwconv2d_trials_ref(x, w, b, **kw) -> torch.Tensor:
-    """The depthwise conv's trial form (with ``out_buf``,
-    :func:`qdwconv2d_into_trials_ref`)."""
+    """The depthwise conv's trial form (with ``out_buf``, its
+    concat-buffer form)."""
     from .qconv import qdwconv2d_plain
     return over_trials(qdwconv2d_plain, x, w, b, **kw)
-
-
-def qdwconv2d_into_trials_ref(x, w, b, out_buf: torch.Tensor, *,
-                              out_off: int, **kw) -> torch.Tensor:
-    """The depthwise concat-buffer conv's trial form."""
-    return qdwconv2d_trials_ref(x, w, b, out_buf=out_buf, out_off=out_off,
-                                **kw)
 
 
 def qconv2d_ref(

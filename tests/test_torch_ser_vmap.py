@@ -135,10 +135,10 @@ def test_into_trials_write_each_trials_images(case):
     c_tot, off = y.shape[-1] + 9, 5
     sentinel = torch.full(tuple(y.shape[:3]) + (c_tot,), 77, dtype=torch.int8)
     buf = trial_fn(x, w, b, out_buf=sentinel.clone(), out_off=off, **kw)
-    plain = (ref.qdwconv2d_into_trials_ref if case[0].startswith("depthwise")
-             else ref.qconv2d_into_trials_ref)
-    assert torch.equal(buf, plain(x, w, b, sentinel.clone(), out_off=off,
-                                  **kw))
+    plain = (ref.qdwconv2d_trials_ref if case[0].startswith("depthwise")
+             else ref.qconv2d_trials_ref)
+    assert torch.equal(buf, plain(x, w, b, out_buf=sentinel.clone(),
+                                  out_off=off, **kw))
     loop = sentinel.clone()
     for i in range(t):
         rows = slice(i * n, (i + 1) * n)
