@@ -1,0 +1,8 @@
+"""device_idle_share: percent of the traced window in which no kernel,
+copy or set ran on the device."""
+
+
+def read(t):
+    if t.busy_s <= 0 or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
