@@ -27,6 +27,7 @@ stage loop eagerly; each stage is one op of
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -37,6 +38,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.kernels import ops, qconv, qgemm
 from . import parser as P
+from . import telemetry as tele
 from . import verify as V
 from .quantize import INT8_MAX, INT8_MIN, QuantSpec, quantize_weights
 
@@ -205,7 +207,8 @@ def build_quantized(model: P.ParsedModel,
                     specs: Dict[str, QuantSpec],
                     per_channel: Optional[bool] = None,
                     verify: bool = True,
-                    device: _device.DeviceLike = None) -> QuantizedModel:
+                    device: _device.DeviceLike = None,
+                    tracer: Optional[tele.Tracer] = None) -> QuantizedModel:
     """Apply the user-given (N, m) pairs (the paper: CNN2Gate does not
     *perform* quantization, it *applies* provided values) and stage all
     weights on ``device`` (CUDA by default) in the kernel layouts.
@@ -229,8 +232,17 @@ def build_quantized(model: P.ParsedModel,
     not ``verify`` is on (rule QV202: shift-only alignment cannot scale
     up), and so does a per-channel spec under ``per_channel=False``
     (QV206).  Verification is pure analysis: the staged program is the
-    same with it on or off."""
+    same with it on or off.
+
+    ``tracer`` (default: none) records the three parts of the work as
+    spans: ``quantize.verify`` for each pass of the checks (``rules``
+    ``structural`` or ``staged``), and for each weighted stage
+    ``quantize.numpy`` (the host quantization and layout) and
+    ``quantize.stage`` (the copy onto the device and the kernels'
+    operands)."""
     dev = _device.resolve(device)
+    span = (tracer.span if tracer is not None
+            else lambda *a, **k: contextlib.nullcontext())
     if per_channel is not None:
         coerced = {}
         for name, spec in specs.items():
@@ -252,12 +264,14 @@ def build_quantized(model: P.ParsedModel,
         # cheap structural rules first — spec shapes, shift ranges,
         # threading conflicts, merge alignment — so an infeasible spec
         # set fails with structured diagnostics before any staging work
-        pre = V.check_spec_shapes(model, specs)
-        pre += V.check_requant_shifts(model, specs)
-        tm_chk, d_thr = V.thread_scales_checked(model, specs)
-        pre += d_thr
-        pre += V.check_merge_alignment(model, specs, tm_chk)
-        V.VerificationReport(pre).raise_if_errors()
+        with span("quantize.verify", cat="setup",
+                  args={"rules": "structural"}):
+            pre = V.check_spec_shapes(model, specs)
+            pre += V.check_requant_shifts(model, specs)
+            tm_chk, d_thr = V.thread_scales_checked(model, specs)
+            pre += d_thr
+            pre += V.check_merge_alignment(model, specs, tm_chk)
+            V.VerificationReport(pre).raise_if_errors()
     tensor_m = thread_scales(model, specs)
     layers: List[QuantizedLayer] = []
     for li in model.layers:
@@ -305,24 +319,32 @@ def build_quantized(model: P.ParsedModel,
                            "cannot scale up")])
         w_k = shift_vec = None
         if w is not None:
-            w_np, b_np = quantize_weights(w, b, spec)
-            prev_info = model.stage_producing(li.inputs[0])
-            w_np = np.ascontiguousarray(_stage_weights(li, prev_info, w_np))
-            w_q = torch.from_numpy(w_np).to(dev)
-            b_q = torch.from_numpy(b_np).to(dev) if b_np is not None else None
-            w_k = stage_kmajor(li, w_q)
-            shift_vec = stage_shift_vec(w_q, spec)
+            with span("quantize.numpy", cat="setup",
+                      args={"stage": li.name}):
+                w_np, b_np = quantize_weights(w, b, spec)
+                prev_info = model.stage_producing(li.inputs[0])
+                w_np = np.ascontiguousarray(_stage_weights(li, prev_info,
+                                                           w_np))
+            with span("quantize.stage", cat="setup",
+                      args={"stage": li.name}):
+                w_q = torch.from_numpy(w_np).to(dev)
+                b_q = (torch.from_numpy(b_np).to(dev) if b_np is not None
+                       else None)
+                w_k = stage_kmajor(li, w_q)
+                shift_vec = stage_shift_vec(w_q, spec)
         layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
                                      merge_spec, w_k, shift_vec))
     if verify:
         # the deep rules run on the staged program: overflow bounds on
         # the actual int8 weights (no re-quantization), alias/liveness of
         # the schedule, fused/unfused threading identity
-        post = V.check_accumulators(model, specs, quantized_layers=layers)
-        post += V.check_concat_partition(model)
-        post += V.check_liveness(model)
-        post += V.check_threading_identity(model, specs)
-        V.VerificationReport(post).raise_if_errors()
+        with span("quantize.verify", cat="setup", args={"rules": "staged"}):
+            post = V.check_accumulators(model, specs,
+                                        quantized_layers=layers)
+            post += V.check_concat_partition(model)
+            post += V.check_liveness(model)
+            post += V.check_threading_identity(model, specs)
+            V.VerificationReport(post).raise_if_errors()
     return QuantizedModel(
         name=model.name,
         layers=layers,
@@ -513,7 +535,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                   fault_args=(),
                   replay_from: Optional[int] = None,
                   stage_timed: bool = False,
-                  tracer=None
+                  tracer=None,
+                  on_stage: Optional[Callable[[str, str], None]] = None
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the whole-network executor: a closure that interprets the
     DAG stage program over a tensor environment on ``qm.device``.  Its
@@ -593,6 +616,15 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
     span.  Same stage program, same kernels, same logits.  Exclusive
     with every other hook.
 
+    ``on_stage`` — a callback ``on_stage(stage, kind)`` that the closure
+    calls after the ingress (``("ingress", "ingress")``), after each
+    stage in schedule order (its name and kind) and after the egress
+    (``("egress", "egress")``), once the stage's device work is
+    enqueued.  The captured executor reads there how many device
+    operations each stage put into the graph under capture
+    (``CapturedExecutor.stage_map``).  None (the default) costs one test
+    a stage.
+
     Return value composition (fixed order): ``logits``, then ``stats``
     when auditing, then ``ckpts`` when checkpointing."""
     stages = qm.layers
@@ -612,11 +644,11 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
     want_stats = audit is not False
     if stage_timed and (want_stats or faults or checkpoints
                         or weight_args or fault_args
-                        or replay_from is not None):
+                        or replay_from is not None or on_stage is not None):
         raise ValueError(
             "stage_timed is exclusive with the audit/faults/checkpoints/"
-            "weight_args/fault_args/replay_from hooks: the stage-timed "
-            "executor measures the plain program")
+            "weight_args/fault_args/replay_from/on_stage hooks: the "
+            "stage-timed executor measures the plain program")
 
     def _audited(t: str) -> bool:
         return audit is True or (audit_sel is not None and t in audit_sel)
@@ -847,6 +879,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                 ckpts[li.name] = (dict(env) if tr is None else
                                   {k: tr.unfold(v, k in tr.varying)
                                    for k, v in env.items()})
+            if on_stage is not None:
+                on_stage(li.name, li.kind)
 
     def _egress(env: Dict[str, torch.Tensor]) -> torch.Tensor:
         h = env[out_name]
@@ -882,6 +916,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         logits = _egress(env)
         if tr is not None:
             logits = tr.unfold(logits, out_name in tr.varying)
+        if on_stage is not None:
+            on_stage("egress", "egress")
         return logits, stats, ckpts
 
     def _batch(weights, payload, env=None) -> _TrialBatch:
@@ -909,6 +945,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             weights, payload = _extra(extra)
             env: Dict[str, torch.Tensor] = {in_name: _ingress(x_float,
                                                               payload)}
+            if on_stage is not None:
+                on_stage("ingress", "ingress")
             logits, stats, ckpts = _run(env, weights, payload, 0)
             return _pack(logits, stats, ckpts)
 
@@ -930,6 +968,8 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                 weights, payload = _extra(extra)
                 tr = _batch(weights, payload)
                 env = {in_name: _ingress(x_float, payload, tr)}
+                if on_stage is not None:
+                    on_stage("ingress", "ingress")
                 return _pack(*_run(env, weights, payload, 0, tr))
         run.trials = trials
     run.design_point = (n_i, n_l, block_h)

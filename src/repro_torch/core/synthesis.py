@@ -41,6 +41,7 @@ from repro_torch.models.cnn import collect_activations
 from . import dse as dse_mod
 from . import parser as P
 from . import pipeline as pipe
+from . import telemetry as tele
 from .graph import Graph
 from .quantize import (MAX_SHIFT, QuantSpec, best_pow2_exponent,
                        best_pow2_exponents_per_channel)
@@ -95,9 +96,36 @@ class CapturedExecutor:
 
     The kernel wrappers' launch counts (``ops.launch_counts``) move at
     warm-up and capture only; a replay launches the recorded kernels
-    without calling the wrappers."""
+    without calling the wrappers.
 
-    def __init__(self, run: Callable, device: torch.device):
+    **Telemetry.**  Every capture is recorded as a ``captured.capture``
+    span (warm-up and capture, ``shape`` in its args) on
+    ``setup_tracer`` (default: the process tracer).  ``tracer`` is off
+    (None) by default, and then a call does nothing but test it.  Set to
+    a :class:`~.telemetry.Tracer`, each call records ``captured.call``
+    with three children, all with the call's sequence number as request
+    id: ``captured.copy_in`` (the request onto the device and into the
+    static input), ``captured.replay`` (the host's enqueue of the graph
+    launch) and ``captured.clone_out``.  It also counts the captures
+    made inside a call (after the build, a rebuild) in the counter
+    ``captured.captures`` of ``registry``, the process registry unless
+    replaced before the first traced call.
+
+    **Stage map.**  Given ``stage_ops``, the per-stage callback that the
+    gate passed to ``pipeline.make_executor`` for ``run``, a capture
+    also records ``stage_map[shape]``: ``[(stage, kind, n_ops)]`` in
+    schedule order, with ``ingress`` and ``egress`` as pseudo-stages,
+    where ``n_ops`` is the kernel, memcpy and memset nodes that the
+    stage put into the graph.  The graph is one chain captured on one
+    stream, so a replay runs them in that order, and the map puts each
+    device operation of a replay under its stage."""
+
+    #: the children of ``captured.call``, in order
+    STEPS = ("captured.copy_in", "captured.replay", "captured.clone_out")
+
+    def __init__(self, run: Callable, device: torch.device,
+                 setup_tracer: Optional[tele.Tracer] = None,
+                 stage_ops: Optional["StageOps"] = None):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph runs on CUDA, not {device}")
         self.run = run
@@ -107,24 +135,51 @@ class CapturedExecutor:
         self.graphs: Dict[Tuple[int, ...], Tuple[torch.cuda.CUDAGraph,
                                                  torch.Tensor,
                                                  torch.Tensor]] = {}
+        #: input shape -> [(stage, kind, device operations)]
+        self.stage_map: Dict[Tuple[int, ...],
+                             List[Tuple[str, str, int]]] = {}
+        #: the calls' tracer; None: off
+        self.tracer: Optional[tele.Tracer] = None
+        self.setup_tracer = (setup_tracer if setup_tracer is not None
+                             else tele.get_tracer())
+        #: where ``captured.captures`` goes (read at its first count)
+        self.registry = tele.get_registry()
+        self.stage_ops = stage_ops
+        self._seq = 0
+        self._captures = None
 
     def capture(self, shape: Tuple[int, ...]) -> torch.cuda.CUDAGraph:
         """Warm up and capture the executor at ``shape``; return the
         graph."""
-        x = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.run(x)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = self.run(x)
-        self.graphs[shape] = (graph, x, y)
+        with self.setup_tracer.span("captured.capture", cat="setup",
+                                    args={"shape": list(shape)}):
+            x = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.run(x)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            ops = self.stage_ops
+            if ops is None:
+                with torch.cuda.graph(graph):
+                    y = self.run(x)
+            else:
+                ops.open()          # before the capture: it may build
+                try:
+                    with torch.cuda.graph(graph):
+                        y = self.run(x)
+                finally:
+                    rows = ops.close()
+            self.graphs[shape] = (graph, x, y)
+            if ops is not None:
+                self.stage_map[shape] = rows
         return graph
 
     @torch.no_grad()
     def __call__(self, x_float) -> torch.Tensor:
+        if self.tracer is not None:
+            return self._traced_call(x_float)
         x = torch.as_tensor(x_float, dtype=torch.float32, device=self.device)
         shape = tuple(x.shape)
         if shape not in self.graphs:
@@ -134,14 +189,80 @@ class CapturedExecutor:
         graph.replay()
         return y_static.clone()
 
+    def _traced_call(self, x_float) -> torch.Tensor:
+        """A call with :attr:`tracer` set: the untraced call's work, with
+        four clock readings and one record."""
+        clock = time.perf_counter_ns
+        t0 = clock()
+        x = torch.as_tensor(x_float, dtype=torch.float32, device=self.device)
+        shape = tuple(x.shape)
+        if shape not in self.graphs:
+            if self._captures is None:
+                self._captures = self.registry.counter("captured.captures")
+            self._captures.inc()
+            self.capture(shape)
+        graph, x_static, y_static = self.graphs[shape]
+        x_static.copy_(x)
+        t1 = clock()
+        graph.replay()
+        t2 = clock()
+        y = y_static.clone()
+        t3 = clock()
+        self._seq += 1
+        self.tracer.record("captured.call", t0, t3, self._seq, None, "", None,
+                           self.STEPS, (t0, t1, t2, t3))
+        return y
+
+
+class StageOps:
+    """The per-stage callback of a captured executor's closure
+    (``make_executor(on_stage=...)``): between :meth:`open` and
+    :meth:`close` of a capture, after each stage, the stage's name and
+    kind and the device operations it added to the graph under capture
+    (:func:`repro_torch.kernels.capture_info.captured_ops`).  Outside a
+    capture it records nothing.  :meth:`open` loads the C entry, so it
+    is called before the capture begins: neither nvcc nor a library
+    load runs while the stream captures."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._rows: Optional[List[Tuple[str, str, int]]] = None
+        self._seen = 0
+        self._count = None
+
+    def open(self) -> None:
+        from repro_torch.kernels import capture_info
+        capture_info.load()
+        self._count = capture_info.captured_ops
+        self._rows, self._seen = [], 0
+
+    def close(self) -> Optional[List[Tuple[str, str, int]]]:
+        rows, self._rows = self._rows, None
+        return rows
+
+    def __call__(self, stage: str, kind: str) -> None:
+        if self._rows is None:
+            return
+        n = sum(self._count(self.device))
+        self._rows.append((stage, kind, n - self._seen))
+        self._seen = n
+
 
 class CNN2Gate:
-    """Parse -> (apply quantization) -> verify -> explore -> build -> run."""
+    """Parse -> (apply quantization) -> verify -> explore -> build -> run.
+
+    Set-up is recorded on ``tracer`` (default: the process tracer, as the
+    guard and the DSE do): ``gate.parse`` (:meth:`from_graph`),
+    ``gate.quantize`` (:meth:`apply_quantization`, with the spans of
+    ``pipeline.build_quantized`` inside) and ``gate.build`` (with, in
+    fullflow on the card, ``captured.capture``)."""
 
     def __init__(self, parsed: P.ParsedModel,
-                 device: _device.DeviceLike = None):
+                 device: _device.DeviceLike = None,
+                 tracer: Optional[tele.Tracer] = None):
         self.parsed = parsed
         self.device = _device.resolve(device)
+        self.tracer = tracer if tracer is not None else tele.get_tracer()
         self.quantized: Optional[pipe.QuantizedModel] = None
         self.specs: Optional[Dict[str, QuantSpec]] = None
 
@@ -149,12 +270,16 @@ class CNN2Gate:
     @classmethod
     def from_graph(cls, graph: Graph, fuse_skip: bool = True,
                    fuse_concat: bool = True,
-                   device: _device.DeviceLike = None) -> "CNN2Gate":
+                   device: _device.DeviceLike = None,
+                   tracer: Optional[tele.Tracer] = None) -> "CNN2Gate":
         """``fuse_skip=False`` keeps residual adds as standalone merge
         stages and ``fuse_concat=False`` keeps channel concats as
         standalone copies — the bit-exact fallback programs."""
-        return cls(P.parse(graph, fuse_skip=fuse_skip,
-                           fuse_concat=fuse_concat), device=device)
+        tracer = tracer if tracer is not None else tele.get_tracer()
+        with tracer.span("gate.parse", cat="setup"):
+            parsed = P.parse(graph, fuse_skip=fuse_skip,
+                             fuse_concat=fuse_concat)
+        return cls(parsed, device=device, tracer=tracer)
 
     @classmethod
     def from_file(cls, path: str,
@@ -169,9 +294,10 @@ class CNN2Gate:
         ``per_channel`` is forwarded to :func:`pipeline.build_quantized`
         (None: honour the specs as given)."""
         self.specs = specs
-        self.quantized = pipe.build_quantized(self.parsed, specs,
-                                              per_channel=per_channel,
-                                              device=self.device)
+        with self.tracer.span("gate.quantize", cat="setup"):
+            self.quantized = pipe.build_quantized(
+                self.parsed, specs, per_channel=per_channel,
+                device=self.device, tracer=self.tracer)
 
     def calibrate_quantization(self, sample_input,
                                per_channel: bool = False
@@ -357,13 +483,24 @@ class CNN2Gate:
                                "calibrate_quantization() first")
         if mode not in ("emulation", "fullflow"):
             raise ValueError(f"unknown mode {mode!r}")
-        run = pipe.make_executor(self.quantized, n_i, n_l, block_h=block_h)
+        with self.tracer.span("gate.build", cat="setup",
+                              args={"mode": mode}):
+            return self._build(mode, n_i, n_l, block_h)
+
+    def _build(self, mode: str, n_i: int, n_l: int,
+               block_h: Optional[int]):
+        captured = mode == "fullflow" and self.device.type == "cuda"
+        stage_ops = StageOps(self.device) if captured else None
+        run = pipe.make_executor(self.quantized, n_i, n_l,
+                                 block_h=block_h, on_stage=stage_ops)
         if mode == "emulation":
             return run
         shape = (1,) + tuple(self.parsed.input_shape[1:])
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            run = CapturedExecutor(run, self.device)
+        if captured:
+            run = CapturedExecutor(run, self.device,
+                                   setup_tracer=self.tracer,
+                                   stage_ops=stage_ops)
             self.compiled = run.capture(shape)
             torch.cuda.synchronize(self.device)
         else:

@@ -1,8 +1,10 @@
 """Per-stage telemetry: a metrics registry + span tracing.
 
-The port's own copy of ``repro.core.telemetry``, unchanged in behaviour:
-the module is dependency-free, so the port keeps it rather than import
-the JAX package.
+The port's own copy of ``repro.core.telemetry``: the module is
+dependency-free, so the port keeps it rather than import the JAX
+package.  The port's :class:`Tracer` adds to the reference's a clock
+shared with ``torch.profiler`` (spans on the Unix epoch), a request id
+and a parent on each span, and a one-tuple hot-path :meth:`Tracer.record`.
 
 CNN2Gate's DSE only works because the tool can *see* where time and
 memory go per layer (the paper's Table-1 breakdowns drive the RL
@@ -228,11 +230,30 @@ class Tracer:
     """Span recorder exporting the Chrome trace-event format.
 
     Spans are **complete events** (``ph="X"``): one record with a start
-    timestamp and a duration, both in microseconds relative to the
-    tracer's epoch.  Perfetto and chrome://tracing load the exported
-    file directly; nesting is inferred per ``tid`` from containment,
-    which live :meth:`span` blocks guarantee by construction (a nested
-    ``with`` closes before its parent).
+    timestamp and a duration in microseconds.  Perfetto and
+    chrome://tracing load the exported file directly; nesting is
+    inferred per ``tid`` from containment, which live :meth:`span`
+    blocks guarantee by construction (a nested ``with`` closes before
+    its parent).
+
+    **Clocks.**  The hot clock is ``time.perf_counter_ns``.  The tracer
+    reads it together with ``time.time_ns()`` at construction and at
+    :meth:`reset` (the anchor), and :meth:`events` gives every span's
+    ``ts`` in microseconds since the Unix epoch: the clock of
+    ``torch.profiler``'s device trace (kineto's ``trace_start_ns()``
+    plus an event's relative time), so a span lies on the same
+    timeline as the kernels it launched.  :meth:`now_us` and
+    :meth:`add_span` keep microseconds since the anchor.
+
+    **Requests.**  Each span may carry a request id (``rid``) and the
+    name of the span that caused it (``parent``); both go to ``args``
+    when set.  A :meth:`span` block takes as parent the innermost open
+    block of the same tracer and thread, and its ``rid`` where it gives
+    none.
+
+    **Hot path.**  :meth:`record` takes two ``perf_counter_ns`` readings
+    and appends one tuple; the event dict, pid, tid and args are built
+    when :meth:`events` or :meth:`export` is called.
 
     ``max_events`` bounds memory: past it the tracer drops new events
     and counts them in ``dropped`` (an always-on serving loop must
@@ -241,39 +262,72 @@ class Tracer:
 
     def __init__(self, max_events: int = 200_000):
         self._lock = threading.Lock()
-        self._events: List[Dict] = []
-        self._epoch = time.perf_counter()
+        #: (name, cat, t0_ns, t1_ns, rid, parent, args, tid, steps,
+        #: stamps) a record
+        self._events: List[Tuple] = []
+        self._open = threading.local()
         self.max_events = max_events
         self.dropped = 0
+        self._anchor()
+
+    def _anchor(self) -> None:
+        self._epoch_ns = time.perf_counter_ns()
+        self._unix_ns = time.time_ns()
 
     def now_us(self) -> float:
-        return (time.perf_counter() - self._epoch) * 1e6
+        """Microseconds since the anchor, on the hot clock."""
+        return (time.perf_counter_ns() - self._epoch_ns) * 1e-3
+
+    def record(self, name: str, t0_ns: int, t1_ns: int,
+               rid: Optional[int] = None, parent: Optional[str] = None,
+               cat: str = "", args: Optional[Dict] = None,
+               steps: Sequence[str] = (),
+               stamps: Sequence[int] = ()) -> None:
+        """Record a span between two ``time.perf_counter_ns()`` readings,
+        and, with ``steps``, its children: step ``i`` runs from
+        ``stamps[i]`` to ``stamps[i + 1]`` (``stamps`` has one reading
+        more than ``steps``), with this span as parent and its ``rid``.
+        The hot path: one tuple appended, without a lock (a list append
+        is atomic; past ``max_events`` a race may keep a few more)."""
+        ev = (name, cat, t0_ns, t1_ns, rid, parent, args,
+              threading.get_ident(), steps, stamps)
+        self._append(ev)
+
+    def _append(self, ev: Tuple) -> None:
+        events = self._events
+        if len(events) < self.max_events:
+            events.append(ev)
+        else:
+            with self._lock:
+                self.dropped += 1
 
     def add_span(self, name: str, ts_us: float, dur_us: float,
                  cat: str = "", args: Optional[Dict] = None,
                  tid: Optional[int] = None) -> None:
         """Record an externally-timed span (e.g. a request's latency
-        measured by the serving loop)."""
-        ev = {"name": name, "cat": cat, "ph": "X",
-              "ts": float(ts_us), "dur": float(dur_us),
-              "pid": os.getpid(),
-              "tid": int(tid) if tid is not None
-              else threading.get_ident()}
-        if args:
-            ev["args"] = dict(args)
-        with self._lock:
-            if len(self._events) >= self.max_events:
-                self.dropped += 1
-                return
-            self._events.append(ev)
+        measured by the serving loop); ``ts_us`` is :meth:`now_us`'s."""
+        t0 = self._epoch_ns + round(ts_us * 1e3)
+        ev = (name, cat, t0, t0 + round(dur_us * 1e3), None, None,
+              dict(args) if args else None,
+              int(tid) if tid is not None else threading.get_ident(),
+              (), ())
+        self._append(ev)
 
     @contextmanager
     def span(self, name: str, cat: str = "",
-             args: Optional[Dict] = None):
+             args: Optional[Dict] = None, rid: Optional[int] = None):
         """Time a block and record it as one complete event.  The span
         is recorded even when the block raises (with ``error`` in its
         args) — a failed DSE evaluation still shows up in the trace."""
-        t0 = self.now_us()
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        parent = None
+        if stack:
+            parent = stack[-1][0]
+            rid = stack[-1][1] if rid is None else rid
+        stack.append((name, rid))
+        t0 = time.perf_counter_ns()
         err: Optional[str] = None
         try:
             yield self
@@ -281,15 +335,42 @@ class Tracer:
             err = f"{type(e).__name__}: {e}"
             raise
         finally:
+            t1 = time.perf_counter_ns()
+            stack.pop()
             a = dict(args) if args else {}
             if err is not None:
                 a["error"] = err
-            self.add_span(name, t0, self.now_us() - t0, cat=cat,
-                          args=a or None)
+            self.record(name, t0, t1, rid, parent, cat, a or None)
 
     def events(self) -> List[Dict]:
+        """Every span as a Chrome-trace complete event, ``ts`` in
+        microseconds since the Unix epoch."""
         with self._lock:
-            return [dict(e) for e in self._events]
+            raw = list(self._events)
+        base = self._unix_ns - self._epoch_ns
+        pid = os.getpid()
+        out = []
+
+        def emit(name, cat, t0, t1, rid, parent, args, tid):
+            ev = {"name": name, "cat": cat, "ph": "X",
+                  "ts": (t0 + base) * 1e-3, "dur": (t1 - t0) * 1e-3,
+                  "pid": pid, "tid": tid}
+            if args or rid is not None or parent is not None:
+                a = dict(args) if args else {}
+                if rid is not None:
+                    a["rid"] = rid
+                if parent is not None:
+                    a["parent"] = parent
+                ev["args"] = a
+            out.append(ev)
+
+        for (name, cat, t0, t1, rid, parent, args, tid, steps,
+             stamps) in raw:
+            emit(name, cat, t0, t1, rid, parent, args, tid)
+            for i, step in enumerate(steps):
+                emit(step, cat, stamps[i], stamps[i + 1], rid, name, None,
+                     tid)
+        return out
 
     def to_chrome_trace(self) -> Dict:
         return {"traceEvents": self.events(), "displayTimeUnit": "ms"}
@@ -308,7 +389,7 @@ class Tracer:
         with self._lock:
             self._events.clear()
             self.dropped = 0
-            self._epoch = time.perf_counter()
+            self._anchor()
 
 
 # ------------------------------------------------- module-level defaults

@@ -11,6 +11,10 @@ all started together.
 
 Only the repository's own sources are compiled; every C entry point
 returns ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+
+Each library's first :func:`load` in a process is recorded on the
+process-default tracer as a ``kernels.load`` span (``compiled`` in its
+args: whether nvcc ran), so a set-up that compiles shows it by name.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from repro_torch.core import telemetry as tele
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -105,13 +111,15 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     ``(argtypes, restype)``."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, sig in signatures.items():
-            argtypes, restype = sig if isinstance(sig, tuple) else (
-                sig, ctypes.c_int)
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
+        args = {"library": name}
+        with tele.get_tracer().span("kernels.load", cat="setup", args=args):
+            args["compiled"] = build_all([name])[name] > 0
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, sig in signatures.items():
+                argtypes, restype = sig if isinstance(sig, tuple) else (
+                    sig, ctypes.c_int)
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
 

@@ -16,8 +16,8 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.core.parser import parse
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.core.synthesis import CNN2Gate
-from repro_torch.kernels import (_build, flash_attention, ops, qconv, qgemm,
-                                 ssd_scan)
+from repro_torch.kernels import (_build, capture_info, flash_attention, ops,
+                                 qconv, qgemm, ssd_scan)
 from repro_torch.models import cnn
 from repro_torch.models.model import Model
 
@@ -151,7 +151,7 @@ def test_launch_counters_count_kernel_launches_only():
 def test_kernel_sources_and_build_key():
     srcs = _build.sources()
     assert set(srcs) == {"qgemm", "qconv", "qdwconv", "flash_attention",
-                         "ssd_scan"}
+                         "ssd_scan", "capture_info"}
     for name in srcs:
         lib = _build._lib_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -168,7 +168,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     type (``int`` unless the signature names another) is the C one."""
     sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES,
                 flash_attention=flash_attention._SIGNATURES,
-                ssd_scan=ssd_scan._SIGNATURES)
+                ssd_scan=ssd_scan._SIGNATURES,
+                capture_info=capture_info._SIGNATURES)
     assert set(sigs) == set(_build.sources())
 
     def ctype(decl):
