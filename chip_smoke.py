@@ -2362,9 +2362,13 @@ def build_record(torch, phase: str, lib: str, label,
 
 
 def qconv_label(mangled: str):
-    """Every kernel of the qconv library, the wgmma instances by name."""
-    inst = re.search(r"qconv_wgmma_kernelILi(\d+)E", mangled)
-    return f"qconv_wgmma_kernel<{inst.group(1)}>" if inst else mangled
+    """Every kernel of the qconv library, the wgmma instances by name (the
+    narrow gather's instances marked)."""
+    inst = re.search(r"qconv_wgmma_kernelILi(\d+)ELb([01])E", mangled)
+    if not inst:
+        return mangled
+    return (f"qconv_wgmma_kernel<{inst.group(1)}"
+            f"{', narrow' if inst.group(2) == '1' else ''}>")
 
 
 _QCONV_BUILD: dict = {}
@@ -2379,7 +2383,10 @@ def attach_qconv_build(torch, records, name: str) -> None:
                                          qconv_label, ("IGMMA", "UTMALDG")))
         names = sorted(_QCONV_BUILD["ptxas"])
         check("vgg16", "qconv_library_holds_only_the_wgmma_kernel",
-              names == ["qconv_wgmma_kernel<128>", "qconv_wgmma_kernel<64>"],
+              names == ["qconv_wgmma_kernel<128, narrow>",
+                        "qconv_wgmma_kernel<128>",
+                        "qconv_wgmma_kernel<64, narrow>",
+                        "qconv_wgmma_kernel<64>"],
               kernels=names)
     r = records.get(name)
     if r is not None:

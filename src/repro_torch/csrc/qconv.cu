@@ -53,11 +53,30 @@
 // * A, the im2col rows, is gathered by all 256 threads into the same
 //   swizzled layout: 16-byte cp.async where Cin/G % 16 == 0 (every VGG
 //   layer but the first, AlexNet's groups of 48 and 192), 4-byte cp.async
-//   where Cin/G % 4 == 0, and plain byte loads spread over every thread
-//   otherwise (Cin 3, Cin/G 9); zero past K and past the last row.  The
-//   ring keeps kStages - 1 K steps in flight while the tensor cores work
-//   on the current one, and two blocks fit an SM, so that one's gather
-//   and epilogue overlap the other's products.
+//   where Cin/G % 4 == 0, and the narrow gather otherwise (the Cin-3 stems,
+//   Cin 6, Cin/G 9; also any input whose pointer is not 4-byte aligned);
+//   zero past K and past the last row.  The ring keeps kStages - 1 K steps
+//   in flight while the tensor cores work on the current one, and two
+//   blocks fit an SM, so that one's gather and epilogue overlap the
+//   other's products.
+// * The narrow gather (narrow_chunk) does no division per byte: a K step
+//   is 8 chunks of 16 bytes, and a thread owns one chunk (of the fewest
+//   power-of-two chunks that hold the step's data, so that VGG-16's
+//   27-byte K keeps every thread busy) in every row it walks.  It works
+//   out its chunk's 16 input offsets once a step, walking (kh, kw, ci) a
+//   byte at a time from one division pair, so no table bounds K; then, 4
+//   rows in flight, it loads each row's 16 bytes (ld.global.nc) and stores
+//   them with one 16-byte store.  It is an instantiation of its own
+//   (kNarrow): inlined beside the cp.async gathers it took their registers
+//   and cost the other convs 1-2 %.  On the H100 (700 W) AlexNet's 11x11/4
+//   stem at batch 64 went from 0.841 ms (a division pair and a modulo per
+//   byte) to 0.227; with its loads taken out the kernel still takes 0.128,
+//   so the fixed cost of its 3,333 small-K blocks (weights, rows,
+//   epilogue, pool) now bounds it beside the byte loads' L1 traffic.
+//   Aligned word loads with a funnel shift, for the 4 bytes that lie in
+//   one kh run, were no faster: which words qualify differs between a
+//   warp's chunks, so the warp runs both paths.  The 128-column instance (no
+//   stem of the benchmark's) spills 4 bytes.
 // * The first weight boxes are requested before the block works out its
 //   rows, and the tile's bias and per-lane shifts go to shared memory
 //   meanwhile.
@@ -105,7 +124,7 @@ struct ConvArgs {
   int pw, ps;               // pool window and stride; 1, 1 without a pool
   int c_tot, out_off;
   int k_pad, splits, chunk;  // padded K, K split, K tiles a split
-  int mode;                 // A gather: 16-, 4- or 1-byte loads
+  int mode;                 // A gather: 16- or 4-byte cp.async, 1: narrow
   int wide;                 // c_tot, out_off and y allow 16-byte stores
   int m_tiles;              // row tiles of one trial
 };
@@ -135,6 +154,47 @@ __device__ __forceinline__ long long k_offset(const ConvArgs& a, int k) {
   const int t = k / a.cin_g;
   const int ci = k - t * a.cin_g;
   return (static_cast<long long>(t / a.kw) * a.wp + t % a.kw) * a.cin + ci;
+}
+
+// The narrow gather's offsets: o[e] is k_offset of contraction byte k0 + e,
+// or -1 from K on.  One division pair, then (kh, kw, ci) walks a byte at a
+// time: past the group's last channel to the next tap, past the last tap
+// of a kh row to the next row (the wrapper keeps (KH+1)*Wp*Cin below 2^31).
+__device__ __forceinline__ void chunk_offsets(const ConvArgs& a, int k0,
+                                              int k_total, int (&o)[16]) {
+  const int t = k0 / a.cin_g;
+  int ci = k0 - t * a.cin_g, kw = t % a.kw;
+  int off = ((t / a.kw) * a.wp + kw) * a.cin + ci;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    o[e] = k0 + e < k_total ? off : -1;
+    ++off;
+    if (++ci == a.cin_g) {
+      ci = 0;
+      off += a.cin - a.cin_g;
+      if (++kw == a.kw) {
+        kw = 0;
+        off += (a.wp - a.kw) * a.cin;
+      }
+    }
+  }
+}
+
+// The 16 bytes at p + o[e] (0 where o[e] < 0), packed little-endian.
+__device__ __forceinline__ uint4 narrow_chunk(const int8_t* p,
+                                              const int (&o)[16]) {
+  const uint8_t* const b = reinterpret_cast<const uint8_t*>(p);
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (o[4 * j + i] >= 0)
+        w |= static_cast<uint32_t>(__ldg(b + o[4 * j + i])) << (8 * i);
+    v[j] = w;
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 // ------------------------------------------------- int8 tensor cores (wgmma)
@@ -234,7 +294,9 @@ __device__ __forceinline__ void epilogue_rows(
   }
 }
 
-template <int BN>
+// kNarrow: the narrow gather (mode 1), an instantiation of its own so that
+// its unrolled loads stay out of the cp.async gathers' main loop
+template <int BN, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 2)
 qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   using T = Tile<BN>;
@@ -274,7 +336,27 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
     const int s = j % kStages;
     const int kb = (kt0 + j) * kBK;  // first K byte of the step
     const uint32_t at = a_tile(s);
-    if (a.mode == 16) {
+    if (kNarrow) {
+      // the chunks that hold data, rounded up to a power of two so that a
+      // thread keeps its chunk over its rows; the others are zeros
+      uint8_t* const tile = base_ptr + (at - base);
+      const int kv = k_total - kb;
+      int nc = 1;
+      while (nc < 8 && 16 * nc < kv) nc <<= 1;
+      const int c = tid & (nc - 1);
+      int o[16];
+      chunk_offsets(a, kb + 16 * c, k_total, o);
+#pragma unroll 4
+      for (int r = tid / nc; r < kRows; r += kThreads / nc) {
+        const long long ro = row_off[r];
+        *reinterpret_cast<uint4*>(tile + sw128(r, c)) =
+            ro >= 0 ? narrow_chunk(a.x + ro, o) : make_uint4(0, 0, 0, 0);
+      }
+      for (int idx = tid; idx < kRows * 8; idx += kThreads)
+        if ((idx & 7) >= nc)
+          *reinterpret_cast<uint4*>(tile + sw128(idx >> 3, idx & 7)) =
+              make_uint4(0, 0, 0, 0);
+    } else if (a.mode == 16) {
       const int c = tid & 7;
       const int k = kb + 16 * c;
       const bool kin = k < k_total;
@@ -286,7 +368,7 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
         const bool ok = kin && ro >= 0;
         cp_async16(at + sw128(r, c), ok ? a.x + ro + ko : a.x, ok ? 16 : 0);
       }
-    } else if (a.mode == 4) {
+    } else {
       const int wd = tid & 31;
       const int k = kb + 4 * wd;
       const bool kin = k < k_total;
@@ -298,26 +380,6 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
         const bool ok = kin && ro >= 0;
         cp_async4(at + sw128(r, wd >> 2) + 4 * (wd & 3),
                   ok ? a.x + ro + ko : a.x, ok ? 4 : 0);
-      }
-    } else {
-      // bytes [kb, kb + kv) hold data: gather them a byte at a time over
-      // every thread, 16-byte chunks wholly past K get zeros
-      uint8_t* const tile = base_ptr + (at - base);
-      const int kv = min(kBK, k_total - kb);
-      const int span = 16 * ((kv + 15) / 16);  // chunks that hold data
-      const int zc = (kBK - span) / 16;         // chunks of zeros
-#pragma unroll 8
-      for (int idx = tid; idx < kRows * span; idx += kThreads) {
-        const int r = idx / span, b = idx - r * span;
-        const long long ro = row_off[r];
-        tile[sw128(r, b >> 4) + (b & 15)] =
-            b < kv && ro >= 0
-                ? static_cast<uint8_t>(a.x[ro + k_offset(a, kb + b)])
-                : 0;
-      }
-      for (int idx = tid; idx < kRows * zc; idx += kThreads) {
-        const int r = idx / zc, c = span / 16 + idx % zc;
-        *reinterpret_cast<uint4*>(tile + sw128(r, c)) = make_uint4(0, 0, 0, 0);
       }
     }
     cp_async_commit();
@@ -362,7 +424,7 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   for (int j = 0; j < n_k; ++j) {
     const int s = j % kStages;
     // this thread's A bytes of step j are in; make them (and the plain
-    // stores of the byte gather) visible to wgmma, then wait for all
+    // stores of the narrow gather) visible to wgmma, then wait for all
     // threads: every warpgroup's step j - 1 products are done, so that
     // stage is free
     cp_async_wait<kStages - 2>();
@@ -490,7 +552,7 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   if (a.splits > 1) cluster_wait();
 }
 
-template <int BN>
+template <int BN, bool kNarrow>
 int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   // the K-major weight (stack) in boxes of 128 K bytes x BN rows (rows
   // past the last read as zero)
@@ -504,9 +566,9 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   cudaError_t cerr = cudaGetDevice(&dev);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   if (dev >= 64 || !allowed[dev]) {
-    cerr = cudaFuncSetAttribute(
-        qconv_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Tile<BN>::kSmem));
+    cerr = cudaFuncSetAttribute(qconv_wgmma_kernel<BN, kNarrow>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(Tile<BN>::kSmem));
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
     if (dev < 64) allowed[dev] = true;
   }
@@ -516,7 +578,8 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(trials) * a.m_tiles,
                   (a.cout_g + BN - 1) / BN, groups * a.splits);
   if (a.splits == 1) {
-    qconv_wgmma_kernel<BN><<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
+    qconv_wgmma_kernel<BN, kNarrow>
+        <<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
   } else {
     // the K splits of a tile are one cluster, adjacent along z
     cudaLaunchConfig_t cfg = {};
@@ -531,7 +594,7 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
     attr[0].val.clusterDim.z = a.splits;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    cerr = cudaLaunchKernelEx(&cfg, qconv_wgmma_kernel<BN>, map, a);
+    cerr = cudaLaunchKernelEx(&cfg, qconv_wgmma_kernel<BN, kNarrow>, map, a);
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
   }
   return static_cast<int>(cudaGetLastError());
@@ -546,9 +609,10 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
 // and Cout) and plans the launch: wk is the weight K-major (Cout, k_pad),
 // k_pad a multiple of 128, 16-byte aligned; bn (64 or 128) output
 // channels a tile; `splits` (at most 8, a cluster) K splits of `chunk` K
-// tiles.  mode is the A gather's load width (16: Cin/G % 16 == 0 and x
-// 16-byte aligned; 4: Cin/G % 4 == 0 and x 4-byte aligned; else 1); wide
-// says that c_tot, out_off and y allow 16-byte stores.  With `trials`
+// tiles.  mode is the A gather (16: 16-byte cp.async, Cin/G % 16 == 0 and x
+// 16-byte aligned; 4: 4-byte cp.async, Cin/G % 4 == 0 and x 4-byte
+// aligned; else 1, the narrow gather); wide says that c_tot, out_off and y
+// allow 16-byte stores.  With `trials`
 // T > 1, x holds n = T * (images of a trial) images, wk is the trials'
 // stack (T * Cout, k_pad) and y (and skip) hold n images: trial t's images
 // against its own weight image.  Returns cudaGetLastError() or the error
@@ -590,7 +654,12 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   a.k_pad = k_pad; a.splits = splits; a.chunk = chunk; a.mode = mode;
   a.wide = wide;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 128) return tc::launch<128>(a, groups, trials, st);
-  if (bn == 64) return tc::launch<64>(a, groups, trials, st);
+  const bool narrow = mode == 1;
+  if (bn == 128)
+    return narrow ? tc::launch<128, true>(a, groups, trials, st)
+                  : tc::launch<128, false>(a, groups, trials, st);
+  if (bn == 64)
+    return narrow ? tc::launch<64, true>(a, groups, trials, st)
+                  : tc::launch<64, false>(a, groups, trials, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -63,7 +63,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for c in _COUNTERS:
+    """Zero :func:`launch_counts` and ``qconv.gather_launches``."""
+    for c in _COUNTERS + (_qconv.gather_launches,):
         for name in c:
             c[name] = 0
 

@@ -13,7 +13,15 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   windows, weights staged K-major and loaded by TMA, K split across the
   blocks of a thread-block cluster where the tile grid is under one
   wave; see the note at the top of the source).  :func:`plan` chooses
-  the tile width and the split.
+  the tile width and the split.  The im2col rows come in by 16- or
+  4-byte ``cp.async`` where Cin/G is a multiple of 16 or 4, and
+  otherwise (the Cin-3 stems, Cin 6, Cin/G 9, or an input pointer off a
+  word) by the narrow gather: a thread owns a 16-byte chunk of every row
+  it walks, works out its offsets once a K step without a division per
+  byte, and loads bytes, so it takes any K_pad (no table bounds it).
+  Such a stem is bound neither by operations nor by bytes but by its
+  many small-K blocks' fixed cost and its byte loads (AlexNet's 11x11/4
+  stem at batch 64: 0.227 ms on the H100, against a 0.0045 ms bound).
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
   Bound by bytes, and at the main path's sizes by latency: a block
@@ -86,6 +94,10 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
             "qdwconv2d_into": 0, "qgconv2d": 0, "qconv2d_trials": 0,
             "qconv2d_into_trials": 0, "qdwconv2d_trials": 0,
             "qdwconv2d_into_trials": 0, "qgconv2d_trials": 0}
+#: Launches of the dense and grouped kernel (``csrc/qconv.cu``) by the A
+#: gather each took: 16- or 4-byte ``cp.async``, or the narrow gather
+#: (Cin/G % 4 != 0, or an input pointer that is not 4-byte aligned).
+gather_launches = {"16": 0, "4": 0, "narrow": 0}
 
 _SIGNATURES = {
     "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 29
@@ -417,8 +429,13 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
             raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
     pool = None if pool is None else (pw, ps)
     if kernel == "qconv":
+        if (kh + 1) * wp * cin >= 2 ** 31:
+            raise ValueError(f"{what}: {kh + 1} input rows of {wp}x{cin} "
+                             "bytes pass 2^31; the narrow gather's window "
+                             "offsets take 32 bits")
         pl = plan(n // trials, hp, wp, cin, kh, kw, cout, (sh, sw), pool,
                   groups, qgemm.sms_of(device_index), trials)
+        # the A gather: 16- or 4-byte cp.async, or 1, the narrow gather
         width = 16 if cin_g % 16 == 0 else 4 if cin_g % 4 == 0 else 1
         store = 16
     else:
@@ -500,6 +517,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
                            *args, int(groups), pl.bn, pl.k_pad, pl.splits,
                            pl.chunk, width, wide, geo.trials, stream)
     _build.check(err, what)
+    if kernel == "qconv":
+        gather_launches["narrow" if width == 1 else str(width)] += 1
 
 
 def _out_hw(x, w, strides, pool):

@@ -24,7 +24,7 @@ import torch
 from repro.kernels import ref as r_ref
 from repro_torch.core import pipeline as t_pipe
 from repro_torch.core.synthesis import CNN2Gate as TGate
-from repro_torch.kernels import qconv, qgemm
+from repro_torch.kernels import ops, qconv, qgemm
 from repro_torch.kernels import ref as t_ref
 from repro_torch.models import cnn as t_cnn
 
@@ -325,6 +325,188 @@ def test_a_launch_works_out_each_shape_once():
         qconv.qconv2d(x, w, None, shift=7, skip_shifts=(32, 0),
                       skip=torch.empty((1, 14, 14, 128), dtype=torch.int8,
                                        device="meta"))
+
+
+# ------------------------------------------ the narrow gather (Cin/G % 4)
+
+def chunk_offsets_model(k0, k_total, kw, cin, cin_g, wp):
+    """``csrc/qconv.cu:chunk_offsets``: the offsets of contraction bytes
+    ``k0 .. k0 + 15`` from the window's first byte, walked a byte at a
+    time from one division pair; -1 from K on."""
+    t, ci = divmod(k0, cin_g)
+    kh_, kw_ = divmod(t, kw)
+    off = (kh_ * wp + kw_) * cin + ci
+    o = []
+    for e in range(16):
+        o.append(off if k0 + e < k_total else -1)
+        off += 1
+        ci += 1
+        if ci == cin_g:
+            ci = 0
+            off += cin - cin_g
+            kw_ += 1
+            if kw_ == kw:
+                kw_ = 0
+                off += (wp - kw) * cin
+    return o
+
+
+def narrow_mapping(kv):
+    """The narrow gather's threads over a K step whose first ``kv`` bytes
+    hold data: the power-of-two chunk count ``nc``, the (row, chunk)
+    pairs the 256 threads gather (thread t keeps chunk t % nc) and the
+    (row, chunk) pairs they zero."""
+    nc = 1
+    while nc < 8 and 16 * nc < kv:
+        nc *= 2
+    gathered = [(r, t & (nc - 1)) for t in range(256)
+                for r in range(t // nc, qconv.TILE_M, 256 // nc)]
+    zeros = [(i >> 3, i & 7) for t in range(256)
+             for i in range(t, qconv.TILE_M * 8, 256) if (i & 7) >= nc]
+    return nc, gathered, zeros
+
+
+def narrow_tile(x, blk, g, kb, *, kh, kw, strides, pool, groups):
+    """The A tile (128 rows x one 128-byte K step) that the narrow gather
+    of block ``blk``, group ``g`` builds from ``x``'s flat bytes, by the
+    kernel's mapping and offsets; rows past the last window are zero."""
+    n, hp, wp, cin = x.shape
+    cin_g = cin // groups
+    k_total = kh * kw * cin_g
+    _ho, _wo, pw, ps, oh, ow = _shapes(n, hp, wp, kh, kw, strides, pool)
+    taps = pw * pw
+    per_block = qconv.TILE_M // taps
+    flat = x.reshape(-1)
+    row_off = []
+    for r in range(qconv.TILE_M):
+        p = blk * per_block + r // taps
+        if r >= per_block * taps or p >= n * oh * ow:
+            row_off.append(-1)
+            continue
+        img, rem = divmod(p, oh * ow)
+        t = r % taps
+        ch, cw = (rem // ow) * ps + t // pw, (rem % ow) * ps + t % pw
+        row_off.append(((img * hp + ch * strides[0]) * wp + cw * strides[1])
+                       * cin + g * cin_g)
+    tile = torch.full((qconv.TILE_M, qconv.K_TILE), 99, dtype=torch.int8)
+    _nc, gathered, zeros = narrow_mapping(k_total - kb)
+    for r, c in gathered:
+        o = chunk_offsets_model(kb + 16 * c, k_total, kw, cin, cin_g, wp)
+        for e, oe in enumerate(o):
+            ok = row_off[r] >= 0 and oe >= 0
+            tile[r, 16 * c + e] = flat[row_off[r] + oe] if ok else 0
+    for r, c in zeros:
+        tile[r, 16 * c:16 * c + 16] = 0
+    return tile, row_off
+
+
+@pytest.mark.parametrize("kv", [1, 9, 16, 17, 27, 32, 33, 64, 65, 107, 128,
+                                147, 363])
+def test_the_narrow_gather_covers_each_row_chunk_once(kv):
+    """Every (row, chunk) of a K step is gathered or zeroed exactly once,
+    and every chunk that holds data is gathered, by a thread that keeps
+    one chunk over all its rows."""
+    nc, gathered, zeros = narrow_mapping(kv)
+    assert nc in (1, 2, 4, 8) and (16 * nc >= min(kv, 128))
+    pairs = gathered + zeros
+    assert len(pairs) == len(set(pairs)) == qconv.TILE_M * 8
+    assert {c for _r, c in gathered} == set(range(nc))
+    assert all(16 * c >= kv for _r, c in zeros)
+
+
+# (name, N, Hp, Cin, K, stride, pool, groups, Cout): the stems at full
+# width (AlexNet's 11x11/4 with its fused 3x3/2 pool, VGG-16's 3x3 and
+# ResNet-18's 7x7/2, all Cin 3) and the ragged cases of CASES
+NARROW = [
+    ("alexnet_conv1_11x11_s4_pool3s2", 1, 228, 3, 11, 4, (3, 2), 1, 64),
+    ("vgg16_conv1_3x3_cin3", 1, 226, 3, 3, 1, None, 1, 64),
+    ("resnet18_conv1_7x7_s2", 1, 230, 3, 7, 2, None, 1, 64),
+    ("cout130_cin6", 2, 8, 6, 3, 1, None, 1, 130),
+    ("groups3_cin_g9", 2, 9, 27, 3, 1, (2, 2), 3, 48),
+]
+
+
+@pytest.mark.parametrize("case", NARROW, ids=[c[0] for c in NARROW])
+def test_the_narrow_gather_reads_the_windows_of_the_plain_conv(case):
+    """The tiles that the narrow gather's mapping and offsets build hold
+    each row's window, zero past K and past the last window: their
+    products with the K-major weight are ``ref.int_conv_nhwc``'s sums at
+    every row's pixel (the first, a middle and the last block of each
+    conv, every group and K step)."""
+    _name, n, hp, cin, k, s, pool, groups, cout = case
+    rng = np.random.default_rng(hp + cin)
+    x = torch.from_numpy(rng.integers(-128, 128, (n, hp, hp, cin),
+                                      dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, k, cin // groups, cout),
+                                      dtype=np.int8))
+    strides = (s, s)
+    assert qconv._geometry("qconv", "t", x.shape, w.shape,
+                           (n,) + _shapes(n, hp, hp, k, k, strides, pool)[4:]
+                           + (cout,), groups, strides, pool, 0, None, None,
+                           (0, 0, 0, 0), None).width == 1
+    acc = t_ref.int_conv_nhwc(x, w, strides, groups)
+    pl = qconv.plan(n, hp, hp, cin, k, k, cout, strides, pool, groups)
+    wk = qconv.stage_kmajor(w).to(torch.int64)
+    cout_g, k_total = cout // groups, k * k * (cin // groups)
+    _ho, wo, _pw, _ps, _oh, _ow = _shapes(n, hp, hp, k, k, strides, pool)
+    ho = acc.shape[1]
+    for blk in sorted({0, pl.m_tiles // 2, pl.m_tiles - 1}):
+        for g in range(groups):
+            steps = [narrow_tile(x, blk, g, kb, kh=k, kw=k, strides=strides,
+                                 pool=pool, groups=groups)
+                     for kb in range(0, pl.k_pad, qconv.K_TILE)]
+            a = torch.cat([t for t, _ro in steps], dim=1).to(torch.int64)
+            row_off = steps[0][1]
+            assert not a[:, k_total:].any()
+            sums = a @ wk[g * cout_g:(g + 1) * cout_g].T
+            for r, ro in enumerate(row_off):
+                if ro < 0:
+                    assert not a[r].any()
+                    continue
+                pix = (ro - g * (cin // groups)) // cin
+                img, rem = divmod(pix, hp * hp)
+                i0, j0 = divmod(rem, hp)
+                want = acc[img, i0 // s, j0 // s,
+                           g * cout_g:(g + 1) * cout_g]
+                assert i0 // s < ho and j0 // s < wo
+                assert torch.equal(sums[r].to(torch.int32), want)
+
+
+@pytest.mark.parametrize("cin,groups,width", [
+    (3, 1, 1), (6, 1, 1), (27, 3, 1), (9, 3, 1), (18, 2, 1),
+    (4, 1, 4), (12, 1, 4), (8, 2, 4), (48, 1, 16), (64, 1, 16),
+    (96, 2, 16), (384, 2, 16), (512, 1, 16)])
+def test_geometry_picks_the_gather_by_the_groups_channels(cin, groups,
+                                                          width):
+    """Cin/G % 16 == 0: 16-byte cp.async; % 4 == 0: 4-byte; else the
+    narrow gather (width 1), which the launch also takes for an input
+    pointer that is not 4-byte aligned."""
+    cout = 12 * groups
+    geo = qconv._geometry("qconv", "qconv2d", (1, 10, 10, cin),
+                          (3, 3, cin // groups, cout), (1, 8, 8, cout),
+                          groups, (1, 1), None, 0, None, None, (0, 0, 0, 0),
+                          None)
+    assert geo.width == width
+
+
+def test_the_narrow_gathers_offsets_must_fit_32_bits():
+    xs, ws = (1, 12, 2 ** 26, 3), (11, 11, 3, 64)
+    with pytest.raises(ValueError, match="32 bits"):
+        qconv._geometry("qconv", "qconv2d", xs, ws, (1, 2, 2 ** 26 - 10, 64),
+                        1, (1, 1), None, 0, None, None, (0, 0, 0, 0), None)
+
+
+def test_the_gather_counter_counts_kernel_launches_only():
+    """Plain-version calls leave ``gather_launches`` alone, as they leave
+    ``launches``; ``ops.reset_launch_counts`` zeroes both."""
+    qconv.gather_launches["narrow"] += 3
+    ops.reset_launch_counts()
+    assert qconv.gather_launches == {"16": 0, "4": 0, "narrow": 0}
+    for c in CASES[:2]:
+        x, w, b, kw = _case_inputs(c, seed=1)
+        qconv.qconv2d(x, w, b, **{k: v for k, v in kw.items()
+                                  if k != "groups"})
+    assert qconv.gather_launches == {"16": 0, "4": 0, "narrow": 0}
 
 
 def _strip_staged(qm):
