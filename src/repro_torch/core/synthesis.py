@@ -477,6 +477,13 @@ class CNN2Gate:
         CPU, the executor after one run on a zero sample
         (``self.compiled`` is None).  ``synthesis_time_s`` records the
         warm-up and capture, or that run.
+
+        Each build adds the stage program's merges and pools to three
+        counters of the process registry: ``build.fused_skips`` (adds
+        folded into a conv's epilogue), ``build.standalone_merges`` (add
+        and concat stages that run as their own op; a concat whose
+        producers write its buffer is not one) and
+        ``build.standalone_pools`` (pools that no conv epilogue took).
         """
         if self.quantized is None:
             raise RuntimeError("apply_quantization() or "
@@ -485,7 +492,20 @@ class CNN2Gate:
             raise ValueError(f"unknown mode {mode!r}")
         with self.tracer.span("gate.build", cat="setup",
                               args={"mode": mode}):
+            self._count_stages()
             return self._build(mode, n_i, n_l, block_h)
+
+    def _count_stages(self) -> None:
+        layers = self.parsed.layers
+        reg = tele.get_registry()
+        reg.counter("build.fused_skips").inc(
+            sum(li.merge is not None for li in layers))
+        reg.counter("build.standalone_merges").inc(
+            sum(li.kind == P.ADD or (li.kind == P.CONCAT
+                                     and not li.concat_fused)
+                for li in layers))
+        reg.counter("build.standalone_pools").inc(
+            sum(li.kind == P.POOL for li in layers))
 
     def _build(self, mode: str, n_i: int, n_l: int,
                block_h: Optional[int]):

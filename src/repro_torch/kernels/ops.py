@@ -63,8 +63,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero :func:`launch_counts` and ``qconv.gather_launches``."""
-    for c in _COUNTERS + (_qconv.gather_launches,):
+    """Zero :func:`launch_counts`, ``qconv.gather_launches`` and
+    ``qconv.skip_launches``."""
+    for c in _COUNTERS + (_qconv.gather_launches, _qconv.skip_launches):
         for name in c:
             c[name] = 0
 

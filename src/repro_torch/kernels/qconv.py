@@ -98,6 +98,9 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
 #: gather each took: 16- or 4-byte ``cp.async``, or the narrow gather
 #: (Cin/G % 4 != 0, or an input pointer that is not 4-byte aligned).
 gather_launches = {"16": 0, "4": 0, "narrow": 0}
+#: Launches of each kernel (``csrc/qconv.cu``, ``csrc/qdwconv.cu``) that
+#: carry a skip operand: a residual add in the epilogue.
+skip_launches = {"qconv": 0, "qdwconv": 0}
 
 _SIGNATURES = {
     "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 29
@@ -519,6 +522,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     _build.check(err, what)
     if kernel == "qconv":
         gather_launches["narrow" if width == 1 else str(width)] += 1
+    if skip is not None:
+        skip_launches[kernel] += 1
 
 
 def _out_hw(x, w, strides, pool):
