@@ -7,8 +7,9 @@
 // ragged grouped conv qgconv2d (:945), which runs the same band body once
 // per group.
 //
-// Semantics, per output channel c of a VALID conv over the pre-padded NHWC
-// input (strides sh, sw; HWIO weights): v = epilogue(acc, c) (requant.cuh:
+// Semantics, per output channel c of a conv over the NHWC input zero-padded
+// by (pt, pl, pb, pr) rows and columns (ONNX's top, left, bottom, right;
+// strides sh, sw; HWIO weights): v = epilogue(acc, c) (requant.cuh:
 // bias, requant, ReLU, clip, then the skip and concat steps), then
 // y = max over the pool window of v, and y lands in channels
 // [out_off, out_off + Cout) of an output whose channel stride is c_tot (the
@@ -55,7 +56,12 @@
 //   layer but the first, AlexNet's groups of 48 and 192), 4-byte cp.async
 //   where Cin/G % 4 == 0, and the narrow gather otherwise (the Cin-3 stems,
 //   Cin 6, Cin/G 9; also any input whose pointer is not 4-byte aligned);
-//   zero past K and past the last row.  The ring keeps kStages - 1 K steps
+//   zero past K and past the last row.  The padding is never stored: a row
+//   records its window's origin in the unpadded input, which may lie above
+//   or left of it, and a tap outside the image reads as zero (a cp.async of
+//   source size 0, as past K).  A cp.async chunk lies within one tap, since
+//   Cin/G is a multiple of its width, so a thread finds its chunk's tap once
+//   a K step and tests it for each row.  The ring keeps kStages - 1 K steps
 //   in flight while the tensor cores work on the current one, and two
 //   blocks fit an SM, so that one's gather and epilogue overlap the
 //   other's products.
@@ -66,17 +72,27 @@
 //   out its chunk's 16 input offsets once a step, walking (kh, kw, ci) a
 //   byte at a time from one division pair, so no table bounds K; then, 4
 //   rows in flight, it loads each row's 16 bytes (ld.global.nc) and stores
-//   them with one 16-byte store.  It is an instantiation of its own
-//   (kNarrow): inlined beside the cp.async gathers it took their registers
-//   and cost the other convs 1-2 %.  On the H100 (700 W) AlexNet's 11x11/4
+//   them with one 16-byte store.  A row whose window crosses the image's
+//   border loads only the bytes inside it: a 16-bit mask of them, made
+//   without a division from the kh rows the chunk meets (border_mask), so
+//   its loads stay in flight beside the other rows'.  (A second pass over
+//   the border rows, walking each byte's tap, put a second round of load
+//   latency on every block that has one: the stems took 13-39 % longer.)
+//   It is an instantiation of its own (kNarrow): inlined beside the
+//   cp.async gathers it took their registers and cost the other convs
+//   1-2 %.  On the H100 (700 W) AlexNet's 11x11/4
 //   stem at batch 64 went from 0.841 ms (a division pair and a modulo per
 //   byte) to 0.227; with its loads taken out the kernel still takes 0.128,
 //   so the fixed cost of its 3,333 small-K blocks (weights, rows,
 //   epilogue, pool) now bounds it beside the byte loads' L1 traffic.
 //   Aligned word loads with a funnel shift, for the 4 bytes that lie in
 //   one kh run, were no faster: which words qualify differs between a
-//   warp's chunks, so the warp runs both paths.  The 128-column instance (no
-//   stem of the benchmark's) spills 4 bytes.
+//   warp's chunks, so the warp runs both paths.  Both narrow instances
+//   take 128 registers; the 128-column one (no stem of the benchmark's)
+//   spills 24 bytes.
+// * The 16-byte gather's thread walks the same 4 rows at every K step and
+//   keeps their windows in registers: read from shared memory a step, with
+//   the border test, they cost VGG-16's convs 4-12 %.
 // * The first weight boxes are requested before the block works out its
 //   rows, and the tile's bias and per-lane shifts go to shared memory
 //   meanwhile.
@@ -95,7 +111,7 @@
 // The trial form (`trials` T > 1) is what the JAX package's qconv2d,
 // _qconv2d_into and qgconv2d become under jax.vmap in an SER campaign
 // (src/repro/core/ser.py:315): trial t convolves its own N images of the
-// (T*N, Hp, Wp, Cin) input, and writes its own N images of the output,
+// (T*N, H, W, Cin) input, and writes its own N images of the output,
 // with its own weight image, rows [t*Cout, (t+1)*Cout) of a K-major stack
 // (T*Cout, K_pad); biases and shifts are shared.  The trial rides
 // gridDim.x beside the trial's row tiles, so a tile, which reads one
@@ -114,11 +130,12 @@
 namespace {
 
 struct ConvArgs {
-  const int8_t* x;          // (N, Hp, Wp, Cin)
+  const int8_t* x;          // (N, H, W, Cin), unpadded
   const int8_t* wk;         // (Cout, k_pad), K-major
   int8_t* y;                // (N, OH, OW, c_tot)
   Epilogue ep;
-  int n, hp, wp, cin, kh, kw, cout, sh, sw;  // n: images of one trial
+  int n, h, w, cin, kh, kw, cout, sh, sw;  // n: images of one trial
+  int pt, pl;               // zero rows above, columns left of the input
   int cin_g, cout_g;         // channels of one group
   int ho, wo, oh, ow;       // conv and output (pooled) geometry
   int pw, ps;               // pool window and stride; 1, 1 without a pool
@@ -148,41 +165,91 @@ __device__ __forceinline__ bool row_pixel(const ConvArgs& a, int blk, int row,
   return true;
 }
 
-// Offset of contraction byte k (over (kh, kw, ci) within the group) from
-// its window's first byte.
-__device__ __forceinline__ long long k_offset(const ConvArgs& a, int k) {
-  const int t = k / a.cin_g;
-  const int ci = k - t * a.cin_g;
-  return (static_cast<long long>(t / a.kw) * a.wp + t % a.kw) * a.cin + ci;
+// The window origin of a row past the last window: every tap of it lies
+// outside the image, so its gathers read zeros.
+constexpr int kFar = -(1 << 29);
+
+// Whether tap (kh, kw) of the window whose origin is input pixel org lies
+// inside the image; outside it, the tap is the conv's zero padding.
+__device__ __forceinline__ bool tap_in(const ConvArgs& a, int2 org, int kh,
+                                       int kw) {
+  return static_cast<unsigned>(org.x + kh) < static_cast<unsigned>(a.h) &&
+         static_cast<unsigned>(org.y + kw) < static_cast<unsigned>(a.w);
 }
 
-// The narrow gather's offsets: o[e] is k_offset of contraction byte k0 + e,
-// or -1 from K on.  One division pair, then (kh, kw, ci) walks a byte at a
-// time: past the group's last channel to the next tap, past the last tap
-// of a kh row to the next row (the wrapper keeps (KH+1)*Wp*Cin below 2^31).
+// Whether every tap of the window whose origin is org lies inside the image.
+__device__ __forceinline__ bool interior(const ConvArgs& a, int2 org) {
+  return org.x >= 0 && org.x <= a.h - a.kh && org.y >= 0 &&
+         org.y <= a.w - a.kw;
+}
+
+// Offset of contraction byte k (over (kh, kw, ci) within the group) from
+// its window's first byte, and the tap (kh, kw) it lies in.
+__device__ __forceinline__ long long k_offset(const ConvArgs& a, int k,
+                                              int* kh, int* kw) {
+  const int t = k / a.cin_g;
+  const int ci = k - t * a.cin_g;
+  *kh = t / a.kw;
+  *kw = t - *kh * a.kw;
+  return (static_cast<long long>(*kh) * a.w + *kw) * a.cin + ci;
+}
+
+// The narrow gather's offsets: o[e] is k_offset of contraction byte k0 + e
+// (past K too: those bytes are never loaded); byte k0 lies in kh row kh0 of
+// the window, p0 bytes into its KW * Cin/G.  One division pair, then (kh,
+// kw, ci) walks a byte at a time: past the group's last channel to the next
+// tap, past the last tap of a kh row to the next row (the wrapper keeps
+// ((KH+1)*W + KW)*Cin below 2^31).
 __device__ __forceinline__ void chunk_offsets(const ConvArgs& a, int k0,
-                                              int k_total, int (&o)[16]) {
+                                              int (&o)[16], int* kh0,
+                                              int* p0) {
   const int t = k0 / a.cin_g;
   int ci = k0 - t * a.cin_g, kw = t % a.kw;
-  int off = ((t / a.kw) * a.wp + kw) * a.cin + ci;
+  *kh0 = t / a.kw;
+  *p0 = k0 - *kh0 * a.kw * a.cin_g;
+  int off = (*kh0 * a.w + kw) * a.cin + ci;
 #pragma unroll
   for (int e = 0; e < 16; ++e) {
-    o[e] = k0 + e < k_total ? off : -1;
-    ++off;
+    o[e] = off++;
     if (++ci == a.cin_g) {
       ci = 0;
       off += a.cin - a.cin_g;
       if (++kw == a.kw) {
         kw = 0;
-        off += (a.wp - a.kw) * a.cin;
+        off += (a.w - a.kw) * a.cin;
       }
     }
   }
 }
 
-// The 16 bytes at p + o[e] (0 where o[e] < 0), packed little-endian.
+// The bits e of a narrow chunk (contraction bytes k0 + e, from
+// chunk_offsets' kh0 and p0) whose taps lie inside the image, for a border
+// row whose window starts at input pixel org.  A kh row of the window is a
+// run of KW * Cin/G bytes, and the chunk starts p0 bytes into row kh0; the
+// rows kh in [kh_lo, kh_hi) lie inside the image, and of each the bytes
+// [b0, b1), the taps kw in [kw_lo, kw_hi).  No division, and no walk a
+// byte at a time: a mask of each kh row the chunk meets.  A row past the
+// last window (org kFar) gets no bit.
+__device__ __forceinline__ uint32_t border_mask(const ConvArgs& a, int2 org,
+                                                int kh0, int p0) {
+  const int kh_lo = max(0, -org.x), kh_hi = min(a.kh, a.h - org.x);
+  const int b0 = max(0, -org.y) * a.cin_g;
+  const int b1 = min(a.kw, a.w - org.y) * a.cin_g;
+  const int run = a.kw * a.cin_g;
+  uint32_t m = 0;
+  for (int kh = kh0, e0 = -p0; e0 < 16; ++kh, e0 += run) {
+    const int lo = max(e0 + b0, 0), hi = min(e0 + b1, 16);
+    if (kh >= kh_lo && kh < kh_hi && lo < hi)
+      m |= ((1u << hi) - 1) & ~((1u << lo) - 1);
+  }
+  return m;
+}
+
+// The 16 bytes at p + o[e] whose bit e of mask is set (0 for the others),
+// packed little-endian.
 __device__ __forceinline__ uint4 narrow_chunk(const int8_t* p,
-                                              const int (&o)[16]) {
+                                              const int (&o)[16],
+                                              uint32_t mask) {
   const uint8_t* const b = reinterpret_cast<const uint8_t*>(p);
   uint32_t v[4];
 #pragma unroll
@@ -190,7 +257,7 @@ __device__ __forceinline__ uint4 narrow_chunk(const int8_t* p,
     uint32_t w = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (o[4 * j + i] >= 0)
+      if (mask & (1u << (4 * j + i)))
         w |= static_cast<uint32_t>(__ldg(b + o[4 * j + i])) << (8 * i);
     v[j] = w;
   }
@@ -304,6 +371,8 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[kStages];
   __shared__ long long row_off[kRows];  // window's first input byte
+  __shared__ int2 row_org[kRows];       // window's first pixel (ih, iw)
+  __shared__ long long row_in[kRows];   // row_off if interior(), else -1
   __shared__ long long row_pix[kRows];  // conv pixel (N, Ho, Wo) index
   __shared__ int32_t s_bias[BN], s_shift[BN];
   const uint32_t raw = smem_u32(smem_raw);
@@ -332,6 +401,10 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
     mbar_expect_tx(bar(s), T::kBTile);
     tma_load(b_tile(s), &map_w, bar(s), (kt0 + j) * kBK, w_row0);
   };
+  // the 16-byte gather's rows: a thread walks the same kRows / 32 rows at
+  // every K step, so it keeps their windows in registers
+  long long g_off[kRows / 32];
+  int2 g_org[kRows / 32];
   auto load_a = [&](int j) {
     const int s = j % kStages;
     const int kb = (kt0 + j) * kBK;  // first K byte of the step
@@ -344,13 +417,22 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
       int nc = 1;
       while (nc < 8 && 16 * nc < kv) nc <<= 1;
       const int c = tid & (nc - 1);
-      int o[16];
-      chunk_offsets(a, kb + 16 * c, k_total, o);
+      int o[16], kh0, p0;
+      chunk_offsets(a, kb + 16 * c, o, &kh0, &p0);
+      const int kv_c = kv - 16 * c;  // bytes of the chunk within K
+      const uint32_t kmask = kv_c >= 16 ? 0xffffu : (1u << max(kv_c, 0)) - 1;
+      // 4 rows in flight; a border row (or one past the last window) loads
+      // only the bytes inside the image
 #pragma unroll 4
       for (int r = tid / nc; r < kRows; r += kThreads / nc) {
-        const long long ro = row_off[r];
+        long long ro = row_in[r];
+        uint32_t mask = kmask;
+        if (ro < 0) {
+          ro = row_off[r];
+          mask &= border_mask(a, row_org[r], kh0, p0);
+        }
         *reinterpret_cast<uint4*>(tile + sw128(r, c)) =
-            ro >= 0 ? narrow_chunk(a.x + ro, o) : make_uint4(0, 0, 0, 0);
+            narrow_chunk(a.x + ro, o, mask);
       }
       for (int idx = tid; idx < kRows * 8; idx += kThreads)
         if ((idx & 7) >= nc)
@@ -360,24 +442,26 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
       const int c = tid & 7;
       const int k = kb + 16 * c;
       const bool kin = k < k_total;
-      const long long ko = kin ? k_offset(a, k) : 0;
+      int kh = 0, kw = 0;
+      const long long ko = kin ? k_offset(a, k, &kh, &kw) : 0;
 #pragma unroll
       for (int m = 0; m < kRows / 32; ++m) {
         const int r = (tid >> 3) + 32 * m;
-        const long long ro = row_off[r];
-        const bool ok = kin && ro >= 0;
-        cp_async16(at + sw128(r, c), ok ? a.x + ro + ko : a.x, ok ? 16 : 0);
+        const bool ok = kin && tap_in(a, g_org[m], kh, kw);
+        cp_async16(at + sw128(r, c), ok ? a.x + g_off[m] + ko : a.x,
+                   ok ? 16 : 0);
       }
     } else {
       const int wd = tid & 31;
       const int k = kb + 4 * wd;
       const bool kin = k < k_total;
-      const long long ko = kin ? k_offset(a, k) : 0;
+      int kh = 0, kw = 0;
+      const long long ko = kin ? k_offset(a, k, &kh, &kw) : 0;
 #pragma unroll 4
       for (int m = 0; m < kRows / 8; ++m) {
         const int r = (tid >> 5) + 8 * m;
         const long long ro = row_off[r];
-        const bool ok = kin && ro >= 0;
+        const bool ok = kin && tap_in(a, row_org[r], kh, kw);
         cp_async4(at + sw128(r, wd >> 2) + 4 * (wd & 3),
                   ok ? a.x + ro + ko : a.x, ok ? 4 : 0);
       }
@@ -386,8 +470,9 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   };
 
   // the first weight boxes go out before anything else; meanwhile the
-  // other threads find each row's window (the group's first channel of
-  // its first pixel) and stage the tile's bias and shifts
+  // other threads find each row's window (its first pixel, which lies
+  // outside the image where the padding does, and the group's first
+  // channel there) and stage the tile's bias and shifts
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(bar(s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -397,10 +482,15 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
     int img, ch, cw;
     const bool valid = row_pixel(a, blk, tid, kRows, &img, &ch, &cw);
     img += trial * a.n;  // the image in the whole (trials * n) batch
-    row_off[tid] =
-        valid ? ((static_cast<long long>(img) * a.hp + ch * a.sh) * a.wp +
-                 cw * a.sw) * a.cin + g * a.cin_g
-              : -1;
+    const int2 org = valid ? make_int2(ch * a.sh - a.pt, cw * a.sw - a.pl)
+                           : make_int2(kFar, kFar);
+    const long long off =
+        valid ? ((static_cast<long long>(img) * a.h + org.x) * a.w + org.y)
+                        * a.cin + g * a.cin_g
+              : 0;
+    row_org[tid] = org;
+    row_off[tid] = off;
+    row_in[tid] = interior(a, org) ? off : -1;
     row_pix[tid] =
         valid ? (static_cast<long long>(img) * a.ho + ch) * a.wo + cw : -1;
   } else if (tid - kRows < BN) {
@@ -411,6 +501,13 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
                                                  : a.ep.shift;
   }
   __syncthreads();
+  if (!kNarrow) {
+#pragma unroll
+    for (int m = 0; m < kRows / 32; ++m) {
+      g_off[m] = row_off[(tid >> 3) + 32 * m];
+      g_org[m] = row_org[(tid >> 3) + 32 * m];
+    }
+  }
 
   const int wg = tid >> 7;
   int32_t acc[T::kAcc];
@@ -604,32 +701,35 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
 
 }  // namespace
 
-// Launch the conv.  Pointers may be null where ConvArgs and Epilogue say
-// so.  The wrapper checks every shape, type and range (groups divides Cin
-// and Cout) and plans the launch: wk is the weight K-major (Cout, k_pad),
-// k_pad a multiple of 128, 16-byte aligned; bn (64 or 128) output
-// channels a tile; `splits` (at most 8, a cluster) K splits of `chunk` K
-// tiles.  mode is the A gather (16: 16-byte cp.async, Cin/G % 16 == 0 and x
-// 16-byte aligned; 4: 4-byte cp.async, Cin/G % 4 == 0 and x 4-byte
-// aligned; else 1, the narrow gather); wide says that c_tot, out_off and y
-// allow 16-byte stores.  With `trials`
-// T > 1, x holds n = T * (images of a trial) images, wk is the trials'
-// stack (T * Cout, k_pad) and y (and skip) hold n images: trial t's images
-// against its own weight image.  Returns cudaGetLastError() or the error
+// Launch the conv over x (n, h, w, cin), zero-padded by pt rows above, pl
+// columns left, pb rows below and pr columns right: the padding is taken in
+// the A gathers, never stored.  Pointers may be null where ConvArgs and
+// Epilogue say so.  The wrapper checks every shape, type and range (groups
+// divides Cin and Cout) and plans the launch: wk is the weight K-major
+// (Cout, k_pad), k_pad a multiple of 128, 16-byte aligned; bn (64 or 128)
+// output channels a tile; `splits` (at most 8, a cluster) K splits of
+// `chunk` K tiles.  mode is the A gather (16: 16-byte cp.async, Cin/G % 16
+// == 0 and x 16-byte aligned; 4: 4-byte cp.async, Cin/G % 4 == 0 and x
+// 4-byte aligned; else 1, the narrow gather); wide says that c_tot, out_off
+// and y allow 16-byte stores.  With `trials` T > 1, x holds n = T *
+// (images of a trial) images, wk is the trials' stack (T * Cout, k_pad)
+// and y (and skip) hold n images: trial t's images against its own weight
+// image.  Returns cudaGetLastError() or the error
 // of encoding the weight's tensor map.
 extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
                         const void* shift_vec, const void* skip, void* y,
-                        int n, int hp, int wp, int cin, int kh, int kw,
+                        int n, int h, int w, int cin, int kh, int kw,
                         int cout, int sh, int sw, int pw, int ps, int shift,
                         int relu, int a_conv, int a_skip, int merge_shift,
                         int merge_relu, int concat_shift, int concat_relu,
                         int c_tot, int out_off, int groups, int bn,
                         int k_pad, int splits, int chunk, int mode, int wide,
-                        int trials, void* stream) {
+                        int trials, int pt, int pl, int pb, int pr,
+                        void* stream) {
   if (wk == nullptr || k_pad % tc::kBK != 0 || splits < 1
       || splits > tc::kMaxSplits || chunk < 1
       || (splits - 1) * chunk >= k_pad / tc::kBK || trials < 1
-      || n % trials != 0)
+      || n % trials != 0 || pt < 0 || pl < 0 || pb < 0 || pr < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
@@ -642,11 +742,11 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   a.ep.a_conv = a_conv; a.ep.a_skip = a_skip;
   a.ep.merge_shift = merge_shift; a.ep.merge_relu = merge_relu;
   a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;
-  a.n = n / trials; a.hp = hp; a.wp = wp; a.cin = cin; a.kh = kh; a.kw = kw;
-  a.cout = cout; a.sh = sh; a.sw = sw;
+  a.n = n / trials; a.h = h; a.w = w; a.cin = cin; a.kh = kh; a.kw = kw;
+  a.cout = cout; a.sh = sh; a.sw = sw; a.pt = pt; a.pl = pl;
   a.cin_g = cin / groups; a.cout_g = cout / groups;
-  a.ho = (hp - kh) / sh + 1;
-  a.wo = (wp - kw) / sw + 1;
+  a.ho = (h + pt + pb - kh) / sh + 1;
+  a.wo = (w + pl + pr - kw) / sw + 1;
   a.pw = pw; a.ps = ps;
   a.oh = (a.ho - pw) / ps + 1;
   a.ow = (a.wo - pw) / ps + 1;

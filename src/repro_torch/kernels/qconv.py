@@ -19,13 +19,17 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   word) by the narrow gather: a thread owns a 16-byte chunk of every row
   it walks, works out its offsets once a K step without a division per
   byte, and loads bytes, so it takes any K_pad (no table bounds it).
-  Such a stem is bound neither by operations nor by bytes but by its
+  The conv's zero padding (``pads``, ONNX's top, left, bottom, right) is
+  never stored: each gather reads a tap outside the unpadded input as
+  zero, so a padded conv is one launch over the input as it is.  Such a
+  stem is bound neither by operations nor by bytes but by its
   many small-K blocks' fixed cost and its byte loads (AlexNet's 11x11/4
   stem at batch 64: 0.227 ms on the H100, against a 0.0045 ms bound).
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
   Bound by bytes, and at the main path's sizes by latency: a block
-  stages its band of input rows (halo included) in shared memory and
+  stages its band of input rows (halo included) of a pre-padded input
+  (its caller pads it, ``ops.qconv2d_nhwc``) in shared memory and
   computes runs of output pixels in 4-channel lanes; a fused pool
   reduces the band's conv values in shared memory.  :func:`dw_plan`
   chooses the band.
@@ -98,12 +102,15 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
 #: gather each took: 16- or 4-byte ``cp.async``, or the narrow gather
 #: (Cin/G % 4 != 0, or an input pointer that is not 4-byte aligned).
 gather_launches = {"16": 0, "4": 0, "narrow": 0}
+#: Launches of the dense and grouped kernel that take non-zero pads in their
+#: A gathers, by the gather, as :data:`gather_launches`.
+padded_launches = {"16": 0, "4": 0, "narrow": 0}
 #: Launches of each kernel (``csrc/qconv.cu``, ``csrc/qdwconv.cu``) that
 #: carry a skip operand: a residual add in the epilogue.
 skip_launches = {"qconv": 0, "qdwconv": 0}
 
 _SIGNATURES = {
-    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 29
+    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 33
               + [ctypes.c_void_p]},
     "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 27
                 + [ctypes.c_void_p]},
@@ -111,11 +118,12 @@ _SIGNATURES = {
 
 
 def qconv2d_plain(
-    x: torch.Tensor,  # (N, Hp, Wp, Cin) int8, pre-padded
+    x: torch.Tensor,  # (N, H, W, Cin) int8
     w: torch.Tensor,  # (KH, KW, Cin/groups, Cout) int8
     b: Optional[torch.Tensor],  # (Cout,) int32
     *,
     strides: Tuple[int, int] = (1, 1),
+    pads: Tuple[int, int, int, int] = (0, 0, 0, 0),  # top, left, bottom, right
     shift=0,
     relu: bool = True,
     pool: Optional[Tuple[int, int]] = None,
@@ -137,10 +145,12 @@ def qconv2d_plain(
     merge requant → merge ReLU → clip; with a concat, the operand's
     alignment and the merge's ReLU; max-pool last.  With ``out_buf`` the
     result is written into its channels ``[out_off, out_off + Cout)``
-    in place and the whole buffer is returned.  It takes the wrappers'
-    staged copies ``w_k`` and ``shift_vec`` and reads ``w`` and
-    ``shift`` instead."""
-    y = epilogue_plain(ref.int_conv_nhwc(x, w, strides, groups), b,
+    in place and the whole buffer is returned.  ``x`` is zero-padded by
+    ``pads`` first (``ref.pad_nhwc``).  It takes the wrappers' staged
+    copies ``w_k`` and ``shift_vec`` and reads ``w`` and ``shift``
+    instead."""
+    y = epilogue_plain(ref.int_conv_nhwc(ref.pad_nhwc(x, pads), w, strides,
+                                         groups), b,
                        shift=shift, relu=relu, skip=skip,
                        skip_shifts=skip_shifts, merge_shift=merge_shift,
                        merge_relu=merge_relu, concat_shift=concat_shift,
@@ -365,8 +375,9 @@ def qdwconv2d_plain(x, w, b, **kw) -> torch.Tensor:
 class _Geometry:
     """What a launch derives from its shapes and integer options alone."""
 
-    head: tuple      # n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps
+    head: tuple      # n, h, w, cin, kh, kw, cout, sh, sw, pw, ps
     tail: tuple      # c_tot, out_off
+    pads: tuple      # top, left, bottom, right: zeros the gathers take
     trials: int      # weight images (1: the single form)
     plan: object     # Plan, or the depthwise kernel's DwPlan
     width: int       # widest input load the channels allow: 16, 4 or 1
@@ -378,11 +389,14 @@ class _Geometry:
 def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
               pool, out_off: int, b_shape, skip_shape, options,
               device_index: Optional[int],
-              trial_form: bool = False) -> _Geometry:
+              trial_form: bool = False,
+              pads: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> _Geometry:
     """Check the shapes and integer ``options`` (a_conv, a_skip,
     merge_shift, concat_shift) of a launch of ``kernel`` and plan it;
     worked out once for each distinct call and kept.  The trial form's
-    weight carries a leading trial axis that divides the batch."""
+    weight carries a leading trial axis that divides the batch.  ``xs``
+    is the unpadded input and ``pads`` the zeros around it (dense and
+    grouped kernel only: the depthwise kernel takes a pre-padded input)."""
     trials = 1
     if trial_form:
         if len(ws) != 5 or ws[0] < 1 or len(xs) != 4 or xs[0] % ws[0]:
@@ -393,8 +407,12 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
     if len(xs) != 4 or len(ws) != 4:
         raise ValueError(f"{what}: NHWC input and HWIO weight, got "
                          f"{tuple(xs)} and {tuple(ws)}")
-    n, hp, wp, cin = xs
+    n, h, w, cin = xs
     kh, kw, cin_g, cout = ws
+    if len(pads) != 4 or min(pads) < 0 \
+            or (kernel == "qdwconv" and any(pads)):
+        raise ValueError(f"{what}: pads {tuple(pads)}")
+    hp, wp = h + pads[0] + pads[2], w + pads[1] + pads[3]
     if kernel == "qdwconv":
         if cin_g != 1 or cin == 0 or cout % cin:
             raise ValueError(f"{what}: depthwise weight must be HWIO "
@@ -406,7 +424,7 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
     sh, sw = strides
     if hp < kh or wp < kw or sh < 1 or sw < 1:
         raise ValueError(f"{what}: window {kh}x{kw} stride {strides} over "
-                         f"input {hp}x{wp}")
+                         f"padded input {hp}x{wp}")
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
     if n * ho * wo >= 2 ** 31:
         raise ValueError(f"{what}: {n}x{ho}x{wo} output pixels; the kernels "
@@ -432,8 +450,8 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
             raise ValueError(f"{what}: {name} must lie in [0, 31], got {v}")
     pool = None if pool is None else (pw, ps)
     if kernel == "qconv":
-        if (kh + 1) * wp * cin >= 2 ** 31:
-            raise ValueError(f"{what}: {kh + 1} input rows of {wp}x{cin} "
+        if ((kh + 1) * w + kw) * cin >= 2 ** 31:
+            raise ValueError(f"{what}: {kh + 1} input rows of {w}x{cin} "
                              "bytes pass 2^31; the narrow gather's window "
                              "offsets take 32 bits")
         pl = plan(n // trials, hp, wp, cin, kh, kw, cout, (sh, sw), pool,
@@ -447,15 +465,15 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
         width = (1 if cout != cin else 16 if cin % 16 == 0
                  and pl.cb % 16 == 0 else 4 if cin % 4 == 0 else 1)
         store = 4
-    return _Geometry((n, hp, wp, cin, kh, kw, cout, sh, sw, pw, ps),
-                     (c_tot, out_off), trials, pl, width, store,
+    return _Geometry((n, h, w, cin, kh, kw, cout, sh, sw, pw, ps),
+                     (c_tot, out_off), tuple(pads), trials, pl, width, store,
                      c_tot % store == 0 and out_off % store == 0)
 
 
 def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
             skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
             concat_relu, what: str, trials: bool, w_k=None,
-            shift_vec=None) -> None:
+            shift_vec=None, pads=(0, 0, 0, 0)) -> None:
     """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
     dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
     ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
@@ -463,7 +481,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     the per-lane shifts staged on the card.  Every check comes before
     the device's, so a tensor on any device reports a bad operand
     first.  With ``trials`` (the trial form) ``w`` and ``w_k`` carry a
-    leading trial axis."""
+    leading trial axis.  ``pads`` (top, left, bottom, right) are the
+    conv's zeros around the unpadded ``x``, which the gathers take."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
     dev = x.device
@@ -473,7 +492,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
                     tuple(strides), None if pool is None else tuple(pool),
                     int(out_off), None if b is None else b.shape,
                     None if skip is None else skip.shape, options,
-                    dev.index if dev.type == "cuda" else None, trials)
+                    dev.index if dev.type == "cuda" else None, trials,
+                    tuple(int(p) for p in pads))
     if out.dtype != torch.int8:
         raise TypeError(f"{what}: output must be int8, got {out.dtype}")
     if b is not None and b.dtype != torch.int32:
@@ -518,19 +538,23 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
             w_k = w_k.clone()
         err = lib.qconv_s8(p(x), p(w_k), p(b), p(svec), p(skip), p(out),
                            *args, int(groups), pl.bn, pl.k_pad, pl.splits,
-                           pl.chunk, width, wide, geo.trials, stream)
+                           pl.chunk, width, wide, geo.trials, *geo.pads,
+                           stream)
     _build.check(err, what)
     if kernel == "qconv":
-        gather_launches["narrow" if width == 1 else str(width)] += 1
+        gather = "narrow" if width == 1 else str(width)
+        gather_launches[gather] += 1
+        if any(geo.pads):
+            padded_launches[gather] += 1
     if skip is not None:
         skip_launches[kernel] += 1
 
 
-def _out_hw(x, w, strides, pool):
+def _out_hw(x, w, strides, pool, pads):
     """Output (pooled) height and width; 0 where the window does not fit,
     which :func:`_launch` then rejects."""
-    ho = (x.shape[1] - w.shape[-4]) // strides[0] + 1
-    wo = (x.shape[2] - w.shape[-3]) // strides[1] + 1
+    ho = (x.shape[1] + pads[0] + pads[2] - w.shape[-4]) // strides[0] + 1
+    wo = (x.shape[2] + pads[1] + pads[3] - w.shape[-3]) // strides[1] + 1
     if pool is not None:
         ho, wo = (ho - pool[0]) // pool[1] + 1, (wo - pool[0]) // pool[1] + 1
     return max(ho, 0), max(wo, 0)
@@ -546,7 +570,8 @@ def _run(kernel: str, what: str, x, w, b, *, groups: int,
     if trials:
         what += "_trials"
     if out_buf is None:
-        oh, ow = _out_hw(x, w, kw["strides"], kw["pool"])
+        oh, ow = _out_hw(x, w, kw["strides"], kw["pool"],
+                         kw.get("pads", (0, 0, 0, 0)))
         out = torch.empty((x.shape[0], oh, ow, w.shape[-1]),
                           dtype=torch.int8, device=x.device)
     else:
@@ -558,11 +583,12 @@ def _run(kernel: str, what: str, x, w, b, *, groups: int,
 
 
 def qconv2d(
-    x: torch.Tensor,  # (N, Hp, Wp, Cin) int8, pre-padded (VALID conv)
+    x: torch.Tensor,  # (N, H, W, Cin) int8, unpadded
     w: torch.Tensor,  # (KH, KW, Cin, Cout) int8
     b: Optional[torch.Tensor],  # (Cout,) int32
     *,
     strides: Tuple[int, int] = (1, 1),
+    pads: Tuple[int, int, int, int] = (0, 0, 0, 0),  # top, left, bottom, right
     shift=0,         # int | length-Cout tuple (per-channel shift vector)
     relu: bool = True,
     pool: Optional[Tuple[int, int]] = None,
@@ -581,23 +607,26 @@ def qconv2d(
     when ``pool`` is given); with ``out_buf`` the result lands in that
     buffer's channels ``[out_off, out_off + Cout)`` (see
     :func:`qconv2d_into`) and the buffer is returned.  ``skip`` is a
-    residual operand in the *conv output* geometry (pre-pool).  On a CPU
-    tensor this is the plain version (``w_k`` and ``shift_vec`` unused);
-    on a CUDA tensor it launches the kernel or raises."""
+    residual operand in the *conv output* geometry (pre-pool).  ``pads``
+    are the conv's zeros around ``x``: the kernel's gathers take them, and
+    no padded copy is made.  On a CPU tensor this is the plain version
+    (``w_k`` and ``shift_vec`` unused); on a CUDA tensor it launches the
+    kernel or raises."""
     kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool, skip=skip,
                skip_shifts=skip_shifts, merge_shift=merge_shift,
                merge_relu=merge_relu, concat_shift=concat_shift,
                concat_relu=concat_relu)
     if out_buf is not None:
-        return qconv2d_into(x, w, b, out_buf, out_off=out_off, w_k=w_k,
-                            shift_vec=shift_vec, **kw_)
+        return qconv2d_into(x, w, b, out_buf, out_off=out_off, pads=pads,
+                            w_k=w_k, shift_vec=shift_vec, **kw_)
     if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, **kw_)
-    return _run("qconv", "qconv2d", x, w, b, groups=1, w_k=w_k,
+        return qconv2d_plain(x, w, b, pads=pads, **kw_)
+    return _run("qconv", "qconv2d", x, w, b, groups=1, pads=pads, w_k=w_k,
                 shift_vec=shift_vec, **kw_)
 
 
 def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
+                 pads: Tuple[int, int, int, int] = (0, 0, 0, 0),
                  w_k: Optional[torch.Tensor] = None,
                  shift_vec: Optional[torch.Tensor] = None,
                  **kw) -> torch.Tensor:
@@ -608,9 +637,11 @@ def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
     place** and returns the buffer.  The other channels are never
     touched."""
     if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, out_buf=out_buf, out_off=out_off, **kw)
+        return qconv2d_plain(x, w, b, pads=pads, out_buf=out_buf,
+                             out_off=out_off, **kw)
     return _run("qconv", "qconv2d_into", x, w, b, groups=1, out_buf=out_buf,
-                out_off=out_off, w_k=w_k, shift_vec=shift_vec, **kw)
+                out_off=out_off, pads=pads, w_k=w_k, shift_vec=shift_vec,
+                **kw)
 
 
 def qdwconv2d(
@@ -649,43 +680,47 @@ def qdwconv2d(
                 shift_vec=shift_vec, **kw_)
 
 
-def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), shift=0, relu=True,
-             pool=None, w_k: Optional[torch.Tensor] = None,
+def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
+             shift=0, relu=True, pool=None,
+             w_k: Optional[torch.Tensor] = None,
              shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ragged grouped int8 conv (1 < groups < Cin; HWIO weight
     (KH, KW, Cin/groups, Cout)) with requant, ReLU and the fused
-    max-pool; it never takes a skip or a concat buffer.  On a CPU tensor
-    this is the plain version; on a CUDA tensor it launches the dense
-    kernel, every group at once, or raises."""
+    max-pool, over ``x`` zero-padded by ``pads`` as :func:`qconv2d`; it
+    never takes a skip or a concat buffer.  On a CPU tensor this is the
+    plain version; on a CUDA tensor it launches the dense kernel, every
+    group at once, or raises."""
     kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
     if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, groups=groups, **kw_)
-    return _run("qconv", "qgconv2d", x, w, b, groups=groups, skip=None,
+        return qconv2d_plain(x, w, b, groups=groups, pads=pads, **kw_)
+    return _run("qconv", "qgconv2d", x, w, b, groups=groups, pads=pads,
+                skip=None,
                 skip_shifts=(0, 0), merge_shift=0, merge_relu=False,
                 concat_shift=0, concat_relu=False, w_k=w_k,
                 shift_vec=shift_vec, **kw_)
 
 
 def qconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
-                   out_off: int = 0, w_k: Optional[torch.Tensor] = None,
+                   out_off: int = 0, pads=(0, 0, 0, 0),
+                   w_k: Optional[torch.Tensor] = None,
                    shift_vec: Optional[torch.Tensor] = None,
                    **kw) -> torch.Tensor:
     """The trial form of :func:`qconv2d` (and, with ``out_buf``, of
-    :func:`qconv2d_into`): x (T*N, Hp, Wp, Cin) holds T trials' N images
-    each, w (T, KH, KW, Cin, Cout) one weight image a trial (``w_k`` the
-    stack staged K-major, (T, Cout, K_pad)); bias, shifts and every
-    epilogue option are shared, a skip or ``out_buf`` has T*N images.
-    Trial t's images ``[t*N, (t+1)*N)`` come out as :func:`qconv2d` of
+    :func:`qconv2d_into`): x (T*N, H, W, Cin) holds T trials' N images
+    each, zero-padded by ``pads``, w (T, KH, KW, Cin, Cout) one weight
+    image a trial (``w_k`` the stack staged K-major, (T, Cout, K_pad));
+    bias, shifts and every epilogue option are shared, a skip or
+    ``out_buf`` has T*N images.  Trial t's images ``[t*N, (t+1)*N)`` come out as :func:`qconv2d` of
     them with ``w[t]``, from one launch.  On a CPU tensor this is the
     plain version :func:`ref.qconv2d_trials_ref`; on a CUDA tensor it
     launches the kernel or raises."""
     if x.device.type == "cpu":
-        return ref.qconv2d_trials_ref(x, w, b, out_buf=out_buf,
+        return ref.qconv2d_trials_ref(x, w, b, pads=pads, out_buf=out_buf,
                                       out_off=out_off, **kw)
     what = "qconv2d" if out_buf is None else "qconv2d_into"
     return _run("qconv", what, x, w, b, groups=1, out_buf=out_buf,
-                out_off=out_off, trials=True, w_k=w_k, shift_vec=shift_vec,
-                **_merge(kw))
+                out_off=out_off, trials=True, pads=pads, w_k=w_k,
+                shift_vec=shift_vec, **_merge(kw))
 
 
 def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
@@ -707,19 +742,21 @@ def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
                 shift_vec=shift_vec, **_merge(kw))
 
 
-def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1), shift=0,
-                    relu=True, pool=None, w_k: Optional[torch.Tensor] = None,
+def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1),
+                    pads=(0, 0, 0, 0), shift=0, relu=True, pool=None,
+                    w_k: Optional[torch.Tensor] = None,
                     shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The trial form of :func:`qgconv2d`: w (T, KH, KW, Cin/groups,
     Cout) one weight image a trial (``w_k`` staged K-major, (T, Cout,
-    K_pad)), x of T*N images, from one launch.  On a CPU tensor this is
-    the plain version :func:`ref.qconv2d_trials_ref` with ``groups``; on
-    a CUDA tensor it launches the kernel or raises."""
+    K_pad)), x of T*N images zero-padded by ``pads``, from one launch.
+    On a CPU tensor this is the plain version :func:`ref.qconv2d_trials_ref`
+    with ``groups``; on a CUDA tensor it launches the kernel or raises."""
     kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
     if x.device.type == "cpu":
-        return ref.qconv2d_trials_ref(x, w, b, groups=groups, **kw_)
+        return ref.qconv2d_trials_ref(x, w, b, groups=groups, pads=pads,
+                                      **kw_)
     return _run("qconv", "qgconv2d", x, w, b, groups=groups, trials=True,
-                w_k=w_k, shift_vec=shift_vec, **_merge(kw_))
+                pads=pads, w_k=w_k, shift_vec=shift_vec, **_merge(kw_))
 
 
 def _merge(kw: dict) -> dict:

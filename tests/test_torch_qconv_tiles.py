@@ -329,16 +329,17 @@ def test_a_launch_works_out_each_shape_once():
 
 # ------------------------------------------ the narrow gather (Cin/G % 4)
 
-def chunk_offsets_model(k0, k_total, kw, cin, cin_g, wp):
+def chunk_offsets_model(k0, kw, cin, cin_g, wp):
     """``csrc/qconv.cu:chunk_offsets``: the offsets of contraction bytes
     ``k0 .. k0 + 15`` from the window's first byte, walked a byte at a
-    time from one division pair; -1 from K on."""
+    time from one division pair (past K too: the gather's mask leaves
+    those bytes unloaded)."""
     t, ci = divmod(k0, cin_g)
     kh_, kw_ = divmod(t, kw)
     off = (kh_ * wp + kw_) * cin + ci
     o = []
     for e in range(16):
-        o.append(off if k0 + e < k_total else -1)
+        o.append(off)
         off += 1
         ci += 1
         if ci == cin_g:
@@ -391,9 +392,9 @@ def narrow_tile(x, blk, g, kb, *, kh, kw, strides, pool, groups):
     tile = torch.full((qconv.TILE_M, qconv.K_TILE), 99, dtype=torch.int8)
     _nc, gathered, zeros = narrow_mapping(k_total - kb)
     for r, c in gathered:
-        o = chunk_offsets_model(kb + 16 * c, k_total, kw, cin, cin_g, wp)
+        o = chunk_offsets_model(kb + 16 * c, kw, cin, cin_g, wp)
         for e, oe in enumerate(o):
-            ok = row_off[r] >= 0 and oe >= 0
+            ok = row_off[r] >= 0 and kb + 16 * c + e < k_total
             tile[r, 16 * c + e] = flat[row_off[r] + oe] if ok else 0
     for r, c in zeros:
         tile[r, 16 * c:16 * c + 16] = 0
@@ -507,6 +508,322 @@ def test_the_gather_counter_counts_kernel_launches_only():
         qconv.qconv2d(x, w, b, **{k: v for k, v in kw.items()
                                   if k != "groups"})
     assert qconv.gather_launches == {"16": 0, "4": 0, "narrow": 0}
+
+
+# ------------------------------- the conv's zero padding in the A gathers
+
+KFAR = -(1 << 29)   # csrc/qconv.cu:kFar, the origin of a row past the end
+
+
+def padded_rows(xs, blk, g, *, kh, kw, strides, pads, pool, groups):
+    """``csrc/qconv.cu``'s row set-up for block ``blk``, group ``g``, over
+    the UNPADDED input of shape ``xs``: each row's window origin
+    ``row_org`` (kFar past the last window), ``row_off`` (its first byte,
+    negative where the origin lies above the first image) and the image
+    it reads; and the kernel's ``interior`` flag of each row."""
+    n, h, w, cin = xs
+    pt, pl, pb, pr = pads
+    _ho, _wo, pw, ps, oh, ow = _shapes(n, h + pt + pb, w + pl + pr, kh, kw,
+                                       strides, pool)
+    taps = pw * pw
+    per_block = qconv.TILE_M // taps
+    cin_g = cin // groups
+    org, off, img_of = [], [], []
+    for r in range(qconv.TILE_M):
+        p = blk * per_block + r // taps
+        if r >= per_block * taps or p >= n * oh * ow:
+            org.append((KFAR, KFAR))
+            off.append(0)
+            img_of.append(-1)
+            continue
+        img, rem = divmod(p, oh * ow)
+        t = r % taps
+        ch, cw = (rem // ow) * ps + t // pw, (rem % ow) * ps + t % pw
+        ih, iw = ch * strides[0] - pt, cw * strides[1] - pl
+        org.append((ih, iw))
+        off.append(((img * h + ih) * w + iw) * cin + g * cin_g)
+        img_of.append(img)
+    org = torch.tensor(org, dtype=torch.int64)
+    interior = ((org[:, 0] >= 0) & (org[:, 0] <= h - kh)
+                & (org[:, 1] >= 0) & (org[:, 1] <= w - kw))
+    return org, torch.tensor(off, dtype=torch.int64), img_of, interior
+
+
+def tap_walk(k0, kw, cin, cin_g, w):
+    """:func:`chunk_offsets_model` over the unpadded width ``w``, and the
+    tap (kh, kw) of each of the 16 bytes, walked from the chunk's first
+    tap: the test a byte at a time that ``border_mask`` must equal."""
+    o = chunk_offsets_model(k0, kw, cin, cin_g, w)
+    t, ci = divmod(k0, cin_g)
+    kh_, kw_ = divmod(t, kw)
+    taps = []
+    for _e in range(16):
+        taps.append((kh_, kw_))
+        ci += 1
+        if ci == cin_g:
+            ci = 0
+            kw_ += 1
+            if kw_ == kw:
+                kw_ = 0
+                kh_ += 1
+    return o, taps
+
+
+def border_mask_model(org, kh0, p0, *, kh, kw, h, w, cin_g):
+    """``csrc/qconv.cu:border_mask`` for each row of ``org`` (rows, 2): bit
+    e set where contraction byte k0 + e (the chunk that starts ``p0``
+    bytes into kh row ``kh0`` of the window) has its tap inside the
+    image; a mask of each kh row the chunk meets."""
+    kh_lo = (-org[:, 0]).clamp_min(0)
+    kh_hi = (h - org[:, 0]).clamp_max(kh)
+    b0 = (-org[:, 1]).clamp_min(0) * cin_g
+    b1 = (w - org[:, 1]).clamp_max(kw) * cin_g
+    one = torch.ones_like(b0)
+    m = torch.zeros_like(b0)
+    kh_, e0 = kh0, -p0
+    while e0 < 16:
+        lo = (e0 + b0).clamp(0, 16)
+        hi = (e0 + b1).clamp(0, 16)
+        bits = ((one << hi) - 1) & ~((one << lo) - 1)
+        m |= torch.where((kh_ >= kh_lo) & (kh_ < kh_hi) & (lo < hi), bits, 0)
+        kh_, e0 = kh_ + 1, e0 + kw * cin_g
+    return m
+
+
+def padded_tile(x, blk, g, *, kh, kw, strides, pads, pool, groups, width):
+    """The A rows (128 x K_pad) that the gather of ``width`` (16 or 4:
+    cp.async, one tap a chunk, tested per (row, chunk); 1: the narrow
+    gather, interior rows unmasked and border rows under
+    :func:`border_mask_model`) builds from the unpadded ``x`` for block
+    ``blk``, group ``g``."""
+    n, h, w, cin = x.shape
+    cin_g = cin // groups
+    k_total = kh * kw * cin_g
+    k_pad = qconv.k_padded(k_total)
+    org, off, img_of, interior = padded_rows(
+        x.shape, blk, g, kh=kh, kw=kw, strides=strides, pads=pads,
+        pool=pool, groups=groups)
+    flat = x.reshape(-1)
+    plane = h * w * cin
+    image = torch.tensor(img_of, dtype=torch.int64)
+
+    def tap_in(khs, kws):          # (rows, taps) of csrc/qconv.cu:tap_in
+        ih = org[:, :1] + torch.as_tensor(khs)[None, :]
+        iw = org[:, 1:] + torch.as_tensor(kws)[None, :]
+        return (ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)
+
+    def read(idx, mask):           # bytes at idx where mask, else 0
+        assert bool(((idx >= 0) & (idx < flat.numel()))[mask].all())
+        return torch.where(mask, flat[idx.clamp(0, flat.numel() - 1)],
+                           torch.zeros((), dtype=torch.int8))
+
+    a = torch.full((qconv.TILE_M, k_pad), 99, dtype=torch.int8)
+    for kb in range(0, k_pad, qconv.K_TILE):
+        if width > 1:
+            for c in range(qconv.K_TILE // width):
+                k = kb + width * c
+                cols = slice(k, k + width)
+                if k >= k_total:
+                    a[:, cols] = 0
+                    continue
+                t, ci = divmod(k, cin_g)
+                kh_, kw_ = divmod(t, kw)
+                assert ci + width <= cin_g          # one tap a chunk
+                ko = (kh_ * w + kw_) * cin + ci
+                ok = tap_in([kh_], [kw_])          # (rows, 1)
+                idx = off[:, None] + ko + torch.arange(width)[None, :]
+                a[:, cols] = read(idx, ok.expand(-1, width))
+            continue
+        _nc, gathered, zeros = narrow_mapping(k_total - kb)
+        for c in sorted({c for _r, c in gathered}):
+            k0 = kb + 16 * c
+            o, taps = tap_walk(k0, kw, cin, cin_g, w)
+            o = torch.tensor(o, dtype=torch.int64)
+            idx = off[:, None] + o[None, :]
+            kin = (k0 + torch.arange(16) < k_total)[None, :]
+            kh0 = k0 // cin_g // kw
+            bm = border_mask_model(org, kh0, k0 - kh0 * kw * cin_g, kh=kh,
+                                   kw=kw, h=h, w=w, cin_g=cin_g)
+            border = ((bm[:, None] >> torch.arange(16)[None, :]) & 1).bool()
+            # the mask is the taps' own test, byte by byte, on every row
+            assert torch.equal(
+                kin & border,
+                kin & tap_in([t[0] for t in taps], [t[1] for t in taps]))
+            mask = torch.where(interior[:, None], kin, kin & border)
+            # an interior row's bytes, under K's mask alone, lie in its image
+            inside = (idx >= image[:, None] * plane) \
+                & (idx < (image[:, None] + 1) * plane)
+            assert bool(inside[interior[:, None] & kin].all())
+            a[:, kb + 16 * c:kb + 16 * c + 16] = read(idx, mask)
+        for r, c in zeros:
+            a[r, kb + 16 * c:kb + 16 * c + 16] = 0
+    return a, org, interior
+
+
+def im2col_rows(xp, blk, g, *, kh, kw, strides, pool, groups, k_pad):
+    """The im2col rows of block ``blk``, group ``g`` over the padded input
+    ``xp``: each row's window, zero past K and for rows past the end."""
+    n, hp, wp, cin = xp.shape
+    cin_g = cin // groups
+    _ho, _wo, pw, ps, oh, ow = _shapes(n, hp, wp, kh, kw, strides, pool)
+    taps = pw * pw
+    per_block = qconv.TILE_M // taps
+    a = torch.zeros((qconv.TILE_M, k_pad), dtype=torch.int8)
+    windows = []
+    for r in range(qconv.TILE_M):
+        p = blk * per_block + r // taps
+        if r >= per_block * taps or p >= n * oh * ow:
+            windows.append(None)
+            continue
+        img, rem = divmod(p, oh * ow)
+        t = r % taps
+        i0 = ((rem // ow) * ps + t // pw) * strides[0]
+        j0 = ((rem % ow) * ps + t % pw) * strides[1]
+        a[r, :kh * kw * cin_g] = xp[img, i0:i0 + kh, j0:j0 + kw,
+                                    g * cin_g:(g + 1) * cin_g].reshape(-1)
+        windows.append((i0, j0))
+    return a, windows
+
+
+# (name, N, H, Cin, K, stride, pads, groups): the padded convs of VGG-16,
+# AlexNet (one tower and the two-tower grouped conv2) and ResNet-18 at
+# full size, one of each distinct shape, and asymmetric pads
+PADDED = (
+    [(f"vgg16_{h}x{h}x{cin}", 2, h, cin, 3, 1, (1, 1, 1, 1), 1)
+     for h, cin in ((224, 3), (224, 64), (112, 64), (112, 128), (56, 128),
+                    (56, 256), (28, 256), (28, 512), (14, 512))]
+    + [("alexnet_conv1_11x11_s4", 2, 224, 3, 11, 4, (2, 2, 2, 2), 1),
+       ("alexnet_conv2_5x5", 2, 27, 64, 5, 1, (2, 2, 2, 2), 1),
+       ("alexnet_conv3_3x3", 2, 13, 192, 3, 1, (1, 1, 1, 1), 1),
+       ("alexnet_conv4_3x3", 2, 13, 384, 3, 1, (1, 1, 1, 1), 1),
+       ("alexnet_conv5_3x3", 2, 13, 256, 3, 1, (1, 1, 1, 1), 1),
+       ("alexnet_2tower_conv2_g2", 2, 27, 96, 5, 1, (2, 2, 2, 2), 2),
+       ("resnet18_conv1_7x7_s2", 2, 224, 3, 7, 2, (3, 3, 3, 3), 1)]
+    + [(f"resnet18_{h}x{h}x{cin}_s{s}", 2, h, cin, 3, s, (1, 1, 1, 1), 1)
+       for h, cin, s in ((56, 64, 1), (56, 64, 2), (28, 128, 1),
+                         (28, 128, 2), (14, 256, 1), (14, 256, 2),
+                         (7, 512, 1))]
+    + [("asymmetric_cin3_1201", 2, 9, 3, 3, 1, (1, 2, 0, 1), 1),
+       ("asymmetric_cin32_1201", 2, 9, 32, 3, 1, (1, 2, 0, 1), 1),
+       ("asymmetric_cin32_s2_1201", 2, 10, 32, 3, 2, (1, 2, 0, 1), 1)])
+
+
+@pytest.mark.parametrize("pool", [None, "fused"])
+@pytest.mark.parametrize("case", PADDED, ids=[c[0] for c in PADDED])
+def test_the_gathers_take_the_pads_of_the_padded_im2col(case, pool):
+    """Each gather the conv's channels allow (16- and 4-byte cp.async with
+    one predicate a (row, chunk), the narrow gather with one a byte on
+    border rows), reading the UNPADDED input, builds the im2col rows of
+    ``ref.pad_nhwc``'s output: in the first, a middle and the last block,
+    and the block of the first image's last window, every group and K
+    step.  The interior flag marks no row whose window crosses the
+    border, and the padded convs have border rows."""
+    name, n, h, cin, k, s, pads, groups = case
+    pool = None if pool is None else (3, 2) if "alexnet" in name else (2, 2)
+    rng = np.random.default_rng(h * cin + k)
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, cin),
+                                      dtype=np.int8))
+    xp = t_ref.pad_nhwc(x, pads)
+    strides = (s, s)
+    cin_g = cin // groups
+    widths = [wd for wd in (16, 4) if cin_g % wd == 0] + [1]
+    pl = qconv.plan(n, *xp.shape[1:], k, k, 64 * groups, strides, pool,
+                    groups)
+    _ho, _wo, pw, _ps, oh, ow = _shapes(n, *xp.shape[1:3], k, k, strides,
+                                        pool)
+    per_block = qconv.TILE_M // (pw * pw)
+    blocks = sorted({0, pl.m_tiles // 2, pl.m_tiles - 1,
+                     (oh * ow - 1) // per_block})
+    borders = 0
+    for blk in blocks:
+        for g in range(groups):
+            want, windows = im2col_rows(xp, blk, g, kh=k, kw=k,
+                                        strides=strides, pool=pool,
+                                        groups=groups, k_pad=pl.k_pad)
+            for width in widths:
+                got, org, interior = padded_tile(
+                    x, blk, g, kh=k, kw=k, strides=strides, pads=pads,
+                    pool=pool, groups=groups, width=width)
+                assert torch.equal(got, want), (blk, g, width)
+            for r, win in enumerate(windows):
+                assert (win is None) == (int(org[r, 0]) == KFAR)
+                if win is None:
+                    assert not interior[r]
+                    continue
+                i0, j0 = win   # the window in the padded input
+                crosses = (i0 < pads[0] or i0 + k > pads[0] + h
+                           or j0 < pads[1] or j0 + k > pads[1] + h)
+                assert not (interior[r] and crosses)
+                assert bool(interior[r]) == (not crosses)
+                borders += crosses
+    assert borders > 0
+
+
+@pytest.mark.parametrize("pads,hw", [((0, 0, 0, 0), 8), ((1, 1, 1, 1), 8),
+                                     ((2, 0, 1, 3), 9), ((3, 3, 3, 3), 4)])
+def test_the_geometry_plans_the_padded_shape(pads, hw):
+    """``_geometry`` takes the unpadded input and the pads: the plan is
+    that of the padded shape, the launch's head keeps the unpadded one,
+    and pads are part of the key (two pads, two entries)."""
+    xs, ws = (2, hw, hw, 32), (3, 3, 32, 64)
+    hp, wp = hw + pads[0] + pads[2], hw + pads[1] + pads[3]
+    ho, wo = hp - 2, wp - 2
+    geo = qconv._geometry("qconv", "qconv2d", xs, ws, (2, ho, wo, 64), 1,
+                          (1, 1), None, 0, None, None, (0, 0, 0, 0), None,
+                          False, pads)
+    assert geo.plan == qconv.plan(2, hp, wp, 32, 3, 3, 64)
+    assert geo.head[:3] == (2, hw, hw) and geo.pads == pads
+    with pytest.raises(ValueError, match="cannot hold"):
+        qconv._geometry("qconv", "qconv2d", xs, ws, (2, hw - 2, hw - 2, 64),
+                        1, (1, 1), None, 0, None, None, (0, 0, 0, 0), None,
+                        False, (0, 0, 0, 1) if any(pads) else (1, 0, 0, 0))
+    with pytest.raises(ValueError, match="pads"):
+        qconv._geometry("qconv", "qconv2d", xs, ws, (2, ho, wo, 64), 1,
+                        (1, 1), None, 0, None, None, (0, 0, 0, 0), None,
+                        False, (-1, 0, 0, 0))
+
+
+def test_the_depthwise_kernel_refuses_pads():
+    """The depthwise kernel stages halo bands of a pre-padded input: its
+    caller pads (``ops.qconv2d_nhwc``), and ``_geometry`` refuses pads."""
+    with pytest.raises(ValueError, match="pads"):
+        qconv._geometry("qdwconv", "qdwconv2d", (1, 8, 8, 16), (3, 3, 1, 16),
+                        (1, 8, 8, 16), 16, (1, 1), None, 0, None, None,
+                        (0, 0, 0, 0), None, False, (1, 1, 1, 1))
+
+
+@pytest.mark.parametrize("pads", [(1, 1, 1, 1), (1, 2, 0, 1)])
+def test_the_cpu_path_pads_before_the_plain_version(pads):
+    """On the CPU ``qconv2d(x, pads=...)`` and its into, grouped and trial
+    forms are the plain version over ``ref.pad_nhwc(x, pads)``; a padded
+    call counts no ``padded_launches``."""
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(sum(pads))
+    x = torch.from_numpy(rng.integers(-128, 128, (4, 7, 7, 8), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (3, 3, 8, 6), dtype=np.int8))
+    wg = torch.from_numpy(rng.integers(-128, 128, (3, 3, 4, 6),
+                                       dtype=np.int8))
+    xp = t_ref.pad_nhwc(x, pads)
+    kw = dict(shift=9, pool=(2, 2))
+    assert torch.equal(qconv.qconv2d(x, w, None, pads=pads, **kw),
+                       qconv.qconv2d_plain(xp, w, None, **kw))
+    buf = torch.zeros((4,) + qconv.qconv2d_plain(xp, w, None, **kw)
+                      .shape[1:3] + (9,), dtype=torch.int8)
+    assert torch.equal(
+        qconv.qconv2d(x, w, None, pads=pads, out_buf=buf.clone(), out_off=3,
+                      **kw),
+        qconv.qconv2d_plain(xp, w, None, out_buf=buf.clone(), out_off=3,
+                            **kw))
+    assert torch.equal(qconv.qgconv2d(x, wg, None, groups=2, pads=pads, **kw),
+                       qconv.qconv2d_plain(xp, wg, None, groups=2, **kw))
+    ws = torch.stack([w, w.flip(0)])
+    assert torch.equal(qconv.qconv2d_trials(x, ws, None, pads=pads, **kw),
+                       t_ref.qconv2d_trials_ref(xp, ws, None, **kw))
+    wgs = torch.stack([wg, -wg.clamp_min(-127)])
+    assert torch.equal(
+        qconv.qgconv2d_trials(x, wgs, None, groups=2, pads=pads, **kw),
+        t_ref.qconv2d_trials_ref(xp, wgs, None, groups=2, **kw))
+    assert qconv.padded_launches == {"16": 0, "4": 0, "narrow": 0}
 
 
 def _strip_staged(qm):
