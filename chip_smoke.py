@@ -520,6 +520,13 @@ def conv_kind(c):
     return "qconv2d", qconv.qconv2d, qconv.qconv2d_plain
 
 
+def padded_hw(x, kw) -> tuple:
+    """The height and width of a conv call's input with its ``pads``: the
+    wrappers take the unpadded input and the pads."""
+    pt, pl, pb, pr = kw.get("pads", (0, 0, 0, 0))
+    return x.shape[1] + pt + pb, x.shape[2] + pl + pr
+
+
 def conv_plan(name, x, w, kw):
     """A conv call's plan as a dict: the dense/grouped kernel's tile
     width and K split, or the depthwise kernel's band (output rows,
@@ -527,14 +534,19 @@ def conv_plan(name, x, w, kw):
     from repro_torch.kernels import qconv, qgemm
     if name.startswith("qdwconv2d"):
         pool = kw.get("pool")
-        pl = qconv.dw_plan(*x.shape, w.shape[0], w.shape[1], w.shape[3],
+        pl = qconv.dw_plan(x.shape[0], *padded_hw(x, kw), x.shape[3],
+                           w.shape[0], w.shape[1], w.shape[3],
                            tuple(kw["strides"]),
                            None if pool is None else tuple(pool),
                            qgemm.sms_of(x.device.index))
         return dict(rp=pl.rp, cp=pl.cp, cb=pl.cb,
                     blocks=x.shape[0] * pl.blocks_per_image, smem=pl.smem)
     groups = x.shape[-1] // w.shape[2]
-    pl = qconv.plan_of(x, w, kw["strides"], kw.get("pool"), groups)
+    pool = kw.get("pool")
+    pl = qconv.plan(x.shape[0], *padded_hw(x, kw), x.shape[3], w.shape[0],
+                    w.shape[1], w.shape[3], tuple(kw["strides"]),
+                    None if pool is None else tuple(pool), groups,
+                    qgemm.sms_of(x.device.index))
     return dict(bn=pl.bn, k_pad=pl.k_pad,
                 tiles=pl.tiles, splits=pl.splits, chunk=pl.chunk,
                 blocks=pl.blocks)
@@ -962,7 +974,8 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
             r["ops"] += 2 * m * k * n
         else:
             xx, ww = a[0], a[1]
-            nb, hp, wp, cin = xx.shape
+            nb = xx.shape[0]
+            hp, wp = padded_hw(xx, kw)
             kh, kw_, _, cout = ww.shape
             sh, sw = kw["strides"]
             ho, wo = (hp - kh) // sh + 1, (wp - kw_) // sw + 1
@@ -1889,7 +1902,7 @@ def trial_kernel_checks(torch, dev, run, x, kinds, tag, out,
             nbytes = trials * (m * k + k * cout + m * cout) + 4 * cout
             nops = 2 * trials * m * k * cout
         else:
-            _nb, hp, wp, _cin = x1.shape
+            hp, wp = padded_hw(x1, kw)
             kh, kw_, cin_g, cout = w1.shape
             sh, sw = kw["strides"]
             ho, wo = (hp - kh) // sh + 1, (wp - kw_) // sw + 1

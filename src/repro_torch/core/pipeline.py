@@ -613,8 +613,9 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
     returns ``(logits, timings)`` where ``timings`` is a schedule-order
     list of ``{"stage", "kind", "wall_us"}`` rows (host wall time); an
     optional ``tracer`` (:class:`.telemetry.Tracer`) records each as a
-    span.  Same stage program, same kernels, same logits.  Exclusive
-    with every other hook.
+    span.  It is the forward with a timing ``on_stage``
+    (:func:`_stage_clock`): same stage program, same kernels, same
+    logits.  Exclusive with every other hook.
 
     ``on_stage`` — a callback ``on_stage(stage, kind)`` that the closure
     calls after the ingress (``("ingress", "ingress")``), after each
@@ -837,12 +838,12 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         return varying
 
     def _exec_stages(env: Dict[str, torch.Tensor], weights, payload,
-                     start: int, stop: int, stats, ckpts, tr=None) -> None:
-        """Interpret stages ``[start, stop)`` over a live tensor
+                     start: int, stats, ckpts, tr=None) -> None:
+        """Interpret the stages from ``start`` on over a live tensor
         environment, updating ``env``/``stats``/``ckpts`` in place — the
-        shared core of the forward, replay and stage-timed paths and of
-        their trial forms (``tr``, :class:`_TrialBatch`)."""
-        for idx in range(start, stop):
+        shared core of the forward and replay paths and of their trial
+        forms (``tr``, :class:`_TrialBatch`)."""
+        for idx in range(start, len(stages)):
             ql = stages[idx]
             li = ql.info
             varying = tr is not None and _trial_inputs(ql, env, weights, tr)
@@ -911,8 +912,7 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
              tr=None):
         stats: Dict[str, torch.Tensor] = {}
         ckpts: Dict[str, Dict[str, torch.Tensor]] = {}
-        _exec_stages(env, weights, payload, start, len(stages), stats, ckpts,
-                     tr)
+        _exec_stages(env, weights, payload, start, stats, ckpts, tr)
         logits = _egress(env)
         if tr is not None:
             logits = tr.unfold(logits, out_name in tr.varying)
@@ -929,49 +929,42 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         arrays += list((env or {}).values())
         return _TrialBatch(_trial_count(arrays))
 
-    if stage_timed:
-        run = _make_stage_timed(qm, in_name, _ingress, _exec_stages,
-                                _egress, tracer)
-    elif replay_from is not None:
+    def _entry(trial: bool) -> Callable:
+        """The executor's closure: the forward from the float input, or,
+        with ``replay_from``, the replay from a checkpoint environment;
+        with ``trial``, its trial form (:func:`vmap_trials`)."""
         @torch.no_grad()
-        def run(env: Dict[str, torch.Tensor], *extra):
+        def call(inp, *extra):
             weights, payload = _extra(extra)
-            logits, stats, _ = _run(dict(env), weights, payload,
-                                    replay_from + 1)
-            return _pack(logits, stats, {})
-    else:
-        @torch.no_grad()
-        def run(x_float, *extra):
-            weights, payload = _extra(extra)
-            env: Dict[str, torch.Tensor] = {in_name: _ingress(x_float,
-                                                              payload)}
-            if on_stage is not None:
-                on_stage("ingress", "ingress")
-            logits, stats, ckpts = _run(env, weights, payload, 0)
-            return _pack(logits, stats, ckpts)
-
-    if not stage_timed:
-        if replay_from is not None:
-            @torch.no_grad()
-            def trials(env: Dict[str, torch.Tensor], *extra):
-                weights, payload = _extra(extra)
-                tr = _batch(weights, payload, env)
-                tr.varying.update(env)
-                folded = {k: torch.as_tensor(v, device=dev).reshape(
-                    (-1,) + tuple(v.shape[2:])) for k, v in env.items()}
-                logits, stats, _ = _run(folded, weights, payload,
-                                        replay_from + 1, tr)
-                return _pack(logits, stats, {})
-        else:
-            @torch.no_grad()
-            def trials(x_float, *extra):
-                weights, payload = _extra(extra)
-                tr = _batch(weights, payload)
-                env = {in_name: _ingress(x_float, payload, tr)}
+            tr = None
+            if replay_from is None:
+                if trial:
+                    tr = _batch(weights, payload)
+                env = {in_name: _ingress(inp, payload, tr)}
                 if on_stage is not None:
                     on_stage("ingress", "ingress")
-                return _pack(*_run(env, weights, payload, 0, tr))
-        run.trials = trials
+                start = 0
+            else:
+                env = dict(inp)
+                if trial:
+                    tr = _batch(weights, payload, env)
+                    tr.varying.update(env)
+                    env = {k: torch.as_tensor(v, device=dev).reshape(
+                        (-1,) + tuple(v.shape[2:])) for k, v in env.items()}
+                start = replay_from + 1
+            return _pack(*_run(env, weights, payload, start, tr))
+        return call
+
+    if stage_timed:
+        on_stage, begin = _stage_clock(qm, tracer)
+        forward = _entry(False)
+
+        def run(x_float):
+            timings = begin()
+            return forward(x_float), timings
+    else:
+        run = _entry(False)
+        run.trials = _entry(True)
     run.design_point = (n_i, n_l, block_h)
     return run
 
@@ -1004,55 +997,43 @@ def vmap_trials(ex: Callable) -> Callable:
     return fn
 
 
-def _make_stage_timed(qm: QuantizedModel, in_name: str, ingress: Callable,
-                      exec_stages: Callable, egress: Callable,
-                      tracer) -> Callable:
-    """Assemble the stage-timed executor (``make_executor(
-    stage_timed=True)``): ingress, each DAG stage and egress in schedule
-    order, the device synchronized after each so that each one's host
-    wall time is attributable.  Ingress (quantize + layout) and egress
-    (dequant + softmax) are timed as their own pseudo-stages: real work
-    the plain executor also pays, so the attribution sees all of the
-    wall."""
-    stages = qm.layers
+def _stage_clock(qm: QuantizedModel, tracer) -> Tuple[Callable, Callable]:
+    """The stage-timed executor's clock (``make_executor(
+    stage_timed=True)``): ``begin()`` starts a call's clock and returns
+    its list of rows; the ``on_stage`` callback synchronizes the device
+    and appends ``{"stage", "kind", "wall_us"}``, the host wall time since
+    the previous mark (the first since ``begin()``), so that ingress
+    (quantize + layout), each DAG stage and egress (dequant + softmax)
+    are each attributed their own wall.  An optional ``tracer`` records
+    each row as a span."""
     if qm.device.type == "cuda":
         def sync() -> None:
             torch.cuda.synchronize(qm.device)
     else:
         def sync() -> None:
             pass
+    call: list = []     # the open call's rows, and its previous mark
 
-    @torch.no_grad()
-    def timed(x_float):
-        timings: List[Dict[str, object]] = []
-
-        def _t0():
-            return (time.perf_counter(),
+    def mark() -> None:
+        call[1:] = (time.perf_counter(),
                     tracer.now_us() if tracer is not None else 0.0)
 
-        def _rec(name: str, kind: str, t0, ts_us) -> None:
-            dur_us = (time.perf_counter() - t0) * 1e6
-            timings.append({"stage": name, "kind": kind, "wall_us": dur_us})
-            if tracer is not None:
-                tracer.add_span(name, ts_us, dur_us, cat="stage",
-                                args={"kind": kind, "model": qm.name})
+    def begin() -> List[Dict[str, object]]:
+        call[:] = [[]]
+        mark()
+        return call[0]
 
-        t0, ts = _t0()
-        env: Dict[str, torch.Tensor] = {in_name: ingress(x_float, None)}
+    def on_stage(name: str, kind: str) -> None:
         sync()
-        _rec("ingress", "ingress", t0, ts)
-        for idx, ql in enumerate(stages):
-            t0, ts = _t0()
-            exec_stages(env, None, None, idx, idx + 1, {}, {})
-            sync()
-            _rec(ql.info.name, ql.info.kind, t0, ts)
-        t0, ts = _t0()
-        logits = egress(env)
-        sync()
-        _rec("egress", "egress", t0, ts)
-        return logits, timings
+        rows, t0, ts_us = call
+        dur_us = (time.perf_counter() - t0) * 1e6
+        rows.append({"stage": name, "kind": kind, "wall_us": dur_us})
+        if tracer is not None:
+            tracer.add_span(name, ts_us, dur_us, cat="stage",
+                            args={"kind": kind, "model": qm.name})
+        mark()
 
-    return timed
+    return on_stage, begin
 
 
 def run_int8(qm: QuantizedModel, x_float, n_i: int = 16, n_l: int = 32,

@@ -31,9 +31,10 @@ batch holds T trials of N rows each, trial t's rows against ``w[t]``,
 one launch for all of them; what the JAX package's kernels become under
 ``jax.vmap`` in an SER campaign (``core/pipeline.py:vmap_trials``).
 
-Conv pads are zero (the symmetric quantization zero-point): the dense and
-grouped kernels take them in their gathers, and only the depthwise route
-pads its input here; max-pool pads take INT8_MIN.
+Conv pads are zero (the symmetric quantization zero-point) and go to
+every route's wrapper with the unpadded input: the dense and grouped
+kernels take them in their gathers, and the depthwise wrapper pads its
+kernel's input itself (``qconv._conv``); max-pool pads take INT8_MIN.
 
 Inside :func:`recording`, every entry point of this module notes its
 name and its number of tensor operands: what the static verifier's
@@ -223,28 +224,23 @@ def qconv2d_nhwc(
     _record("qconv2d_nhwc", x, w, b, skip, out_buf, w_k, shift_vec)
     route = conv_route(groups, x.shape[-1], w.shape)
     trials = w.ndim == 5
-    merge_kw = dict(skip=skip, skip_shifts=skip_shifts,
-                    merge_shift=merge_shift, merge_relu=merge_relu,
-                    out_buf=out_buf, out_off=out_off,
-                    concat_shift=concat_shift, concat_relu=concat_relu)
+    x = x.contiguous()
+    kw = dict(strides=strides, pads=pads, shift=shift, relu=relu, pool=pool,
+              shift_vec=shift_vec)
+    if route == "grouped":
+        if skip is not None or out_buf is not None:
+            raise ValueError("merge fusion requires the dense or depthwise "
+                             "conv")
+        fn = _qconv.qgconv2d_trials if trials else _qconv.qgconv2d
+        return fn(x, w, b, groups=groups, w_k=w_k, **kw)
+    kw.update(skip=skip, skip_shifts=skip_shifts, merge_shift=merge_shift,
+              merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
+              concat_shift=concat_shift, concat_relu=concat_relu)
     if route == "depthwise":
         fn = _qconv.qdwconv2d_trials if trials else _qconv.qdwconv2d
-        return fn(ref.pad_nhwc(x, pads).contiguous(), w, b, strides=strides,
-                  shift=shift, relu=relu, pool=pool, shift_vec=shift_vec,
-                  **merge_kw)
-    x = x.contiguous()
-    if route == "dense":
-        fn = _qconv.qconv2d_trials if trials else _qconv.qconv2d
-        return fn(x, w, b, strides=strides, pads=pads, shift=shift,
-                  relu=relu, pool=pool, w_k=w_k, shift_vec=shift_vec,
-                  **merge_kw)
-    if skip is not None or out_buf is not None:
-        raise ValueError("merge fusion requires the dense or depthwise "
-                         "conv")
-    fn = _qconv.qgconv2d_trials if trials else _qconv.qgconv2d
-    return fn(x, w, b, groups=groups, strides=strides, pads=pads,
-              shift=shift, relu=relu, pool=pool, w_k=w_k,
-              shift_vec=shift_vec)
+        return fn(x, w, b, **kw)
+    fn = _qconv.qconv2d_trials if trials else _qconv.qconv2d
+    return fn(x, w, b, w_k=w_k, **kw)
 
 
 def qadd_nhwc(xs, align_shifts, *, shift=0,

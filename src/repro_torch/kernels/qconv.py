@@ -28,8 +28,8 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
   Bound by bytes, and at the main path's sizes by latency: a block
-  stages its band of input rows (halo included) of a pre-padded input
-  (its caller pads it, ``ops.qconv2d_nhwc``) in shared memory and
+  stages its band of input rows (halo included) of a padded input (the
+  wrapper pads ``x`` by ``pads`` before the launch) in shared memory and
   computes runs of output pixels in 4-channel lanes; a fused pool
   reduces the band's conv values in shared memory.  :func:`dw_plan`
   chooses the band.
@@ -48,7 +48,9 @@ integer arguments) is worked out at the first call of each shape
 tensors and launch.
 
 All of them share one epilogue (``csrc/requant.cuh``), in the order
-:func:`qconv2d_plain` spells out.
+:func:`qconv2d_plain` spells out, and one body, :func:`_conv`: the
+choice of plain version or kernel, the depthwise kernel's padded copy,
+the output and the launch count.
 
 Each has a trial form, what the JAX package's kernel becomes under
 ``jax.vmap`` in an SER campaign (``src/repro/core/ser.py:315``):
@@ -269,19 +271,6 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
                 math.ceil(k_tiles / chunk), chunk)
 
 
-def plan_of(x: torch.Tensor, w: torch.Tensor, strides, pool,
-            groups: int) -> Plan:
-    """:func:`plan` of a call, single or trial form (a weight with a
-    leading trial axis), with the SM count of the card it runs on."""
-    trials = w.shape[0] if w.ndim == 5 else 1
-    kh, kw, _cin_g, cout = w.shape[-4:]
-    return plan(x.shape[0] // trials, *x.shape[1:], kh, kw, cout,
-                tuple(strides), None if pool is None else tuple(pool),
-                groups, qgemm.sms_of(x.device.index
-                                     if x.device.type == "cuda" else None),
-                trials)
-
-
 @dataclasses.dataclass(frozen=True)
 class DwPlan:
     """How one depthwise call runs: the band of the output a block owns
@@ -470,10 +459,11 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
                      c_tot % store == 0 and out_off % store == 0)
 
 
-def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
-            skip, skip_shifts, merge_shift, merge_relu, out_off, concat_shift,
-            concat_relu, what: str, trials: bool, w_k=None,
-            shift_vec=None, pads=(0, 0, 0, 0)) -> None:
+def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
+            out_off, w_k, shift_vec, what: str, trials: bool, shift=0,
+            relu: bool = True, skip=None, skip_shifts=(0, 0),
+            merge_shift: int = 0, merge_relu: bool = False,
+            concat_shift: int = 0, concat_relu: bool = False) -> None:
     """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
     dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
     ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
@@ -482,7 +472,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, shift, relu, pool,
     the device's, so a tensor on any device reports a bad operand
     first.  With ``trials`` (the trial form) ``w`` and ``w_k`` carry a
     leading trial axis.  ``pads`` (top, left, bottom, right) are the
-    conv's zeros around the unpadded ``x``, which the gathers take."""
+    conv's zeros around the unpadded ``x``, which the gathers take.  The
+    epilogue's defaults are no skip and no concat step."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
     dev = x.device
@@ -560,24 +551,39 @@ def _out_hw(x, w, strides, pool, pads):
     return max(ho, 0), max(wo, 0)
 
 
-def _run(kernel: str, what: str, x, w, b, *, groups: int,
-         out_buf: Optional[torch.Tensor] = None, out_off: int = 0,
-         trials: bool = False, **kw) -> torch.Tensor:
-    """Launch ``kernel`` on a CUDA tensor into a new (N, OH, OW, Cout)
-    output, or into channels ``[out_off, out_off + Cout)`` of ``out_buf``
-    in place; count the launch under ``what`` (``what + "_trials"`` for
-    the trial form)."""
-    if trials:
-        what += "_trials"
-    if out_buf is None:
-        oh, ow = _out_hw(x, w, kw["strides"], kw["pool"],
-                         kw.get("pads", (0, 0, 0, 0)))
+def _conv(base: str, x, w, b, *, groups: int, trials: bool = False,
+          strides=(1, 1), pads=(0, 0, 0, 0), pool=None,
+          out_buf: Optional[torch.Tensor] = None, out_off: int = 0,
+          w_k: Optional[torch.Tensor] = None,
+          shift_vec: Optional[torch.Tensor] = None,
+          **epilogue) -> torch.Tensor:
+    """The body of every wrapper.  On a CPU tensor, the plain version
+    (:func:`qconv2d_plain`, or :func:`ref.qconv2d_trials_ref` for the
+    trial form; ``w_k`` and ``shift_vec`` unused).  On any other, the
+    kernel of wrapper ``base`` (``"qdwconv2d"``: ``csrc/qdwconv.cu``,
+    over ``x`` padded here, since that kernel reads a padded input;
+    otherwise ``csrc/qconv.cu``, whose gathers take ``pads``) into a new
+    (N, OH, OW, Cout) output, or into channels ``[out_off, out_off +
+    Cout)`` of ``out_buf`` in place; the launch is counted in
+    :data:`launches` under ``base``, plus ``_into`` with ``out_buf``,
+    plus ``_trials`` for the trial form."""
+    if x.device.type == "cpu":
+        plain = ref.qconv2d_trials_ref if trials else qconv2d_plain
+        return plain(x, w, b, groups=groups, strides=strides, pads=pads,
+                     pool=pool, out_buf=out_buf, out_off=out_off, **epilogue)
+    what = (base + ("_into" if out_buf is not None else "")
+            + ("_trials" if trials else ""))
+    dw = base == "qdwconv2d"
+    if dw and any(pads):
+        x, pads = ref.pad_nhwc(x, pads).contiguous(), (0, 0, 0, 0)
+    out = out_buf
+    if out is None:
+        oh, ow = _out_hw(x, w, strides, pool, pads)
         out = torch.empty((x.shape[0], oh, ow, w.shape[-1]),
                           dtype=torch.int8, device=x.device)
-    else:
-        out = out_buf
-    _launch(kernel, x, w, b, out, groups=groups, out_off=out_off, what=what,
-            trials=trials, **kw)
+    _launch("qdwconv" if dw else "qconv", x, w, b, out, groups=groups,
+            strides=strides, pool=pool, pads=pads, out_off=out_off, w_k=w_k,
+            shift_vec=shift_vec, what=what, trials=trials, **epilogue)
     launches[what] += 1
     return out
 
@@ -612,17 +618,12 @@ def qconv2d(
     no padded copy is made.  On a CPU tensor this is the plain version
     (``w_k`` and ``shift_vec`` unused); on a CUDA tensor it launches the
     kernel or raises."""
-    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool, skip=skip,
-               skip_shifts=skip_shifts, merge_shift=merge_shift,
-               merge_relu=merge_relu, concat_shift=concat_shift,
-               concat_relu=concat_relu)
-    if out_buf is not None:
-        return qconv2d_into(x, w, b, out_buf, out_off=out_off, pads=pads,
-                            w_k=w_k, shift_vec=shift_vec, **kw_)
-    if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, pads=pads, **kw_)
-    return _run("qconv", "qconv2d", x, w, b, groups=1, pads=pads, w_k=w_k,
-                shift_vec=shift_vec, **kw_)
+    return _conv("qconv2d", x, w, b, groups=1, strides=strides, pads=pads,
+                 shift=shift, relu=relu, pool=pool, skip=skip,
+                 skip_shifts=skip_shifts, merge_shift=merge_shift,
+                 merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
+                 concat_shift=concat_shift, concat_relu=concat_relu,
+                 w_k=w_k, shift_vec=shift_vec)
 
 
 def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
@@ -636,20 +637,17 @@ def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
     of the shared merge buffer ``out_buf`` (N, OH, OW, C_tot) **in
     place** and returns the buffer.  The other channels are never
     touched."""
-    if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, pads=pads, out_buf=out_buf,
-                             out_off=out_off, **kw)
-    return _run("qconv", "qconv2d_into", x, w, b, groups=1, out_buf=out_buf,
-                out_off=out_off, pads=pads, w_k=w_k, shift_vec=shift_vec,
-                **kw)
+    return _conv("qconv2d", x, w, b, groups=1, pads=pads, out_buf=out_buf,
+                 out_off=out_off, w_k=w_k, shift_vec=shift_vec, **kw)
 
 
 def qdwconv2d(
-    x: torch.Tensor,  # (N, Hp, Wp, Cin) int8, pre-padded (VALID conv)
+    x: torch.Tensor,  # (N, H, W, Cin) int8, unpadded
     w: torch.Tensor,  # (KH, KW, 1, Cout = m·Cin) int8
     b: Optional[torch.Tensor],  # (Cout,) int32
     *,
     strides: Tuple[int, int] = (1, 1),
+    pads: Tuple[int, int, int, int] = (0, 0, 0, 0),  # top, left, bottom, right
     shift=0,         # int | length-Cout tuple (per-channel shift vector)
     relu: bool = True,
     pool: Optional[Tuple[int, int]] = None,
@@ -667,17 +665,16 @@ def qdwconv2d(
     channel c convolves input channel c // m) with the same epilogues as
     :func:`qconv2d`.  With ``out_buf`` its result lands in that buffer's
     channels ``[out_off, out_off + Cout)`` in place (counted as
-    ``qdwconv2d_into``).  On a CPU tensor this is the plain version; on a
-    CUDA tensor it launches the kernel or raises."""
-    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool, skip=skip,
-               skip_shifts=skip_shifts, merge_shift=merge_shift,
-               merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
-               concat_shift=concat_shift, concat_relu=concat_relu)
-    if x.device.type == "cpu":
-        return qdwconv2d_plain(x, w, b, **kw_)
-    what = "qdwconv2d" if out_buf is None else "qdwconv2d_into"
-    return _run("qdwconv", what, x, w, b, groups=x.shape[-1],
-                shift_vec=shift_vec, **kw_)
+    ``qdwconv2d_into``).  ``pads`` are the conv's zeros around ``x``; on
+    a CUDA tensor the kernel reads a padded copy made here.  On a CPU
+    tensor this is the plain version; on a CUDA tensor it launches the
+    kernel or raises."""
+    return _conv("qdwconv2d", x, w, b, groups=x.shape[-1], strides=strides,
+                 pads=pads, shift=shift, relu=relu, pool=pool, skip=skip,
+                 skip_shifts=skip_shifts, merge_shift=merge_shift,
+                 merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
+                 concat_shift=concat_shift, concat_relu=concat_relu,
+                 shift_vec=shift_vec)
 
 
 def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
@@ -690,14 +687,9 @@ def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
     never takes a skip or a concat buffer.  On a CPU tensor this is the
     plain version; on a CUDA tensor it launches the dense kernel, every
     group at once, or raises."""
-    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
-    if x.device.type == "cpu":
-        return qconv2d_plain(x, w, b, groups=groups, pads=pads, **kw_)
-    return _run("qconv", "qgconv2d", x, w, b, groups=groups, pads=pads,
-                skip=None,
-                skip_shifts=(0, 0), merge_shift=0, merge_relu=False,
-                concat_shift=0, concat_relu=False, w_k=w_k,
-                shift_vec=shift_vec, **kw_)
+    return _conv("qgconv2d", x, w, b, groups=groups, strides=strides,
+                 pads=pads, shift=shift, relu=relu, pool=pool, w_k=w_k,
+                 shift_vec=shift_vec)
 
 
 def qconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
@@ -714,32 +706,24 @@ def qconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
     them with ``w[t]``, from one launch.  On a CPU tensor this is the
     plain version :func:`ref.qconv2d_trials_ref`; on a CUDA tensor it
     launches the kernel or raises."""
-    if x.device.type == "cpu":
-        return ref.qconv2d_trials_ref(x, w, b, pads=pads, out_buf=out_buf,
-                                      out_off=out_off, **kw)
-    what = "qconv2d" if out_buf is None else "qconv2d_into"
-    return _run("qconv", what, x, w, b, groups=1, out_buf=out_buf,
-                out_off=out_off, trials=True, pads=pads, w_k=w_k,
-                shift_vec=shift_vec, **_merge(kw))
+    return _conv("qconv2d", x, w, b, groups=1, trials=True, pads=pads,
+                 out_buf=out_buf, out_off=out_off, w_k=w_k,
+                 shift_vec=shift_vec, **kw)
 
 
 def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
-                     out_off: int = 0,
+                     out_off: int = 0, pads=(0, 0, 0, 0),
                      shift_vec: Optional[torch.Tensor] = None,
                      **kw) -> torch.Tensor:
     """The trial form of :func:`qdwconv2d` (its ``out_buf`` form counted
     as ``qdwconv2d_into_trials``): w (T, KH, KW, 1, Cout) one filter
-    image a trial, x of T*N images, trial t's images against ``w[t]``,
-    from one launch.  On a CPU tensor this is the plain version
-    :func:`ref.qdwconv2d_trials_ref`; on a CUDA tensor it launches the
-    kernel or raises."""
-    if x.device.type == "cpu":
-        return ref.qdwconv2d_trials_ref(x, w, b, out_buf=out_buf,
-                                        out_off=out_off, **kw)
-    what = "qdwconv2d" if out_buf is None else "qdwconv2d_into"
-    return _run("qdwconv", what, x, w, b, groups=x.shape[-1],
-                out_buf=out_buf, out_off=out_off, trials=True,
-                shift_vec=shift_vec, **_merge(kw))
+    image a trial, x of T*N images zero-padded by ``pads``, trial t's
+    images against ``w[t]``, from one launch.  On a CPU tensor this is
+    the plain version :func:`ref.qdwconv2d_trials_ref`; on a CUDA tensor
+    it launches the kernel or raises."""
+    return _conv("qdwconv2d", x, w, b, groups=x.shape[-1], trials=True,
+                 pads=pads, out_buf=out_buf, out_off=out_off,
+                 shift_vec=shift_vec, **kw)
 
 
 def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1),
@@ -751,21 +735,9 @@ def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1),
     K_pad)), x of T*N images zero-padded by ``pads``, from one launch.
     On a CPU tensor this is the plain version :func:`ref.qconv2d_trials_ref`
     with ``groups``; on a CUDA tensor it launches the kernel or raises."""
-    kw_ = dict(strides=strides, shift=shift, relu=relu, pool=pool)
-    if x.device.type == "cpu":
-        return ref.qconv2d_trials_ref(x, w, b, groups=groups, pads=pads,
-                                      **kw_)
-    return _run("qconv", "qgconv2d", x, w, b, groups=groups, trials=True,
-                pads=pads, w_k=w_k, shift_vec=shift_vec, **_merge(kw_))
-
-
-def _merge(kw: dict) -> dict:
-    """``kw`` with each epilogue option the caller left out at its
-    default (no skip, no concat step), as :func:`_launch` takes them."""
-    return dict(dict(strides=(1, 1), shift=0, relu=True, pool=None,
-                     skip=None, skip_shifts=(0, 0), merge_shift=0,
-                     merge_relu=False, concat_shift=0, concat_relu=False),
-                **kw)
+    return _conv("qgconv2d", x, w, b, groups=groups, trials=True,
+                 strides=strides, pads=pads, shift=shift, relu=relu,
+                 pool=pool, w_k=w_k, shift_vec=shift_vec)
 
 
 # ------------------------------------ the DSE's row-band working-set model

@@ -22,6 +22,7 @@ from repro_torch.core.synthesis import CNN2Gate
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import qconv as t_qconv
 from repro_torch.kernels import qgemm as t_qgemm
+from repro_torch.kernels import ref as t_ref
 from repro_torch.models import cnn as t_cnn
 
 
@@ -180,6 +181,51 @@ def test_grouped_conv_takes_no_merge():
     with pytest.raises(ValueError, match="merge fusion"):
         t_ops.qconv2d_nhwc(x, w, None, groups=2,
                            skip=torch.zeros((1, 4, 4, 8), dtype=torch.int8))
+
+
+# ----------------------------------------------- pads on every route
+
+#: groups, Cin, Cout of a conv on each of ``ops.conv_route``'s routes
+ROUTES = {"dense": (1, 8, 12), "depthwise": (8, 8, 16), "grouped": (2, 8, 12)}
+
+
+@pytest.mark.parametrize("trials", [None, 3], ids=["single", "trials"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_every_route_takes_the_unpadded_input_and_its_pads(route, trials):
+    """``ops.qconv2d_nhwc`` hands each route's wrapper the unpadded input
+    and the (asymmetric) pads, single and trial form: the result equals
+    the plain version over the same unpadded input and pads, shape
+    included (a second pad would widen it)."""
+    groups, cin, cout = ROUTES[route]
+    rng = np.random.default_rng(len(route) + (trials or 0))
+    lead = () if trials is None else (trials,)
+    x = _t(_i8(rng, ((trials or 1) * 2, 9, 11, cin)))
+    w = _t(_i8(rng, lead + (3, 3, cin // groups, cout)))
+    b = _t(rng.integers(-999, 999, cout).astype(np.int32))
+    assert t_ops.conv_route(groups, cin, w.shape) == route
+    kw = dict(strides=(1, 2), pads=(1, 2, 0, 1), shift=5, relu=True,
+              pool=(2, 2), groups=groups)
+    plain = t_qconv.qconv2d_plain if trials is None \
+        else t_ref.qconv2d_trials_ref
+    want = plain(x, w, b, **kw)
+    assert want.shape == ((trials or 1) * 2, 4, 3, cout)
+    assert torch.equal(t_ops.qconv2d_nhwc(x, w, b, **kw), want)
+
+
+@pytest.mark.parametrize("trials", [None, 3], ids=["single", "trials"])
+def test_the_depthwise_wrapper_pads_its_input(trials):
+    """``qdwconv2d(x, pads=p)`` == ``qdwconv2d(ref.pad_nhwc(x, p))``, and
+    the same for its trial form."""
+    rng = np.random.default_rng(41)
+    lead = () if trials is None else (trials,)
+    x = _t(_i8(rng, ((trials or 1) * 2, 9, 11, 8)))
+    w = _t(_i8(rng, lead + (3, 3, 1, 16)))
+    b = _t(rng.integers(-999, 999, 16).astype(np.int32))
+    fn = t_qconv.qdwconv2d if trials is None else t_qconv.qdwconv2d_trials
+    kw = dict(strides=(2, 1), shift=4, pool=(2, 2))
+    p = (1, 2, 0, 1)
+    assert torch.equal(fn(x, w, b, pads=p, **kw),
+                       fn(t_ref.pad_nhwc(x, p), w, b, **kw))
 
 
 # ------------------------------------------------ the wrappers' checks

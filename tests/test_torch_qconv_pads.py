@@ -216,6 +216,38 @@ def test_asymmetric_pads(card, pads, cin, h):
                lambda xp: qconv.qconv2d_plain(xp, w, b, **kw), cin)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["single", "into", "trials"])
+@pytest.mark.parametrize("pads", [(1, 1, 1, 1), (1, 2, 0, 1)])
+def test_the_depthwise_wrapper_pads_for_its_kernel(card, form, pads):
+    """The depthwise kernel reads a padded copy that its wrapper makes:
+    ``qdwconv2d(x, pads=p)`` (its into and trial forms, and
+    ``ops.qconv2d_nhwc`` on the depthwise route) equals the same call on
+    ``ref.pad_nhwc(x, p)`` and the plain version over ``x`` and ``p``."""
+    trials = 3 if form == "trials" else None
+    x, w, b, shift = _operands(card, 2, 14, 32, 32, 3, groups=32,
+                               trials=trials, seed=sum(pads))
+    kw = dict(shift=shift, pool=(2, 2))
+    fn, plain = qconv.qdwconv2d, qconv.qdwconv2d_plain
+    if trials:
+        fn, plain = qconv.qdwconv2d_trials, ref.qdwconv2d_trials_ref
+    if form == "into":
+        oh = (14 + pads[0] + pads[2] - 2) // 2
+        ow = (14 + pads[1] + pads[3] - 2) // 2
+        buf = torch.full((2, oh, ow, 40), 77, dtype=torch.int8, device=card)
+        kw.update(out_off=4, concat_shift=1)
+
+    def copy(kw):   # a fresh buffer a call
+        return dict(kw, out_buf=buf.clone()) if form == "into" else kw
+
+    got = fn(x, w, b, pads=pads, **copy(kw))
+    assert torch.equal(got, fn(ref.pad_nhwc(x, pads), w, b, **copy(kw)))
+    assert torch.equal(got, plain(x, w, b, pads=pads, **copy(kw)))
+    via_ops = ops.qconv2d_nhwc(x, w, b, pads=pads, groups=32, **copy(kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, via_ops)
+
+
 def _gate(net, dev):
     graph = getattr(cnn, net)(batch=1, seed=0)
     gate = CNN2Gate.from_graph(graph, device=dev)
