@@ -20,7 +20,8 @@ Eleven phases, each printing one JSON line per check:
    stride 3, a 5x5 window, 3x3/2 windows across one-row bands, 20 and
    130 channels, skip, concat buffers), each check printing its plan
    (tile width and K split; the GEMM's wgmma N; the depthwise band); the
-   standalone pools' plain versions on the card equal to the CPU's;
+   standalone max-pool kernel and the average pool's plain version on
+   the card equal to the CPU's plain versions;
 2. VGG-16 at full width (224x224, 1000 classes, 138 M random weights
    from a seed): ``CNN2Gate.from_graph`` -> ``calibrate_quantization`` ->
    ``build``, then serve 8 requests at batch 1 and one batch of 8.  The
@@ -43,7 +44,10 @@ Eleven phases, each printing one JSON line per check:
    (dw-concat), and the two-tower AlexNet (group 2 on convs 2, 4 and 5,
    224x224), each fused and unfused, per-tensor and per-channel: fused
    == unfused and kernel == plain, every AlexNet and googlenet_tiny
-   conv launching the ``wgmma`` kernel, ResNet-18's FC one GEMM launch;
+   conv launching the ``wgmma`` kernel, each conv, FC and standalone
+   max-pool stage one launch of its kernel (ResNet-18: 20, 1 and 1);
+   the max-pool kernel at ResNet-18's batch-512 stage equal to its plain
+   version at each chunk width and timed beside its bound;
    the static verifier and the QV501/QV502 probes clean on the fused
    programs built on the card, the probe seeing each unfused merge.
    Every net of phases 2-4 is also served through ``build("fullflow")``,
@@ -328,8 +332,9 @@ def wrappers():
     """The kernel wrappers the executor and the LM layers call, by name:
     {name: (module, wrapper, plain version)}; the convs' and the GEMM's
     trial forms (an SER campaign's chunk) with the loops of
-    ``kernels/ref.py``."""
-    from repro_torch.kernels import flash_attention as fa, qconv, qgemm, ref
+    ``kernels/ref.py``; the standalone max-pool."""
+    from repro_torch.kernels import flash_attention as fa, pool, qconv
+    from repro_torch.kernels import qgemm, ref
     from repro_torch.kernels import ssd_scan as ssd
     return {"qconv2d": (qconv, qconv.qconv2d, qconv.qconv2d_plain),
             "qdwconv2d": (qconv, qconv.qdwconv2d, qconv.qdwconv2d_plain),
@@ -343,6 +348,7 @@ def wrappers():
                                 ref.qconv2d_trials_ref),
             "qgemm_trials": (qgemm, qgemm.qgemm_trials,
                              ref.qgemm_trials_ref),
+            "maxpool2d": (pool, pool.maxpool2d, ref.maxpool2d_ref),
             "flash_attention": (fa, fa.flash_attention,
                                 fa.flash_attention_plain),
             "ssd_scan": (ssd, ssd.ssd_scan, ssd.ssd_scan_plain)}
@@ -668,11 +674,13 @@ def phase_kernels(torch, dev):
 
 
 def pools_on_the_card(torch, gen, dev) -> None:
-    """The standalone pools run their plain versions on every path; on
-    the card they must equal the same calls on the CPU, at one-channel,
-    ragged and global windows too."""
-    from repro_torch.kernels import ref
+    """The standalone max-pool launches its kernel (``csrc/pool.cu``) and
+    the average pool runs its plain version; on the card each must equal
+    the same call's plain version on the CPU, at one-channel, ragged and
+    global windows too."""
+    from repro_torch.kernels import ops, ref
     bad, n = [], 0
+    launched = ops.launch_counts()["maxpool2d"]
     for c in (1, 3, 17, 64, 130, 520):
         for hw in (5, 13, 56):
             for win, st, pads in ((2, 2, (0, 0, 0, 0)), (3, 2, (0, 0, 0, 0)),
@@ -680,13 +688,66 @@ def pools_on_the_card(torch, gen, dev) -> None:
                 if hw < win:
                     continue
                 x = rand_i8(torch, (3, hw, hw, c), gen, dev)
-                for fn in (ref.maxpool2d_ref, ref.avgpool2d_ref):
+                for fn, plain in ((ops.maxpool2d_nhwc, ref.maxpool2d_ref),
+                                  (ops.avgpool2d_nhwc, ref.avgpool2d_ref)):
                     n += 1
                     if not torch.equal(fn(x, win, st, pads).cpu(),
-                                       fn(x.cpu(), win, st, pads)):
+                                       plain(x.cpu(), win, st, pads)):
                         bad.append((fn.__name__, c, hw, win, st, pads))
-    check("kernels", f"plain_pools_equal_the_cpu_{n}_cases", not bad,
-          failures=bad[:10])
+    launched = ops.launch_counts()["maxpool2d"] - launched
+    check("kernels", f"maxpool_kernel_and_plain_avgpool_equal_the_cpu_{n}"
+          "_cases", not bad and launched == n // 2, failures=bad[:10],
+          maxpool_launches=launched)
+
+
+def pool_record(torch, dev, launches: int) -> dict:
+    """The max-pool kernel's record: ``launches`` from its path's forward;
+    the kernel equal to the plain version at ResNet-18's batch-512 stage
+    (112x112x64, 3x3/2, pads 1), and its time there beside its bound (the
+    input read once, the output written once) and the plain version's.
+    The same stage is also launched at each chunk width the kernel has
+    (16, 4 and 1 bytes, which 64 channels all allow), each output held
+    equal and timed: what a wider chunk buys."""
+    from repro_torch.kernels import _build, pool, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    n, h, c, args = 512, 112, 64, (3, 2, (1, 1, 1, 1))
+    x = rand_i8(torch, (n, h, h, c), gen, dev)
+    y = pool.maxpool2d(x, *args)
+    yp = ref.maxpool2d_ref(x, *args)
+    err = (y.int() - yp.int()).abs().max().item()
+    chunk = pool.chunk_width(c, x.data_ptr(), y.data_ptr())
+    check("resnet18", "maxpool_resnet18_stage_batch512_equals_plain",
+          err == 0, max_abs_err=err, chunk=chunk)
+    lib = _build.load("pool", pool._SIGNATURES)
+    oh = y.shape[1]
+
+    def at(width, out):
+        return lambda: _build.check(lib.maxpool_s8(
+            _build.ptr(x), _build.ptr(out), n, h, h, c, 3, 2, 1, 1, oh, oh,
+            width, _build.stream(dev)), "maxpool2d")
+    by_chunk, bad = {}, []
+    for width in (16, 4, 1):
+        out = torch.empty_like(y)
+        at(width, out)()
+        torch.cuda.synchronize()
+        if not torch.equal(out, yp):
+            bad.append(width)
+        by_chunk[str(width)] = time_ms(torch, at(width, out))
+    check("resnet18", "maxpool_every_chunk_width_equals_plain", not bad,
+          failures=bad, ms_by_chunk=by_chunk)
+    ms = time_ms(torch, lambda: pool.maxpool2d(x, *args))
+    plain_ms = time_ms(torch, lambda: ref.maxpool2d_ref(x, *args))
+    bound_ms = (x.numel() + y.numel()) / card().hbm_bandwidth * 1e3
+    emit(phase="resnet18", what="maxpool_resnet18_stage_batch512",
+         shape=list(x.shape), ms=ms, bound_ms=bound_ms, bound_by="bytes",
+         share_of_bound=bound_ms / ms, plain_ms=plain_ms, library_ms=None,
+         ms_by_chunk=by_chunk, card=card_line())
+    return dict(launches=launches, calls_timed=1, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None,
+                extra=dict(shape=list(x.shape), chunk=chunk,
+                           ms_by_chunk=by_chunk))
 
 
 def sweep(torch, gen, dev, cases: int = 40) -> None:
@@ -819,7 +880,8 @@ KERNEL_OF = {"qconv2d": "qconv_wgmma_kernel",
              "qgconv2d": "qconv_wgmma_kernel",
              "qdwconv2d": "qdwconv_kernel",
              "qdwconv2d_into": "qdwconv_kernel",
-             "qgemm": "qgemm_wgmma_kernel"}
+             "qgemm": "qgemm_wgmma_kernel",
+             "maxpool2d": "maxpool_nhwc_kernel"}
 
 
 def device_kernels(torch, fn, traces: int = 3, attempts: int = 10) -> dict:
@@ -950,7 +1012,10 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
     :func:`gemm_plan`), which its ``timing`` line prints too.
     ``library_ms`` stays
     None: PyTorch has no int8 conv, and ``torch._int_mm`` takes no
-    M <= 16 (see :func:`library_yardstick`)."""
+    M <= 16 (see :func:`library_yardstick`).  A max-pool call counts the
+    bytes it reads and writes, and its plan is its chunk."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pool import chunk_width
     calls: list = []
     with recorded_calls(calls):
         run(x)
@@ -972,6 +1037,11 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
             n = ww.shape[1]
             r["bytes"] += m * k + k * n + 4 * n + m * n
             r["ops"] += 2 * m * k * n
+        elif name == "maxpool2d":
+            xx, window, stride, pads = a
+            oh, ow = ref.out_hw(xx.shape[1], xx.shape[2], window, window,
+                                (stride, stride), pads)
+            r["bytes"] += xx.numel() + xx.shape[0] * oh * ow * xx.shape[3]
         else:
             xx, ww = a[0], a[1]
             nb = xx.shape[0]
@@ -1001,7 +1071,9 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
         plain_ms = (time_ms(torch, lambda: plain[name](*a, **kw),
                             flush=flush) if plain_times else None)
         pl = (gemm_plan(a[0], a[1]) if name == "qgemm"
-              else conv_plan(name, a[0], a[1], kw))
+              else dict(chunk=chunk_width(a[0].shape[-1], a[0].data_ptr(),
+                                          y.data_ptr()))
+              if name == "maxpool2d" else conv_plan(name, a[0], a[1], kw))
         r["plans"].append(pl)
         emit(phase="timing", kernel=name, call=r["calls"],
              batch=int(a[0].shape[0]),
@@ -1402,7 +1474,7 @@ PATH_RECORDS = {"googlenet_tiny": "qconv2d_into",
 
 def phase_paths(torch, dev, records):
     from repro_torch.core.synthesis import CNN2Gate
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, qconv
     from repro_torch.models import cnn
 
     for name, build in (("resnet18", cnn.resnet18),
@@ -1438,12 +1510,17 @@ def phase_paths(torch, dev, records):
             launches = ops.launch_counts()
             n_conv = sum(li.kind == "conv" for li in fused.parsed.layers)
             n_fc = sum(li.kind == "fc" for li in fused.parsed.layers)
-            conv_launches = sum(n for k, n in launches.items()
-                                if k != "qgemm")
+            n_maxpool = sum(li.kind == "pool" and li.pool_type == "max"
+                            for li in fused.parsed.layers)
+            conv_launches = sum(launches[k] for k in qconv.launches)
             check(name, f"{tag}_every_stage_on_a_kernel",
-                  conv_launches == n_conv
-                  and launches["qgemm"] == n_fc, launches=launches,
-                  conv_stages=n_conv, fc_stages=n_fc)
+                  conv_launches == n_conv and launches["qgemm"] == n_fc
+                  and launches["maxpool2d"] == n_maxpool,
+                  launches=launches, conv_stages=n_conv, fc_stages=n_fc,
+                  maxpool_stages=n_maxpool)
+            if name == "resnet18" and not per_channel:
+                records["maxpool2d"] = pool_record(torch, dev,
+                                                   launches["maxpool2d"])
             y_u = unfused.build("emulation")(xs[0])
             with plain_ops():
                 y_fp = run_f(xs[0])
@@ -4412,6 +4489,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:24"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:72"),
+    # the JAX package's standalone pools were plain array ops
+    "maxpool2d": ("src/repro_torch/csrc/pool.cu", None),
 }
 
 

@@ -11,10 +11,12 @@ Two families, as in the JAX package:
 Every op runs where its tensors lie.  On a CUDA tensor the convs
 (dense, depthwise, ragged grouped) and the GEMM launch their
 hand-written kernels (``qconv.qconv2d``, ``qconv.qdwconv2d``,
-``qconv.qgconv2d``, ``qgemm.qgemm``); nothing falls back to a plain
-version.  On a CPU tensor every op runs its plain PyTorch version.
-Merges and standalone pools are plain torch ops on either device, as
-they were plain array ops in the JAX package.  :func:`flash_attention`,
+``qconv.qgconv2d``, ``qgemm.qgemm``), and so does the standalone
+max-pool (``pool.maxpool2d``), though the JAX package's pools were plain
+array ops; nothing falls back to a plain version.  On a CPU tensor every
+op runs its plain PyTorch version.  Merges and the standalone average
+pools are plain torch ops on either device, as they were plain array
+ops in the JAX package.  :func:`flash_attention`,
 the LM layers' ``flash`` attention, launches ``csrc/flash_attention.cu``
 on a CUDA tensor the same way, and :func:`ssd_scan`, every Mamba-2
 layer's scan, launches ``csrc/ssd_scan.cu``.  Neither has a backward, as
@@ -48,13 +50,14 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 from . import flash_attention as _flash
+from . import pool as _pool
 from . import qconv as _qconv
 from . import qgemm as _qgemm
 from . import ref as ref
 from . import ssd_scan as _ssd
 
-_COUNTERS = (_qgemm.launches, _qconv.launches, _flash.launches,
-             _ssd.launches)
+_COUNTERS = (_qgemm.launches, _qconv.launches, _pool.launches,
+             _flash.launches, _ssd.launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -263,9 +266,11 @@ def qconcat_nhwc(xs, align_shifts, *, axis: int = -1,
 def maxpool2d_nhwc(x: torch.Tensor, window: int, stride: int,
                    pads: Tuple[int, int, int, int] = (0, 0, 0, 0)
                    ) -> torch.Tensor:
-    """Standalone int8 NHWC max-pool; pads take INT8_MIN."""
+    """Standalone int8 NHWC max-pool; pads take INT8_MIN.  A CUDA tensor
+    launches the kernel (:func:`pool.maxpool2d`), a CPU tensor runs the
+    plain version."""
     _record("maxpool2d_nhwc", x)
-    return ref.maxpool2d_ref(x, window, stride, pads)
+    return _pool.maxpool2d(x, window, stride, pads)
 
 
 def avgpool2d_nhwc(x: torch.Tensor, window: int, stride: int,

@@ -544,8 +544,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
 def _out_hw(x, w, strides, pool, pads):
     """Output (pooled) height and width; 0 where the window does not fit,
     which :func:`_launch` then rejects."""
-    ho = (x.shape[1] + pads[0] + pads[2] - w.shape[-4]) // strides[0] + 1
-    wo = (x.shape[2] + pads[1] + pads[3] - w.shape[-3]) // strides[1] + 1
+    ho, wo = ref.out_hw(x.shape[1], x.shape[2], w.shape[-4], w.shape[-3],
+                        strides, pads)
     if pool is not None:
         ho, wo = (ho - pool[0]) // pool[1] + 1, (wo - pool[0]) // pool[1] + 1
     return max(ho, 0), max(wo, 0)

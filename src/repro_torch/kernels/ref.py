@@ -233,6 +233,15 @@ def pad_nhwc(x: torch.Tensor, pads, value: int = 0) -> torch.Tensor:
     return F.pad(x, (0, 0, pads[1], pads[3], pads[0], pads[2]), value=value)
 
 
+def out_hw(h: int, w: int, kh: int, kw: int, strides,
+           pads) -> Tuple[int, int]:
+    """Output height and width of a ``kh`` x ``kw`` window at ``strides``
+    over an (h, w) input with ONNX pads (top, left, bottom, right):
+    ONNX's floor rule over the padded input."""
+    return ((h + pads[0] + pads[2] - kh) // strides[0] + 1,
+            (w + pads[1] + pads[3] - kw) // strides[1] + 1)
+
+
 def _windows(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     """The (N, OH, OW, C, window, window) view of every VALID pooling
     window of an NHWC tensor; one reduction over its last two axes is

@@ -17,7 +17,7 @@ from repro_torch.core.parser import parse
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.core.synthesis import CNN2Gate
 from repro_torch.kernels import (_build, capture_info, flash_attention, ops,
-                                 qconv, qgemm, ssd_scan)
+                                 pool, qconv, qgemm, ssd_scan)
 from repro_torch.models import cnn
 from repro_torch.models.model import Model
 
@@ -100,8 +100,8 @@ def _meta(shape, dtype=torch.int8):
 
 def test_no_plain_fallback_off_the_cpu():
     """A tensor that is not on the CPU never reaches a plain version:
-    every wrapper, dense, depthwise, grouped, attention and SSD scan,
-    insists on CUDA."""
+    every wrapper, dense, depthwise, grouped, max-pool, attention and SSD
+    scan, insists on CUDA."""
     x, w = _meta((1, 6, 6, 8)), _meta((3, 3, 8, 8))
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         qconv.qconv2d(x, w, None)
@@ -111,6 +111,8 @@ def test_no_plain_fallback_off_the_cpu():
         ops.qconv2d_nhwc(x, _meta((3, 3, 1, 8)), None, groups=8)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.qconv2d_nhwc(x, _meta((3, 3, 4, 8)), None, groups=2)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        ops.maxpool2d_nhwc(x, 3, 2, (1, 1, 1, 1))
     q, kv = _meta((1, 4, 8, 16), torch.bfloat16), _meta((1, 2, 8, 16),
                                                        torch.bfloat16)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
@@ -145,13 +147,13 @@ def test_launch_counters_count_kernel_launches_only():
               "qdwconv2d_into", "qgconv2d")
     assert ops.launch_counts() == dict(
         {k: 0 for k in single}, **{k + "_trials": 0 for k in single},
-        flash_attention=0, ssd_scan=0)
+        maxpool2d=0, flash_attention=0, ssd_scan=0)
 
 
 def test_kernel_sources_and_build_key():
     srcs = _build.sources()
     assert set(srcs) == {"qgemm", "qconv", "qdwconv", "flash_attention",
-                         "ssd_scan", "capture_info"}
+                         "ssd_scan", "capture_info", "pool"}
     for name in srcs:
         lib = _build._lib_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -169,7 +171,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     sigs = dict(qconv._SIGNATURES, qgemm=qgemm._SIGNATURES,
                 flash_attention=flash_attention._SIGNATURES,
                 ssd_scan=ssd_scan._SIGNATURES,
-                capture_info=capture_info._SIGNATURES)
+                capture_info=capture_info._SIGNATURES,
+                pool=pool._SIGNATURES)
     assert set(sigs) == set(_build.sources())
 
     def ctype(decl):
