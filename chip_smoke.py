@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, each printing one JSON line per check:
+Twelve phases, each printing one JSON line per check:
 
 1. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and hold each kernel bit-exact
@@ -59,6 +59,17 @@ Eleven phases, each printing one JSON line per check:
    ``*_wgmma_kernel``/``qdwconv_kernel`` launch and nothing the plain
    versions launch; VGG-16 and mobilenet_tiny print both executors'
    walls on the same requests;
+4a. mobilenet_v2, MobileNetV2 1.0 at full width (224x224, 1000 classes):
+   the build's 35 clamped stages and 10 fused skips; the fullflow checks
+   of phase 4 on batch-1 requests and a batch of 8; one eager forward at
+   batch 512 launching the dense conv 35 times (18 with a clamp below
+   127, 10 with a skip), the depthwise conv 17 times (each with a clamp,
+   each behind its padded copy) and the GEMM once, its logits equal to
+   the plain path's and each of its 53 kernel calls equal to its plain
+   version; four batch-512 stages (block 2's depthwise /2, block 3's
+   depthwise, block 2's expansion with K 16, block 1's projection with
+   Cout 16, that one also with a clamp) timed beside their bounds
+   and the plain version, in the conv kernels' records;
 4b. flow, the paper's whole flow at full width for AlexNet and VGG-16:
    ``verify()`` clean, ``explore`` on the three boards (BF, and RL with
    seeds 0-2) giving the FPGA model's decisions (AlexNet: no fit, (8, 8),
@@ -1004,6 +1015,47 @@ def fullflow_checks(torch, gate, eager, xs, want, expect, phase, name,
     return full
 
 
+def call_cost(name, a, kw) -> tuple:
+    """(bytes, operations) of one recorded kernel call: a GEMM's or a
+    conv's operands read once and its output written once, and two
+    operations a multiply-add; a max-pool's input and output bytes."""
+    from repro_torch.kernels import ref
+    if name == "qgemm":
+        m, k = a[0].shape
+        n = a[1].shape[1]
+        return m * k + k * n + 4 * n + m * n, 2 * m * k * n
+    if name == "maxpool2d":
+        xx, window, stride, pads = a
+        oh, ow = ref.out_hw(xx.shape[1], xx.shape[2], window, window,
+                            (stride, stride), pads)
+        return xx.numel() + xx.shape[0] * oh * ow * xx.shape[3], 0
+    xx, ww = a[0], a[1]
+    nb = xx.shape[0]
+    hp, wp = padded_hw(xx, kw)
+    kh, kw_, _, cout = ww.shape
+    sh, sw = kw["strides"]
+    ho, wo = (hp - kh) // sh + 1, (wp - kw_) // sw + 1
+    pool = kw.get("pool")
+    oh, ow = ((ho - pool[0]) // pool[1] + 1,
+              (wo - pool[0]) // pool[1] + 1) if pool else (ho, wo)
+    nbytes = xx.numel() + ww.numel() + 4 * cout + nb * oh * ow * cout
+    if kw.get("skip") is not None:
+        nbytes += kw["skip"].numel()
+    # multiply-adds: each output reads KH*KW*(Cin per group)
+    return nbytes, 2 * nb * ho * wo * cout * kh * kw_ * ww.shape[2]
+
+
+def both_sides(torch, kernel, plain, a, kw) -> tuple:
+    """One recorded call through the kernel and through its plain version,
+    the plain side on copies of the tensors (an ``out_buf`` is written in
+    place)."""
+    y = kernel(*a, **kw)
+    yp = plain(*[t.clone() if torch.is_tensor(t) else t for t in a],
+               **{k: (v.clone() if torch.is_tensor(v) else v)
+                  for k, v in kw.items()})
+    return y, yp
+
+
 def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
     """Hold every kernel call one forward makes equal to its plain
     version at that call's shapes and time both (the plain version only
@@ -1014,7 +1066,6 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
     None: PyTorch has no int8 conv, and ``torch._int_mm`` takes no
     M <= 16 (see :func:`library_yardstick`).  A max-pool call counts the
     bytes it reads and writes, and its plan is its chunk."""
-    from repro_torch.kernels import ref
     from repro_torch.kernels.pool import chunk_width
     calls: list = []
     with recorded_calls(calls):
@@ -1031,38 +1082,10 @@ def kernel_records(torch, run, x, launches, dev, phase, plain_times=True):
         r = rec.setdefault(name, dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0,
                                       library_ms=None, calls=0, err=0,
                                       plans=[]))
-        if name == "qgemm":
-            xx, ww = a[0], a[1]
-            m, k = xx.shape
-            n = ww.shape[1]
-            r["bytes"] += m * k + k * n + 4 * n + m * n
-            r["ops"] += 2 * m * k * n
-        elif name == "maxpool2d":
-            xx, window, stride, pads = a
-            oh, ow = ref.out_hw(xx.shape[1], xx.shape[2], window, window,
-                                (stride, stride), pads)
-            r["bytes"] += xx.numel() + xx.shape[0] * oh * ow * xx.shape[3]
-        else:
-            xx, ww = a[0], a[1]
-            nb = xx.shape[0]
-            hp, wp = padded_hw(xx, kw)
-            kh, kw_, _, cout = ww.shape
-            sh, sw = kw["strides"]
-            ho, wo = (hp - kh) // sh + 1, (wp - kw_) // sw + 1
-            pool = kw.get("pool")
-            oh, ow = ((ho - pool[0]) // pool[1] + 1,
-                      (wo - pool[0]) // pool[1] + 1) if pool else (ho, wo)
-            r["bytes"] += (xx.numel() + ww.numel() + 4 * cout
-                           + nb * oh * ow * cout)
-            if kw.get("skip") is not None:
-                r["bytes"] += kw["skip"].numel()
-            # multiply-adds: each output reads KH*KW*(Cin per group)
-            r["ops"] += 2 * nb * ho * wo * cout * kh * kw_ * ww.shape[2]
-        y = kernel[name](*a, **kw)
-        yp = plain[name](*[t.clone() if torch.is_tensor(t) else t
-                           for t in a],
-                         **{k: (v.clone() if torch.is_tensor(v) else v)
-                            for k, v in kw.items()})
+        nbytes, nops = call_cost(name, a, kw)
+        r["bytes"] += nbytes
+        r["ops"] += nops
+        y, yp = both_sides(torch, kernel[name], plain[name], a, kw)
         err = (y.int() - yp.int()).abs().max().item()
         check(phase, f"{name}_call{r['calls']}_equals_plain", err == 0,
               max_abs_err=err)
@@ -1351,6 +1374,138 @@ def phase_mobilenet(torch, dev, records):
             emit(phase="mobilenet", what="qdwconv2d_times",
                  launches=dw["launches"], batch1_ms=dw["ms"],
                  batch1_bound_ms=dw["bound_ms"], **dw["extra"])
+
+
+#: The batch of ``mobilenet_v2.offline_b512``, at which
+#: :func:`phase_mobilenet_v2` holds every kernel call.
+MOBILENET_V2_BATCH = 512
+#: MobileNetV2's batch-512 stages timed beside their bounds: (label,
+#: wrapper, Cin, Cout, stride, input H), each found among the calls of
+#: the eager forward.
+MOBILENET_V2_STAGES = (
+    ("block2_dw_112x96_s2", "qdwconv2d", 96, 96, 2, 112),
+    ("block3_dw_56x144_s1", "qdwconv2d", 144, 144, 1, 56),
+    ("block2_expand_112x16_96", "qconv2d", 16, 96, 1, 112),
+    ("block1_project_112x32_16", "qconv2d", 32, 16, 1, 112),
+)
+
+
+def phase_mobilenet_v2(torch, dev, records):
+    """MobileNetV2 1.0 at full width (224x224, 1000 classes), the net of
+    the ``mobilenet_v2.offline_b512`` cell: the build counters (35
+    clamped stages, 10 fused skips); the fullflow executor on batch-1
+    requests and a batch of 8 (:func:`fullflow_checks`); then one eager
+    forward at the cell's batch of 512, whose launch counts are held
+    (dense conv 35, depthwise 17 each behind its padded copy, GEMM 1; 18
+    dense and 17 depthwise launches clamping below 127, 10 with a skip),
+    whose logits equal the plain path's, and each of whose kernel calls
+    equals its plain version at the call's shapes and epilogue.  Four
+    of those calls (:data:`MOBILENET_V2_STAGES`) are timed beside their
+    bound and the plain version, block 1's projection (Cout 16, linear
+    in the net) also with a clamp (at 96, or at half its largest output
+    where that is lower); their rows go to the dense and
+    depthwise kernels' records."""
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.synthesis import CNN2Gate
+    from repro_torch.kernels import ops, qconv
+    from repro_torch.models import cnn
+
+    phase = "mobilenet_v2"
+    rng = np.random.default_rng(SEED + 3)
+    gate = CNN2Gate.from_graph(cnn.mobilenet_v2(batch=1, seed=SEED))
+    gate.calibrate_quantization(
+        rng.standard_normal((1, 3, 224, 224)).astype(np.float32))
+    reg = tele.get_registry()
+    names = ("build.clipped_stages", "build.fused_skips")
+    before = [reg.counter(n).value for n in names]
+    run = gate.build("emulation")
+    built = [reg.counter(n).value - v for n, v in zip(names, before)]
+    check(phase, "build_counts_35_clamped_stages_10_fused_skips",
+          built == [35, 10], counters=dict(zip(names, built)))
+    expect = {"qconv2d": 35, "qdwconv2d": 17, "qgemm": 1}
+    reqs = [torch.as_tensor(rng.standard_normal((n, 3, 224, 224))
+                            .astype(np.float32), device=dev)
+            for n in (1, 1, 8)]
+    fullflow_checks(torch, gate, run, reqs, [run(x) for x in reqs], expect,
+                    phase, phase)
+
+    x = torch.as_tensor(rng.standard_normal((MOBILENET_V2_BATCH, 3, 224, 224))
+                        .astype(np.float32), device=dev)
+    ops.reset_launch_counts()
+    y = run(x)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    epilogues = dict(qconv.skip_launches)
+    copies = qconv.padded_launches["copy"]
+    check(phase, "batch512_launches",
+          all(launches[k] == v for k, v in expect.items())
+          and epilogues == {"qconv": 10, "qdwconv": 0, "qconv.clip": 18,
+                            "qdwconv.clip": 17} and copies == 17,
+          launches={k: launches[k] for k in expect},
+          skip_launches=epilogues, pad_copies=copies)
+    with plain_ops():
+        yp = run(x)
+    torch.cuda.synchronize()
+    check(phase, "batch512_kernel_path_equals_plain_path",
+          torch.equal(y, yp) and bool(torch.isfinite(y).all()),
+          shape=list(y.shape))
+    del y, yp
+
+    calls: list = []
+    with recorded_calls(calls):
+        run(x)
+    torch.cuda.synchronize()
+    wrap = wrappers()
+    bad = []
+    for i, (name, a, kw) in enumerate(calls):
+        yk, ypl = both_sides(torch, wrap[name][1], wrap[name][2], a, kw)
+        if not torch.equal(yk, ypl):
+            bad.append((i, name, list(a[0].shape), kw.get("hi")))
+    check(phase, "every_call_of_the_batch512_forward_equals_plain",
+          not bad and len(calls) == 53, calls=len(calls), failures=bad[:10],
+          clamped_calls=sum(kw.get("hi", 127) < 127 for _n, _a, kw in calls))
+
+    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
+    rows: dict = {"qconv2d": [], "qdwconv2d": []}
+    for label, name, cin, cout, stride, h in MOBILENET_V2_STAGES:
+        _n, a, kw = next(
+            c for c in calls if c[0] == name and c[1][0].shape[1] == h
+            and c[1][0].shape[-1] == cin and c[1][1].shape[-1] == cout
+            and tuple(c[2]["strides"]) == (stride, stride))
+        variants = [(label, kw)]
+        if kw.get("hi", 127) == 127:
+            # the linear projection with a clamp too: at 96, or at half its
+            # largest output where that stays below 96, so that it acts
+            top = int(wrap[name][2](*a, **kw).max())
+            hi = min(96, max(1, top // 2))
+            variants.append((f"{label}_clamped_{hi}",
+                             dict(kw, relu=True, hi=hi)))
+        for tag, kw_ in variants:
+            _mod, fn, plain = wrap[name]
+            yk, ypl = both_sides(torch, fn, plain, a, kw_)
+            hi = kw_.get("hi", 127)
+            nbytes, nops = call_cost(name, a, kw_)
+            t_bytes = nbytes / card().hbm_bandwidth * 1e3
+            t_ops = nops / card().peak_int8_ops * 1e3
+            row = dict(stage=tag, shape=list(a[0].shape), cout=cout,
+                       stride=stride, relu=bool(kw_["relu"]), hi=hi,
+                       share_at_hi=float((ypl == hi).float().mean()),
+                       ms=time_ms(torch, lambda: fn(*a, **kw_), flush=flush),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations",
+                       plain_ms=time_ms(torch, lambda: plain(*a, **kw_),
+                                        reps=3, flush=flush),
+                       plan=conv_plan(name, a[0], a[1], kw_))
+            check(phase, f"{tag}_batch512_equals_plain",
+                  torch.equal(yk, ypl), **row)
+            rows[name].append(row)
+    check(phase, "the_clamp_acts_in_every_clamped_timed_stage",
+          all(r["share_at_hi"] > 0 for rs in rows.values() for r in rs
+              if r["hi"] < 127))
+    for name, rs in rows.items():
+        if name in records:
+            records[name].setdefault("extra", {})["mobilenet_v2_batch512"] = rs
 
 
 def launch_floor_ms(torch) -> float:
@@ -4513,8 +4668,13 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
     records: dict = {}
+    # mobilenet_v2 runs after paths: run before it, on the H100, paths'
+    # profiler traces lost their first kernel (ResNet-18's forward showed
+    # 35 of 36, one FC call alone none) in two full runs; paths alone, or
+    # right after mobilenet_v2 alone, saw every kernel
     for phase, fn in (("kernels", phase_kernels), ("vgg16", phase_vgg),
                       ("mobilenet", phase_mobilenet), ("paths", phase_paths),
+                      ("mobilenet_v2", phase_mobilenet_v2),
                       ("flow", phase_flow), ("resilience", phase_resilience),
                       ("lm", phase_lm),
                       ("ssm", phase_ssm), ("families", phase_families),

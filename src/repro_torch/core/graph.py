@@ -19,6 +19,7 @@ SUPPORTED_OPS = (
     "MaxPool",
     "AveragePool",
     "Relu",
+    "Clip",  # ReLU-n (Clip with min 0, e.g. ReLU6): fused into a conv
     "Gemm",
     "MatMul",
     "Softmax",
@@ -265,6 +266,7 @@ class Graph:
 
     _shape_softmax = _shape_relu
     _shape_identity = _shape_relu
+    _shape_clip = _shape_relu
 
     def _shape_dropout(self, n: Node, ins):
         return [ins[0]] * max(1, len(n.outputs))

@@ -2,8 +2,8 @@
 
 This is §4.1's parser: it traverses graph nodes in topological order,
 extracts per-layer synthesis information (kernel shape, strides, pads,
-dilations, weights, biases), detects the Relu/Softmax activations that
-follow compute nodes, and fuses Conv→Relu→MaxPool chains into single
+dilations, weights, biases), detects the Relu/Clip/Softmax activations
+that follow compute nodes, and fuses Conv→Relu→MaxPool chains into single
 pipeline stages — the paper's "combination of memory read/write,
 convolution and pooling kernels" (Fig. 6 caption).
 
@@ -69,6 +69,10 @@ class LayerInfo:
     axis: int = 1                       # concat axis (NCHW convention)
     # fused ops
     relu: bool = False
+    # a fused ReLU-n (ONNX Clip with min 0): its real upper bound n, which
+    # pipeline.build_quantized turns into the stage's clamp code
+    # (DESIGN.md, "ReLU-n fixed-point rule"); ``relu`` is set with it
+    clip_max: Optional[float] = None
     softmax: bool = False
     pool: Optional["LayerInfo"] = None  # fused pooling stage
     pool_type: str = "max"              # max | avg (standalone pools)
@@ -306,6 +310,14 @@ def parse(graph: Graph, fuse_skip: bool = True,
         elif node.op_type in ("Relu", "Softmax"):
             raise_if_unfused(graph, node, layers)
             continue
+        elif node.op_type == "Clip":
+            # every Clip the program keeps was fused by _fuse_chain: one
+            # that reaches here has no single conv producer to take it
+            raise GraphValidationError(
+                "Clip cannot be fused into the conv that produces its "
+                "input (it reads the graph input, a tensor with other "
+                "readers, or no conv's output)", node=node.name,
+                tensor=node.inputs[0])
         else:
             continue
         # fuse activation + pool chains greedily (single-consumer only)
@@ -459,12 +471,50 @@ def _merge_layer(graph: Graph, node: Node, kind: str) -> LayerInfo:
     )
 
 
+def _clip_bound(graph: Graph, node: Node) -> float:
+    """The upper bound of a ReLU-n ``Clip`` node: its ``max``, from a
+    scalar initializer input (what exporters write since opset 11) or the
+    ``max`` attribute (opset 6).  Raises GraphValidationError naming the
+    node unless ``min`` is 0 and ``max`` finite and at least 0: the int8
+    epilogue clamps to [0, hi] and nothing else."""
+    bounds = []
+    for k, key in ((1, "min"), (2, "max")):
+        if len(node.inputs) > k and node.inputs[k]:
+            t = node.inputs[k]
+            if t not in graph.initializers:
+                raise GraphValidationError(
+                    f"Clip {key} is not an initializer", node=node.name,
+                    tensor=t)
+            v = np.asarray(graph.initializers[t], np.float64)
+            if v.size != 1:
+                raise GraphValidationError(
+                    f"Clip {key} is not a scalar", node=node.name, tensor=t)
+            bounds.append(float(v.reshape(())))
+        else:
+            v = node.attr(key)
+            bounds.append(None if v is None else float(v))
+    lo, hi = bounds
+    if lo != 0.0:
+        raise GraphValidationError(
+            "Clip min must be 0 (a ReLU-n)", node=node.name,
+            detail=f"min {lo}")
+    if hi is None or not np.isfinite(hi) or hi < 0:
+        raise GraphValidationError(
+            "Clip max must be finite and at least 0", node=node.name,
+            detail=f"max {hi}")
+    return hi
+
+
 def _fuse_chain(graph: Graph, li: LayerInfo, consumed: set) -> None:
-    """Fuse Relu / MaxPool / Softmax that immediately follow ``li``.
+    """Fuse Relu / Clip / MaxPool / Softmax that immediately follow
+    ``li``.
 
     Mirrors the paper's hardware view: the conv kernel has a fused ReLU
     stage, the pool kernel sits behind it on the pipe, and fully-connected
     layers run on the conv kernel with pooling configured pass-through.
+    A ``Clip`` (ReLU-n) fuses into a conv only, as a ReLU with an upper
+    bound (:func:`_clip_bound`; two give the lesser); one behind any other
+    stage, or behind a softmax, raises GraphValidationError.
     """
     cur_out = li.output
     while True:
@@ -477,6 +527,19 @@ def _fuse_chain(graph: Graph, li: LayerInfo, consumed: set) -> None:
         n = consumers[0]
         if n.op_type == "Relu":
             li.relu = True
+            consumed.add(n.name)
+            cur_out = n.outputs[0]
+            li.output = cur_out
+        elif n.op_type == "Clip":
+            if li.kind != CONV or li.softmax:
+                raise GraphValidationError(
+                    f"Clip cannot be fused into the {li.kind} stage "
+                    f"{li.name!r}: only a conv's epilogue clamps (and "
+                    "none after a softmax)", node=n.name, tensor=cur_out)
+            bound = _clip_bound(graph, n)
+            li.relu = True
+            li.clip_max = (bound if li.clip_max is None
+                           else min(li.clip_max, bound))
             consumed.add(n.name)
             cur_out = n.outputs[0]
             li.output = cur_out

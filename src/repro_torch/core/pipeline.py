@@ -40,7 +40,8 @@ from repro_torch.kernels import ops, qconv, qgemm
 from . import parser as P
 from . import telemetry as tele
 from . import verify as V
-from .quantize import INT8_MAX, INT8_MIN, QuantSpec, quantize_weights
+from .quantize import (INT8_MAX, INT8_MIN, QuantSpec, clamp_code,
+                       quantize_weights)
 
 
 @dataclasses.dataclass
@@ -63,6 +64,10 @@ class QuantizedLayer:
     # for an FC, and a per-lane spec's int32 shift vector (conv and FC)
     w_k: Optional[torch.Tensor] = None
     shift_vec: Optional[torch.Tensor] = None
+    # a fused ReLU-n's clamp code (``quantize.clamp_code`` of the conv's
+    # ``clip_max`` at its spec's m_y), 127 without one: the upper end of
+    # the clamp that follows the requant
+    hi: int = INT8_MAX
 
 
 @dataclasses.dataclass
@@ -332,8 +337,10 @@ def build_quantized(model: P.ParsedModel,
                        else None)
                 w_k = stage_kmajor(li, w_q)
                 shift_vec = stage_shift_vec(w_q, spec)
+        hi = (INT8_MAX if li.clip_max is None
+              else clamp_code(li.clip_max, spec.m_y))
         layers.append(QuantizedLayer(li, spec, w_q, b_q, operand_shifts,
-                                     merge_spec, w_k, shift_vec))
+                                     merge_spec, w_k, shift_vec, hi))
     if verify:
         # the deep rules run on the staged program: overflow bounds on
         # the actual int8 weights (no re-quantization), alias/liveness of
@@ -550,7 +557,9 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
     the JAX package, the result is identical for every option.
 
     Conv stages with a folded residual add (``li.merge``) feed the skip
-    operand straight into the kernel epilogue.  Conv stages annotated
+    operand straight into the kernel epilogue; every conv stage passes
+    its clamp code (``ql.hi``, the kernels' ``hi``: a fused ReLU-n's, 127
+    without one).  Conv stages annotated
     for concat fusion (``li.concat``) write their output into a
     channel-offset slice of the merge's shared buffer: the buffer is
     allocated at the first producer (kept in the environment under a
@@ -739,9 +748,9 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
         pool = None
         if li.pool is not None:
             pool = (li.pool.kernel_shape[0], li.pool.strides[0])
-        merge_kw = {}
+        epilogue = {}
         if li.merge is not None:  # residual add in the epilogue
-            merge_kw = dict(skip=env[li.skip_input],
+            epilogue = dict(skip=env[li.skip_input],
                             skip_shifts=ql.operand_shifts,
                             merge_shift=ql.merge_spec.requant_shift,
                             merge_relu=li.merge.relu)
@@ -756,7 +765,7 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
                 nb = env[li.inputs[0]].shape[0]
                 buf = torch.zeros((nb, h_, w_, c_), dtype=torch.int8,
                                   device=dev)
-            merge_kw.update(out_buf=buf, out_off=li.concat_offset,
+            epilogue.update(out_buf=buf, out_off=li.concat_offset,
                             concat_shift=cq.operand_shifts[
                                 cc.inputs.index(li.output)],
                             concat_relu=cc.relu)
@@ -765,7 +774,7 @@ def make_executor(qm: QuantizedModel, n_i: int = 16, n_l: int = 32,
             env[li.inputs[0]], w_q, ql.b_q, strides=li.strides,
             pads=li.pads, shift=ql.spec.requant_shift, relu=li.relu,
             pool=pool, groups=li.group, w_k=w_k,
-            shift_vec=ql.shift_vec, **merge_kw)
+            shift_vec=ql.shift_vec, hi=ql.hi, **epilogue)
 
     def _stage(ql: QuantizedLayer, env: Dict[str, torch.Tensor], weights,
                tr):

@@ -26,6 +26,8 @@ units.  This module implements:
   * ``requant_shift`` — the right-shift that maps int32 accumulators back
     to int8 outputs: shift = m_w + m_x - m_y (per-lane when m_w is a
     vector).
+  * ``clamp_code`` — the int8 code at which a fused ReLU-n (ONNX Clip
+    with min 0, e.g. ReLU6) clamps a stage's output at position m_y.
 """
 from __future__ import annotations
 
@@ -179,6 +181,14 @@ def requantize(acc: np.ndarray, spec: QuantSpec, relu: bool = False) -> np.ndarr
     if relu:
         acc = np.maximum(acc, 0)
     return np.clip(acc, INT8_MIN, INT8_MAX).astype(np.int8)
+
+
+def clamp_code(bound: float, m_y: int, bits: int = 8) -> int:
+    """The ReLU-n fixed-point rule (DESIGN.md): the largest code of a
+    stage's output at position ``m_y`` that a real upper bound ``bound``
+    allows, ``min(2^(bits-1) - 1, floor(bound * 2^m_y))``; the epilogue
+    clamps its requantized value to [0, that code]."""
+    return min((1 << (bits - 1)) - 1, int(np.floor(bound * 2.0 ** m_y)))
 
 
 def best_pow2_exponent(x: np.ndarray, bits: int = 8) -> int:

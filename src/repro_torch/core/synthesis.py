@@ -43,7 +43,7 @@ from . import parser as P
 from . import pipeline as pipe
 from . import telemetry as tele
 from .graph import Graph
-from .quantize import (MAX_SHIFT, QuantSpec, best_pow2_exponent,
+from .quantize import (INT8_MAX, MAX_SHIFT, QuantSpec, best_pow2_exponent,
                        best_pow2_exponents_per_channel)
 from .resources import FPGA_BOARDS, fpga_layer_time_s
 from .spaces import CNNDesignSpace
@@ -478,12 +478,14 @@ class CNN2Gate:
         (``self.compiled`` is None).  ``synthesis_time_s`` records the
         warm-up and capture, or that run.
 
-        Each build adds the stage program's merges and pools to three
-        counters of the process registry: ``build.fused_skips`` (adds
+        Each build adds the stage program's merges, pools and clamps to
+        four counters of the process registry: ``build.fused_skips`` (adds
         folded into a conv's epilogue), ``build.standalone_merges`` (add
         and concat stages that run as their own op; a concat whose
-        producers write its buffer is not one) and
-        ``build.standalone_pools`` (pools that no conv epilogue took).
+        producers write its buffer is not one),
+        ``build.standalone_pools`` (pools that no conv epilogue took) and
+        ``build.clipped_stages`` (stages whose epilogue clamps below 127:
+        a fused ReLU-n, ``QuantizedLayer.hi``).
         """
         if self.quantized is None:
             raise RuntimeError("apply_quantization() or "
@@ -506,6 +508,8 @@ class CNN2Gate:
                 for li in layers))
         reg.counter("build.standalone_pools").inc(
             sum(li.kind == P.POOL for li in layers))
+        reg.counter("build.clipped_stages").inc(
+            sum(ql.hi < INT8_MAX for ql in self.quantized.layers))
 
     def _build(self, mode: str, n_i: int, n_l: int,
                block_h: Optional[int]):

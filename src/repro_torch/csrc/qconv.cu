@@ -10,7 +10,8 @@
 // Semantics, per output channel c of a conv over the NHWC input zero-padded
 // by (pt, pl, pb, pr) rows and columns (ONNX's top, left, bottom, right;
 // strides sh, sw; HWIO weights): v = epilogue(acc, c) (requant.cuh:
-// bias, requant, ReLU, clip, then the skip and concat steps), then
+// bias, requant, the ReLU and clip as one clamp, then the skip and concat
+// steps), then
 // y = max over the pool window of v, and y lands in channels
 // [out_off, out_off + Cout) of an output whose channel stride is c_tot (the
 // shared concat buffer, updated in place; its other channels are never
@@ -716,13 +717,16 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
 // and y (and skip) hold n images: trial t's images against its own weight
 // image.  Returns cudaGetLastError() or the error
 // of encoding the weight's tensor map.
+// `hi` is the upper end of the requant's clamp: 127, or a ReLU-n's clamp
+// code; the wrapper holds it in [0, 127].
 extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
                         const void* shift_vec, const void* skip, void* y,
                         int n, int h, int w, int cin, int kh, int kw,
                         int cout, int sh, int sw, int pw, int ps, int shift,
-                        int relu, int a_conv, int a_skip, int merge_shift,
-                        int merge_relu, int concat_shift, int concat_relu,
-                        int c_tot, int out_off, int groups, int bn,
+                        int relu, int hi, int a_conv, int a_skip,
+                        int merge_shift, int merge_relu, int concat_shift,
+                        int concat_relu, int c_tot, int out_off, int groups,
+                        int bn,
                         int k_pad, int splits, int chunk, int mode, int wide,
                         int trials, int pt, int pl, int pb, int pr,
                         void* stream) {
@@ -738,7 +742,7 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   a.ep.bias = static_cast<const int32_t*>(bias);
   a.ep.shift_vec = static_cast<const int32_t*>(shift_vec);
   a.ep.skip = static_cast<const int8_t*>(skip);
-  a.ep.shift = shift; a.ep.relu = relu;
+  a.ep.shift = shift; a.ep.lo = relu ? 0 : -128; a.ep.hi = hi;
   a.ep.a_conv = a_conv; a.ep.a_skip = a_skip;
   a.ep.merge_shift = merge_shift; a.ep.merge_relu = merge_relu;
   a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;

@@ -368,14 +368,17 @@ int launch(const DwArgs& a, cudaStream_t st) {
 // image i of the n reads image i / (n / T).  Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a plan outside those ranges, a T that does
 // not divide n, or over kMaxSmem bytes of shared memory.
+// `hi` is the upper end of the requant's clamp: 127, or a ReLU-n's clamp
+// code; the wrapper holds it in [0, 127].
 extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
                           const void* shift_vec, const void* skip, void* y,
                           int n, int hp, int wp, int cin, int kh, int kw,
                           int cout, int sh, int sw, int pw, int ps, int shift,
-                          int relu, int a_conv, int a_skip, int merge_shift,
-                          int merge_relu, int concat_shift, int concat_relu,
-                          int c_tot, int out_off, int rp, int cp, int cb,
-                          int mode, int wide, int trials, void* stream) {
+                          int relu, int hi, int a_conv, int a_skip,
+                          int merge_shift, int merge_relu, int concat_shift,
+                          int concat_relu, int c_tot, int out_off, int rp,
+                          int cp, int cb, int mode, int wide, int trials,
+                          void* stream) {
   DwArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
@@ -383,7 +386,7 @@ extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
   a.ep.bias = static_cast<const int32_t*>(bias);
   a.ep.shift_vec = static_cast<const int32_t*>(shift_vec);
   a.ep.skip = static_cast<const int8_t*>(skip);
-  a.ep.shift = shift; a.ep.relu = relu;
+  a.ep.shift = shift; a.ep.lo = relu ? 0 : -128; a.ep.hi = hi;
   a.ep.a_conv = a_conv; a.ep.a_skip = a_skip;
   a.ep.merge_shift = merge_shift; a.ep.merge_relu = merge_relu;
   a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;

@@ -238,7 +238,8 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
     for (int e = 0; e < 4; ++e) {
       if (col + e < a.n) {
         const int32_t out = requant(s4[e], s_bias[4 * q + e],
-                                    s_shift[4 * q + e], a.relu != 0);
+                                    s_shift[4 * q + e], a.relu ? 0 : -128,
+                                    127);
         packed |= static_cast<uint32_t>(static_cast<uint8_t>(out)) << (8 * e);
       }
     }

@@ -206,6 +206,7 @@ def qconv2d_nhwc(
     concat_relu: bool = False,
     w_k: Optional[torch.Tensor] = None,
     shift_vec: Optional[torch.Tensor] = None,
+    hi: int = ref.INT8_MAX,
 ) -> torch.Tensor:
     """Fused conv+requant+ReLU(+skip/concat)+pool.  Returns NHWC int8
     (post-pool when ``pool`` is given), or ``out_buf`` with this conv's
@@ -221,15 +222,17 @@ def qconv2d_nhwc(
     (per-output-channel weight scales).  ``w_k`` (``w`` staged K-major,
     :func:`qconv.stage_kmajor`) and ``shift_vec`` (the per-lane shifts
     staged on the card) are what a built layer made once; without them
-    a CUDA launch stages its own.  A (T, KH, KW, Cin/G, Cout) weight
-    stack (``w_k`` (T, Cout, K_pad)) takes the route's trial form over
-    an input of T*N images."""
+    a CUDA launch stages its own.  ``hi`` is the upper end of the
+    requant's clamp: a fused ReLU-n's clamp code (DESIGN.md, "ReLU-n
+    fixed-point rule"), 127 without one.  A (T, KH, KW, Cin/G, Cout)
+    weight stack (``w_k`` (T, Cout, K_pad)) takes the route's trial form
+    over an input of T*N images."""
     _record("qconv2d_nhwc", x, w, b, skip, out_buf, w_k, shift_vec)
     route = conv_route(groups, x.shape[-1], w.shape)
     trials = w.ndim == 5
     x = x.contiguous()
     kw = dict(strides=strides, pads=pads, shift=shift, relu=relu, pool=pool,
-              shift_vec=shift_vec)
+              shift_vec=shift_vec, hi=hi)
     if route == "grouped":
         if skip is not None or out_buf is not None:
             raise ValueError("merge fusion requires the dense or depthwise "

@@ -104,17 +104,22 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
 #: gather each took: 16- or 4-byte ``cp.async``, or the narrow gather
 #: (Cin/G % 4 != 0, or an input pointer that is not 4-byte aligned).
 gather_launches = {"16": 0, "4": 0, "narrow": 0}
-#: Launches of the dense and grouped kernel that take non-zero pads in their
-#: A gathers, by the gather, as :data:`gather_launches`.
-padded_launches = {"16": 0, "4": 0, "narrow": 0}
-#: Launches of each kernel (``csrc/qconv.cu``, ``csrc/qdwconv.cu``) that
-#: carry a skip operand: a residual add in the epilogue.
-skip_launches = {"qconv": 0, "qdwconv": 0}
+#: Launches of a conv kernel with non-zero pads: the dense and grouped
+#: kernel's, which take them in their A gathers, by the gather as
+#: :data:`gather_launches`; and under ``"copy"`` the depthwise kernel's,
+#: which reads a padded copy that :func:`_conv` makes before the launch.
+padded_launches = {"16": 0, "4": 0, "narrow": 0, "copy": 0}
+#: Launches of each kernel (``csrc/qconv.cu``, ``csrc/qdwconv.cu``) whose
+#: epilogue carries more than requant and ReLU: a skip operand (a residual
+#: add) under the kernel's name, a ReLU-n clamp below 127 under
+#: ``<kernel>.clip``.
+skip_launches = {"qconv": 0, "qdwconv": 0, "qconv.clip": 0,
+                 "qdwconv.clip": 0}
 
 _SIGNATURES = {
-    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 33
+    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 34
               + [ctypes.c_void_p]},
-    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 27
+    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28
                 + [ctypes.c_void_p]},
 }
 
@@ -140,10 +145,12 @@ def qconv2d_plain(
     concat_relu: bool = False,
     w_k: Optional[torch.Tensor] = None,
     shift_vec: Optional[torch.Tensor] = None,
+    hi: int = INT8_MAX,
 ) -> torch.Tensor:
     """The kernels' semantics in plain PyTorch (any device, any
     ``groups``), in the JAX package's ``_band_epilogue`` order: bias →
-    requant → ReLU → clip; with a skip, align both operands → add →
+    requant → ReLU → clip, the clip's upper end ``hi`` (a ReLU-n's clamp
+    code; 127 without one); with a skip, align both operands → add →
     merge requant → merge ReLU → clip; with a concat, the operand's
     alignment and the merge's ReLU; max-pool last.  With ``out_buf`` the
     result is written into its channels ``[out_off, out_off + Cout)``
@@ -151,12 +158,17 @@ def qconv2d_plain(
     ``pads`` first (``ref.pad_nhwc``).  It takes the wrappers' staged
     copies ``w_k`` and ``shift_vec`` and reads ``w`` and ``shift``
     instead."""
+    # the clamp goes to the epilogue only where it clips below 127: the
+    # benchmark's fault test of the fused add (``bench/tests/
+    # test_bench_resnet.py:_no_intermediate_clip``) replaces the epilogue
+    # with one that takes no ``hi``, on a net with no clamp
+    clamp = {"hi": hi} if hi < INT8_MAX else {}
     y = epilogue_plain(ref.int_conv_nhwc(ref.pad_nhwc(x, pads), w, strides,
                                          groups), b,
                        shift=shift, relu=relu, skip=skip,
                        skip_shifts=skip_shifts, merge_shift=merge_shift,
                        merge_relu=merge_relu, concat_shift=concat_shift,
-                       concat_relu=concat_relu)
+                       concat_relu=concat_relu, **clamp)
     if pool is not None:
         y = ref.maxpool2d_ref(y, pool[0], pool[1])
     if out_buf is None:
@@ -169,16 +181,14 @@ def epilogue_plain(acc: torch.Tensor, b: Optional[torch.Tensor], *, shift=0,
                    relu: bool = True, skip: Optional[torch.Tensor] = None,
                    skip_shifts: Tuple[int, int] = (0, 0),
                    merge_shift: int = 0, merge_relu: bool = False,
-                   concat_shift: int = 0,
-                   concat_relu: bool = False) -> torch.Tensor:
+                   concat_shift: int = 0, concat_relu: bool = False,
+                   hi: int = INT8_MAX) -> torch.Tensor:
     """int32 conv sums (..., Cout) -> the int8 values before the pool, in
     :func:`qconv2d_plain`'s order (``csrc/requant.cuh:epilogue``)."""
     if b is not None:
         acc = acc + b.to(torch.int32)
     acc = ref.round_shift(acc, shift)
-    if relu:
-        acc = acc.clamp_min(0)
-    acc = acc.clamp(INT8_MIN, INT8_MAX)
+    acc = acc.clamp(0 if relu else INT8_MIN, hi)
     if skip is not None:
         a_conv, a_skip = skip_shifts
         acc = (ref.round_shift(acc, a_conv)
@@ -463,7 +473,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
             out_off, w_k, shift_vec, what: str, trials: bool, shift=0,
             relu: bool = True, skip=None, skip_shifts=(0, 0),
             merge_shift: int = 0, merge_relu: bool = False,
-            concat_shift: int = 0, concat_relu: bool = False) -> None:
+            concat_shift: int = 0, concat_relu: bool = False,
+            hi: int = INT8_MAX) -> None:
     """Check the operands of a CUDA launch and run ``kernel`` (``"qconv"``,
     dense or grouped, or ``"qdwconv"``) into ``out`` (NHWC, channel stride
     ``out.shape[-1]``).  ``w_k`` is ``w`` staged K-major
@@ -473,7 +484,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
     first.  With ``trials`` (the trial form) ``w`` and ``w_k`` carry a
     leading trial axis.  ``pads`` (top, left, bottom, right) are the
     conv's zeros around the unpadded ``x``, which the gathers take.  The
-    epilogue's defaults are no skip and no concat step."""
+    epilogue's defaults are no skip, no concat step and no clamp below
+    127 (``hi``, a ReLU-n's clamp code, in [0, 127])."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"{what} takes int8 operands, got {x.dtype}, {w.dtype}")
     dev = x.device
@@ -491,6 +503,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
         raise ValueError(f"{what}: bias must be ({w.shape[-1]},) int32")
     if skip is not None and skip.dtype != torch.int8:
         raise ValueError(f"{what}: skip must be int8, got {skip.dtype}")
+    if not 0 <= hi <= INT8_MAX:
+        raise ValueError(f"{what}: hi must lie in [0, 127], got {hi}")
     for t in (x, w, b, skip, out):
         if t is not None and t.device != dev:
             raise ValueError(f"{what}: operands on {t.device} and {dev}")
@@ -509,7 +523,7 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
                          f"{w_k.dtype} {tuple(w_k.shape)} on {w_k.device}")
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or the CPU, not {dev}")
-    args = (*geo.head, s, int(relu), *options[:2], options[2],
+    args = (*geo.head, s, int(relu), int(hi), *options[:2], options[2],
             int(merge_relu), options[3], int(concat_relu), *geo.tail)
     lib = _build.load(kernel, _SIGNATURES[kernel])
     p = _build.ptr
@@ -539,6 +553,8 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
             padded_launches[gather] += 1
     if skip is not None:
         skip_launches[kernel] += 1
+    if hi < INT8_MAX:
+        skip_launches[kernel + ".clip"] += 1
 
 
 def _out_hw(x, w, strides, pool, pads):
@@ -566,7 +582,8 @@ def _conv(base: str, x, w, b, *, groups: int, trials: bool = False,
     (N, OH, OW, Cout) output, or into channels ``[out_off, out_off +
     Cout)`` of ``out_buf`` in place; the launch is counted in
     :data:`launches` under ``base``, plus ``_into`` with ``out_buf``,
-    plus ``_trials`` for the trial form."""
+    plus ``_trials`` for the trial form, and a padded copy in
+    ``padded_launches["copy"]``."""
     if x.device.type == "cpu":
         plain = ref.qconv2d_trials_ref if trials else qconv2d_plain
         return plain(x, w, b, groups=groups, strides=strides, pads=pads,
@@ -574,7 +591,8 @@ def _conv(base: str, x, w, b, *, groups: int, trials: bool = False,
     what = (base + ("_into" if out_buf is not None else "")
             + ("_trials" if trials else ""))
     dw = base == "qdwconv2d"
-    if dw and any(pads):
+    copied = dw and any(pads)
+    if copied:
         x, pads = ref.pad_nhwc(x, pads).contiguous(), (0, 0, 0, 0)
     out = out_buf
     if out is None:
@@ -585,6 +603,7 @@ def _conv(base: str, x, w, b, *, groups: int, trials: bool = False,
             strides=strides, pool=pool, pads=pads, out_off=out_off, w_k=w_k,
             shift_vec=shift_vec, what=what, trials=trials, **epilogue)
     launches[what] += 1
+    padded_launches["copy"] += copied
     return out
 
 
@@ -608,6 +627,7 @@ def qconv2d(
     concat_relu: bool = False,
     w_k: Optional[torch.Tensor] = None,  # w staged K-major (stage_kmajor)
     shift_vec: Optional[torch.Tensor] = None,  # per-lane shifts, staged
+    hi: int = INT8_MAX,  # requant's upper clamp: a ReLU-n's clamp code
 ) -> torch.Tensor:
     """Dense fused int8 conv.  Returns (N, OH, OW, Cout) int8 (post-pool
     when ``pool`` is given); with ``out_buf`` the result lands in that
@@ -623,7 +643,7 @@ def qconv2d(
                  skip_shifts=skip_shifts, merge_shift=merge_shift,
                  merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
                  concat_shift=concat_shift, concat_relu=concat_relu,
-                 w_k=w_k, shift_vec=shift_vec)
+                 w_k=w_k, shift_vec=shift_vec, hi=hi)
 
 
 def qconv2d_into(x, w, b, out_buf: torch.Tensor, *, out_off: int,
@@ -660,6 +680,7 @@ def qdwconv2d(
     concat_shift: int = 0,
     concat_relu: bool = False,
     shift_vec: Optional[torch.Tensor] = None,  # per-lane shifts, staged
+    hi: int = INT8_MAX,  # requant's upper clamp: a ReLU-n's clamp code
 ) -> torch.Tensor:
     """Depthwise fused int8 conv (group == Cin, Cout = m·Cin; output
     channel c convolves input channel c // m) with the same epilogues as
@@ -674,13 +695,14 @@ def qdwconv2d(
                  skip_shifts=skip_shifts, merge_shift=merge_shift,
                  merge_relu=merge_relu, out_buf=out_buf, out_off=out_off,
                  concat_shift=concat_shift, concat_relu=concat_relu,
-                 shift_vec=shift_vec)
+                 shift_vec=shift_vec, hi=hi)
 
 
 def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
              shift=0, relu=True, pool=None,
              w_k: Optional[torch.Tensor] = None,
-             shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+             shift_vec: Optional[torch.Tensor] = None,
+             hi: int = INT8_MAX) -> torch.Tensor:
     """Ragged grouped int8 conv (1 < groups < Cin; HWIO weight
     (KH, KW, Cin/groups, Cout)) with requant, ReLU and the fused
     max-pool, over ``x`` zero-padded by ``pads`` as :func:`qconv2d`; it
@@ -689,7 +711,7 @@ def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
     group at once, or raises."""
     return _conv("qgconv2d", x, w, b, groups=groups, strides=strides,
                  pads=pads, shift=shift, relu=relu, pool=pool, w_k=w_k,
-                 shift_vec=shift_vec)
+                 shift_vec=shift_vec, hi=hi)
 
 
 def qconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
@@ -729,7 +751,8 @@ def qdwconv2d_trials(x, w, b, *, out_buf: Optional[torch.Tensor] = None,
 def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1),
                     pads=(0, 0, 0, 0), shift=0, relu=True, pool=None,
                     w_k: Optional[torch.Tensor] = None,
-                    shift_vec: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    shift_vec: Optional[torch.Tensor] = None,
+                    hi: int = INT8_MAX) -> torch.Tensor:
     """The trial form of :func:`qgconv2d`: w (T, KH, KW, Cin/groups,
     Cout) one weight image a trial (``w_k`` staged K-major, (T, Cout,
     K_pad)), x of T*N images zero-padded by ``pads``, from one launch.
@@ -737,7 +760,7 @@ def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1),
     with ``groups``; on a CUDA tensor it launches the kernel or raises."""
     return _conv("qgconv2d", x, w, b, groups=groups, trials=True,
                  strides=strides, pads=pads, shift=shift, relu=relu,
-                 pool=pool, w_k=w_k, shift_vec=shift_vec)
+                 pool=pool, w_k=w_k, shift_vec=shift_vec, hi=hi)
 
 
 # ------------------------------------ the DSE's row-band working-set model

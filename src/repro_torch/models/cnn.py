@@ -113,6 +113,19 @@ class GraphBuilder:
         self.cur = out
         return self
 
+    def relu6(self) -> "GraphBuilder":
+        """ReLU6 as PyTorch's exporter writes it (opset 11 and later): a
+        ``Clip`` whose min 0 and max 6 are scalar initializers."""
+        name = self._name("Clip")
+        out = name + "_out"
+        self.inits[name + "_min"] = np.asarray(0.0, np.float32)
+        self.inits[name + "_max"] = np.asarray(6.0, np.float32)
+        self.nodes.append(Node("Clip", name,
+                               [self.cur, name + "_min", name + "_max"],
+                               [out]))
+        self.cur = out
+        return self
+
     def maxpool(self, k: int, stride: Optional[int] = None,
                 pad: int = 0) -> "GraphBuilder":
         stride = stride or k
@@ -298,6 +311,42 @@ def mobilenet_tiny(batch: int = 1, num_classes: int = 10, seed: int = 0,
     return b.build()
 
 
+#: MobileNetV2's inverted-residual rows (expansion t, output channels c,
+#: blocks n, first stride s): Sandler et al., arXiv:1801.04381, Table 2
+MOBILENET_V2_BLOCKS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
+                       (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
+                       (6, 320, 1, 1))
+
+
+def mobilenet_v2(batch: int = 1, num_classes: int = 1000, seed: int = 0,
+                 in_hw: int = 224) -> Graph:
+    """MobileNetV2 1.0 (arXiv:1801.04381, Table 2), BN folded: a 3x3/2
+    stem of 32, 17 inverted-residual blocks (a 1x1 expansion by t but
+    where t = 1, a 3x3 depthwise conv of the row's stride, a linear 1x1
+    projection; an add without a ReLU where the stride is 1 and the
+    width holds), a 1x1 head to 1280, GAP and the classifier.  ReLU6
+    (``relu6``) follows the stem, every expansion, every depthwise conv
+    and the head: 35 clamps, 10 adds.  ``in_hw`` shrinks the input for
+    CPU tests (the GAP absorbs what the five stride-2 stages leave)."""
+    b = GraphBuilder("mobilenet_v2", (batch, 3, in_hw, in_hw), seed)
+    b.conv(32, 3, stride=2, pad=1, relu=False).relu6()
+    for t, c, n, s in MOBILENET_V2_BLOCKS:
+        for i in range(n):
+            stride = s if i == 0 else 1
+            skip = b.tap()
+            c_in = skip[1][1]
+            if t != 1:
+                b.conv(c_in * t, 1, relu=False).relu6()
+            b.dwconv(3, stride=stride, pad=1, relu=False).relu6()
+            b.conv(c, 1, relu=False)
+            if stride == 1 and c_in == c:
+                b.add_from(skip, relu=False)
+    b.conv(1280, 1, relu=False).relu6()
+    b.global_avgpool()
+    b.fc(num_classes, relu=False, softmax=True)
+    return b.build()
+
+
 def _inception(b: GraphBuilder, c1: int, c3r: int, c3: int,
                c5r: int, c5: int, cp: int) -> None:
     """GoogLeNet inception module: four parallel branches — 1x1, 1x1→3x3,
@@ -433,6 +482,10 @@ def _float_node(n: Node, env: Dict[str, torch.Tensor]) -> torch.Tensor:
         return summed / (k[0] * k[1])
     if n.op_type == "Relu":
         return F.relu(env[n.inputs[0]])
+    if n.op_type == "Clip":
+        bounds = [env[n.inputs[k]] if len(n.inputs) > k and n.inputs[k]
+                  else n.attr(key) for k, key in ((1, "min"), (2, "max"))]
+        return torch.clamp(env[n.inputs[0]], *bounds)
     if n.op_type == "Softmax":
         return torch.softmax(env[n.inputs[0]], dim=int(n.attr("axis", -1)))
     if n.op_type == "Gemm":

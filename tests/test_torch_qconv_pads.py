@@ -259,9 +259,9 @@ def _gate(net, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("net,want", [
-    ("vgg16", {"16": 12, "4": 0, "narrow": 1}),
-    ("alexnet", {"16": 4, "4": 0, "narrow": 1}),
-    ("resnet18", {"16": 16, "4": 0, "narrow": 1})])
+    ("vgg16", {"16": 12, "4": 0, "narrow": 1, "copy": 0}),
+    ("alexnet", {"16": 4, "4": 0, "narrow": 1, "copy": 0}),
+    ("resnet18", {"16": 16, "4": 0, "narrow": 1, "copy": 0})])
 def test_padded_launches_of_an_eager_forward(card, net, want):
     """Every padded conv launches the kernel on its unpadded input; the
     ResNet-18 projections (1x1, no pads) count under ``gather_launches``

@@ -52,10 +52,12 @@ def test_plain_calls_count_no_skip_launch():
     ops.reset_launch_counts()
     gate, x = _gate("resnet_tiny", "cpu")
     gate.build("emulation")(x)
-    assert qconv.skip_launches == {"qconv": 0, "qdwconv": 0}
+    assert qconv.skip_launches == {"qconv": 0, "qdwconv": 0,
+                                   "qconv.clip": 0, "qdwconv.clip": 0}
     qconv.skip_launches["qconv"] += 2
     ops.reset_launch_counts()
-    assert qconv.skip_launches == {"qconv": 0, "qdwconv": 0}
+    assert qconv.skip_launches == {"qconv": 0, "qdwconv": 0,
+                                   "qconv.clip": 0, "qdwconv.clip": 0}
 
 
 @pytest.mark.cuda
