@@ -64,12 +64,13 @@ Twelve phases, each printing one JSON line per check:
    of phase 4 on batch-1 requests and a batch of 8; one eager forward at
    batch 512 launching the dense conv 35 times (18 with a clamp below
    127, 10 with a skip), the depthwise conv 17 times (each with a clamp,
-   each behind its padded copy) and the GEMM once, its logits equal to
-   the plain path's and each of its 53 kernel calls equal to its plain
-   version; four batch-512 stages (block 2's depthwise /2, block 3's
-   depthwise, block 2's expansion with K 16, block 1's projection with
-   Cout 16, that one also with a clamp) timed beside their bounds
-   and the plain version, in the conv kernels' records;
+   each taking its pads in its band staging) and the GEMM once, its
+   logits equal to the plain path's and each of its 53 kernel calls
+   equal to its plain version; four batch-512 stages (block 2's
+   depthwise /2, block 3's depthwise, block 2's expansion with K 16,
+   block 1's projection with Cout 16, that one also with a clamp) timed
+   beside their bounds and the plain version, in the conv kernels'
+   records;
 4b. flow, the paper's whole flow at full width for AlexNet and VGG-16:
    ``verify()`` clean, ``explore`` on the three boards (BF, and RL with
    seeds 0-2) giving the FPGA model's decisions (AlexNet: no fit, (8, 8),
@@ -1396,7 +1397,7 @@ def phase_mobilenet_v2(torch, dev, records):
     clamped stages, 10 fused skips); the fullflow executor on batch-1
     requests and a batch of 8 (:func:`fullflow_checks`); then one eager
     forward at the cell's batch of 512, whose launch counts are held
-    (dense conv 35, depthwise 17 each behind its padded copy, GEMM 1; 18
+    (dense conv 35, depthwise 17 each taking its pads itself, GEMM 1; 18
     dense and 17 depthwise launches clamping below 127, 10 with a skip),
     whose logits equal the plain path's, and each of whose kernel calls
     equals its plain version at the call's shapes and epilogue.  Four
@@ -1436,13 +1437,13 @@ def phase_mobilenet_v2(torch, dev, records):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     epilogues = dict(qconv.skip_launches)
-    copies = qconv.padded_launches["copy"]
+    padded = qconv.padded_launches["qdwconv"]
     check(phase, "batch512_launches",
           all(launches[k] == v for k, v in expect.items())
           and epilogues == {"qconv": 10, "qdwconv": 0, "qconv.clip": 18,
-                            "qdwconv.clip": 17} and copies == 17,
+                            "qdwconv.clip": 17} and padded == 17,
           launches={k: launches[k] for k in expect},
-          skip_launches=epilogues, pad_copies=copies)
+          skip_launches=epilogues, padded_depthwise_launches=padded)
     with plain_ops():
         yp = run(x)
     torch.cuda.synchronize()

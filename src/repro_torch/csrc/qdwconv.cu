@@ -26,14 +26,18 @@
 //   output channels), planned in kernels/qconv.py:dw_plan so that the grid
 //   comes near one wave.  It stages the band's input rows and columns,
 //   halo included, in shared memory, one channel run a pixel, in one pass
-//   of copies: 16-byte cp.async where the run is aligned (m == 1, Cin a
-//   multiple of 16), 4-byte ones where Cin is a multiple of 4, otherwise
-//   words of 4 channels gathered a byte at a time (and for m > 1, where
-//   the stage holds input channel c / m at column c, so that every later
-//   step reads 4 channels as one word).  The
-//   block's filter taps, biases and shifts go to shared memory beside
-//   them while the copies are in flight: one trip to memory before the
-//   block computes, and none after but the skip operand's.
+//   of copies from the UNPADDED input: a stage pixel that falls in the
+//   conv's zero padding is staged as zeros (a copy of source size 0, or a
+//   zero word), so no padded copy of the input is ever made, and only the
+//   bands at the image's border take that path.  The copies are 16-byte
+//   cp.async where the run is aligned (m == 1, Cin a multiple of 16),
+//   4-byte ones where Cin is a multiple of 4, otherwise words of 4
+//   channels gathered a byte at a time (and for m > 1, where the stage
+//   holds input channel c / m at column c, so that every later step reads
+//   4 channels as one word).  The block's filter taps, biases and shifts
+//   go to shared memory beside them while the copies are in flight: one
+//   trip to memory before the block computes, and none after but the skip
+//   operand's.
 // * A thread computes a run of kRun output pixels along W for 4
 //   consecutive channels (char4 lanes).  At 3x3 stride 1 it holds the
 //   nine taps and each input row's kRun + 2 columns in registers, so every
@@ -68,11 +72,12 @@ constexpr int kMaxSmem = 96 * 1024;
 constexpr int kMaxCb = 32;  // output channels a block (the plan's cap)
 
 struct DwArgs {
-  const int8_t* x;  // (N, Hp, Wp, Cin)
+  const int8_t* x;  // (N, H, W, Cin), unpadded
   const int8_t* w;  // (T, KH, KW, 1, Cout) == (T, KH * KW, Cout)
   int8_t* y;        // (N, OH, OW, c_tot)
   Epilogue ep;
-  int n, hp, wp, cin, kh, kw, cout, m, sh, sw;
+  int n, ih, iw, cin, kh, kw, cout, m, sh, sw;  // ih, iw: x's H and W
+  int pt, pl;       // the conv's top and left zero padding
   int n_trial;      // images of one trial: image i reads filter i / n_trial
   int ho, wo, oh, ow;  // conv and output (pooled) geometry
   int pw, ps;          // pool window and stride; 1, 1 without a pool
@@ -170,22 +175,29 @@ __global__ void __launch_bounds__(kThreads) qdwconv_kernel(DwArgs a) {
   __shared__ int32_t s_bias[kMaxCb], s_shift[kMaxCb];
   const int tid = threadIdx.x;
 
-  // the input band: pixel (r, col) of the stage is input pixel
-  // (cr0 * sh + r, cc0 * sw + col); column cl of it holds input channel
-  // (c0 + cl) / m, zero past Cout
-  const long long row0 =
-      (static_cast<long long>(img) * a.hp + cr0 * a.sh) * a.wp + cc0 * a.sw;
+  // the input band: pixel (r, col) of the stage is pixel (cr0 * sh + r,
+  // cc0 * sw + col) of the padded input, so pixel (iy0 + r, ix0 + col) of
+  // x, and zeros where that lies outside x (the conv's pads); column cl
+  // of it holds input channel (c0 + cl) / m, zero past Cout
+  const int iy0 = cr0 * a.sh - a.pt, ix0 = cc0 * a.sw - a.pl;
+  const int8_t* const x_img =
+      a.x + static_cast<long long>(img) * a.ih * a.iw * a.cin;
+  auto inside = [&](int r, int col) {
+    return static_cast<unsigned>(iy0 + r) < static_cast<unsigned>(a.ih)
+           && static_cast<unsigned>(ix0 + col) < static_cast<unsigned>(a.iw);
+  };
+  auto pixel = [&](int r, int col) {
+    return x_img
+           + (static_cast<long long>(iy0 + r) * a.iw + ix0 + col) * a.cin;
+  };
   if (a.mode > 1) {  // m == 1: channel runs copied as they stand
     const int per_pix = cb / a.mode;
     for (int idx = tid; idx < ri * wi * per_pix; idx += kThreads) {
       const int j = idx % per_pix, pix = idx / per_pix;
       const int r = pix / wi, col = pix - r * wi;
       const int ch = c0 + j * a.mode;
-      const bool in = ch < a.cin;
-      const int8_t* src =
-          in ? a.x + ((row0 + static_cast<long long>(r) * a.wp + col) * a.cin
-                      + ch)
-             : a.x;
+      const bool in = ch < a.cin && inside(r, col);
+      const int8_t* src = in ? pixel(r, col) + ch : a.x;
       const uint32_t dst = smem_u32(xs + pix * cb + j * a.mode);
       if (a.mode == 16) cp_async16(dst, src, in ? 16 : 0);
       else cp_async4(dst, src, in ? 4 : 0);
@@ -196,8 +208,8 @@ __global__ void __launch_bounds__(kThreads) qdwconv_kernel(DwArgs a) {
                  [&](int i) -> uint32_t {
       const int qd = i % quads, pix = i / quads;
       const int r = pix / wi, col = pix - r * wi;
-      const int8_t* const px =
-          a.x + (row0 + static_cast<long long>(r) * a.wp + col) * a.cin;
+      if (!inside(r, col)) return 0u;
+      const int8_t* const px = pixel(r, col);
       uint32_t word = 0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -367,18 +379,22 @@ int launch(const DwArgs& a, cudaStream_t st) {
 // stores.  With `trials` T > 1, w is a stack of T filter images and
 // image i of the n reads image i / (n / T).  Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a plan outside those ranges, a T that does
-// not divide n, or over kMaxSmem bytes of shared memory.
+// not divide n, a negative pad, or over kMaxSmem bytes of shared memory.
+// x is the unpadded (n, ih, iw, cin) input and pt, pl, pb, pr the conv's
+// zero padding (ONNX's top, left, bottom, right): the conv runs over the
+// (ih + pt + pb) x (iw + pl + pr) padded extent, whose pads the band
+// staging takes as zeros.
 // `hi` is the upper end of the requant's clamp: 127, or a ReLU-n's clamp
 // code; the wrapper holds it in [0, 127].
 extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
                           const void* shift_vec, const void* skip, void* y,
-                          int n, int hp, int wp, int cin, int kh, int kw,
+                          int n, int ih, int iw, int cin, int kh, int kw,
                           int cout, int sh, int sw, int pw, int ps, int shift,
                           int relu, int hi, int a_conv, int a_skip,
                           int merge_shift, int merge_relu, int concat_shift,
                           int concat_relu, int c_tot, int out_off, int rp,
                           int cp, int cb, int mode, int wide, int trials,
-                          void* stream) {
+                          int pt, int pl, int pb, int pr, void* stream) {
   DwArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
@@ -390,10 +406,11 @@ extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
   a.ep.a_conv = a_conv; a.ep.a_skip = a_skip;
   a.ep.merge_shift = merge_shift; a.ep.merge_relu = merge_relu;
   a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;
-  a.n = n; a.hp = hp; a.wp = wp; a.cin = cin; a.kh = kh; a.kw = kw;
+  a.n = n; a.ih = ih; a.iw = iw; a.cin = cin; a.kh = kh; a.kw = kw;
   a.cout = cout; a.m = cout / cin; a.sh = sh; a.sw = sw;
-  a.ho = (hp - kh) / sh + 1;
-  a.wo = (wp - kw) / sw + 1;
+  a.pt = pt; a.pl = pl;
+  a.ho = (ih + pt + pb - kh) / sh + 1;
+  a.wo = (iw + pl + pr - kw) / sw + 1;
   a.pw = pw; a.ps = ps;
   a.oh = (a.ho - pw) / ps + 1;
   a.ow = (a.wo - pw) / ps + 1;
@@ -403,7 +420,7 @@ extern "C" int qdwconv_s8(const void* x, const void* w, const void* bias,
   if (trials < 1 || n % trials != 0 || rp < 1 || cp < 1 || cb < 4
       || cb > kMaxCb || cb % 4 != 0
       || (mode != 1 && mode != 4 && mode != 16) || cb % mode != 0
-      || (mode > 1 && a.m != 1))
+      || (mode > 1 && a.m != 1) || pt < 0 || pl < 0 || pb < 0 || pr < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rc = (rp - 1) * ps + pw, wc = (cp - 1) * ps + pw;
   // the plan's shared memory, each part rounded up to 16 bytes

@@ -35,8 +35,9 @@ one launch for all of them; what the JAX package's kernels become under
 
 Conv pads are zero (the symmetric quantization zero-point) and go to
 every route's wrapper with the unpadded input: the dense and grouped
-kernels take them in their gathers, and the depthwise wrapper pads its
-kernel's input itself (``qconv._conv``); max-pool pads take INT8_MIN.
+kernels take them in their gathers, the depthwise kernel in its band
+staging, so no conv input is padded on the card; max-pool pads take
+INT8_MIN.
 
 Inside :func:`recording`, every entry point of this module notes its
 name and its number of tensor operands: what the static verifier's

@@ -28,11 +28,13 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
 * :func:`qdwconv2d` — depthwise conv with channel multiplier m,
   ``csrc/qdwconv.cu``; replaces ``qdwconv2d`` and its ``out_buf`` branch.
   Bound by bytes, and at the main path's sizes by latency: a block
-  stages its band of input rows (halo included) of a padded input (the
-  wrapper pads ``x`` by ``pads`` before the launch) in shared memory and
+  stages its band of input rows (halo included) in shared memory and
   computes runs of output pixels in 4-channel lanes; a fused pool
   reduces the band's conv values in shared memory.  :func:`dw_plan`
-  chooses the band.
+  chooses the band, over the padded extent.  As in the dense kernel,
+  the conv's zero padding is never stored: the staging reads the
+  unpadded input and stages a pixel outside it as zeros, so a padded
+  depthwise conv is one launch.
 * :func:`qgconv2d` — ragged grouped conv, the dense kernel of
   ``csrc/qconv.cu`` with the group on ``gridDim.z``; replaces
   ``qgconv2d`` (``:945``).
@@ -49,8 +51,7 @@ tensors and launch.
 
 All of them share one epilogue (``csrc/requant.cuh``), in the order
 :func:`qconv2d_plain` spells out, and one body, :func:`_conv`: the
-choice of plain version or kernel, the depthwise kernel's padded copy,
-the output and the launch count.
+choice of plain version or kernel, the output and the launch count.
 
 Each has a trial form, what the JAX package's kernel becomes under
 ``jax.vmap`` in an SER campaign (``src/repro/core/ser.py:315``):
@@ -104,11 +105,11 @@ launches = {"qconv2d": 0, "qconv2d_into": 0, "qdwconv2d": 0,
 #: gather each took: 16- or 4-byte ``cp.async``, or the narrow gather
 #: (Cin/G % 4 != 0, or an input pointer that is not 4-byte aligned).
 gather_launches = {"16": 0, "4": 0, "narrow": 0}
-#: Launches of a conv kernel with non-zero pads: the dense and grouped
-#: kernel's, which take them in their A gathers, by the gather as
-#: :data:`gather_launches`; and under ``"copy"`` the depthwise kernel's,
-#: which reads a padded copy that :func:`_conv` makes before the launch.
-padded_launches = {"16": 0, "4": 0, "narrow": 0, "copy": 0}
+#: Launches of a conv kernel with non-zero pads, each of which took its
+#: pads itself and read the unpadded input: the dense and grouped
+#: kernel's, in their A gathers, by the gather as :data:`gather_launches`;
+#: the depthwise kernel's, in its band staging, under ``"qdwconv"``.
+padded_launches = {"16": 0, "4": 0, "narrow": 0, "qdwconv": 0}
 #: Launches of each kernel (``csrc/qconv.cu``, ``csrc/qdwconv.cu``) whose
 #: epilogue carries more than requant and ReLU: a skip operand (a residual
 #: add) under the kernel's name, a ReLU-n clamp below 127 under
@@ -119,7 +120,7 @@ skip_launches = {"qconv": 0, "qdwconv": 0, "qconv.clip": 0,
 _SIGNATURES = {
     "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 34
               + [ctypes.c_void_p]},
-    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28
+    "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 32
                 + [ctypes.c_void_p]},
 }
 
@@ -376,7 +377,7 @@ class _Geometry:
 
     head: tuple      # n, h, w, cin, kh, kw, cout, sh, sw, pw, ps
     tail: tuple      # c_tot, out_off
-    pads: tuple      # top, left, bottom, right: zeros the gathers take
+    pads: tuple      # top, left, bottom, right: zeros the kernel takes
     trials: int      # weight images (1: the single form)
     plan: object     # Plan, or the depthwise kernel's DwPlan
     width: int       # widest input load the channels allow: 16, 4 or 1
@@ -394,8 +395,8 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
     merge_shift, concat_shift) of a launch of ``kernel`` and plan it;
     worked out once for each distinct call and kept.  The trial form's
     weight carries a leading trial axis that divides the batch.  ``xs``
-    is the unpadded input and ``pads`` the zeros around it (dense and
-    grouped kernel only: the depthwise kernel takes a pre-padded input)."""
+    is the unpadded input and ``pads`` the zeros around it, which every
+    kernel takes itself; the plan is made for the padded extent."""
     trials = 1
     if trial_form:
         if len(ws) != 5 or ws[0] < 1 or len(xs) != 4 or xs[0] % ws[0]:
@@ -408,8 +409,7 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
                          f"{tuple(xs)} and {tuple(ws)}")
     n, h, w, cin = xs
     kh, kw, cin_g, cout = ws
-    if len(pads) != 4 or min(pads) < 0 \
-            or (kernel == "qdwconv" and any(pads)):
+    if len(pads) != 4 or min(pads) < 0:
         raise ValueError(f"{what}: pads {tuple(pads)}")
     hp, wp = h + pads[0] + pads[2], w + pads[1] + pads[3]
     if kernel == "qdwconv":
@@ -483,7 +483,7 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
     the device's, so a tensor on any device reports a bad operand
     first.  With ``trials`` (the trial form) ``w`` and ``w_k`` carry a
     leading trial axis.  ``pads`` (top, left, bottom, right) are the
-    conv's zeros around the unpadded ``x``, which the gathers take.  The
+    conv's zeros around the unpadded ``x``, which the kernel takes.  The
     epilogue's defaults are no skip, no concat step and no clamp below
     127 (``hi``, a ReLU-n's clamp code, in [0, 127])."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
@@ -535,7 +535,7 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
     if kernel == "qdwconv":
         err = lib.qdwconv_s8(p(x), p(w), p(b), p(svec), p(skip), p(out),
                              *args, pl.rp, pl.cp, pl.cb, width, wide,
-                             geo.trials, stream)
+                             geo.trials, *geo.pads, stream)
     else:
         if w_k is None:
             w_k = stage_kmajor(w)
@@ -546,11 +546,12 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
                            pl.chunk, width, wide, geo.trials, *geo.pads,
                            stream)
     _build.check(err, what)
+    key = kernel
     if kernel == "qconv":
-        gather = "narrow" if width == 1 else str(width)
-        gather_launches[gather] += 1
-        if any(geo.pads):
-            padded_launches[gather] += 1
+        key = "narrow" if width == 1 else str(width)
+        gather_launches[key] += 1
+    if any(geo.pads):
+        padded_launches[key] += 1
     if skip is not None:
         skip_launches[kernel] += 1
     if hi < INT8_MAX:
@@ -576,34 +577,28 @@ def _conv(base: str, x, w, b, *, groups: int, trials: bool = False,
     """The body of every wrapper.  On a CPU tensor, the plain version
     (:func:`qconv2d_plain`, or :func:`ref.qconv2d_trials_ref` for the
     trial form; ``w_k`` and ``shift_vec`` unused).  On any other, the
-    kernel of wrapper ``base`` (``"qdwconv2d"``: ``csrc/qdwconv.cu``,
-    over ``x`` padded here, since that kernel reads a padded input;
-    otherwise ``csrc/qconv.cu``, whose gathers take ``pads``) into a new
-    (N, OH, OW, Cout) output, or into channels ``[out_off, out_off +
-    Cout)`` of ``out_buf`` in place; the launch is counted in
-    :data:`launches` under ``base``, plus ``_into`` with ``out_buf``,
-    plus ``_trials`` for the trial form, and a padded copy in
-    ``padded_launches["copy"]``."""
+    kernel of wrapper ``base`` (``"qdwconv2d"``: ``csrc/qdwconv.cu``;
+    otherwise ``csrc/qconv.cu``), which takes ``pads`` itself over the
+    unpadded ``x``, into a new (N, OH, OW, Cout) output, or into
+    channels ``[out_off, out_off + Cout)`` of ``out_buf`` in place; the
+    launch is counted in :data:`launches` under ``base``, plus ``_into``
+    with ``out_buf``, plus ``_trials`` for the trial form."""
     if x.device.type == "cpu":
         plain = ref.qconv2d_trials_ref if trials else qconv2d_plain
         return plain(x, w, b, groups=groups, strides=strides, pads=pads,
                      pool=pool, out_buf=out_buf, out_off=out_off, **epilogue)
     what = (base + ("_into" if out_buf is not None else "")
             + ("_trials" if trials else ""))
-    dw = base == "qdwconv2d"
-    copied = dw and any(pads)
-    if copied:
-        x, pads = ref.pad_nhwc(x, pads).contiguous(), (0, 0, 0, 0)
     out = out_buf
     if out is None:
         oh, ow = _out_hw(x, w, strides, pool, pads)
         out = torch.empty((x.shape[0], oh, ow, w.shape[-1]),
                           dtype=torch.int8, device=x.device)
-    _launch("qdwconv" if dw else "qconv", x, w, b, out, groups=groups,
-            strides=strides, pool=pool, pads=pads, out_off=out_off, w_k=w_k,
-            shift_vec=shift_vec, what=what, trials=trials, **epilogue)
+    _launch("qdwconv" if base == "qdwconv2d" else "qconv", x, w, b, out,
+            groups=groups, strides=strides, pool=pool, pads=pads,
+            out_off=out_off, w_k=w_k, shift_vec=shift_vec, what=what,
+            trials=trials, **epilogue)
     launches[what] += 1
-    padded_launches["copy"] += copied
     return out
 
 
@@ -686,8 +681,8 @@ def qdwconv2d(
     channel c convolves input channel c // m) with the same epilogues as
     :func:`qconv2d`.  With ``out_buf`` its result lands in that buffer's
     channels ``[out_off, out_off + Cout)`` in place (counted as
-    ``qdwconv2d_into``).  ``pads`` are the conv's zeros around ``x``; on
-    a CUDA tensor the kernel reads a padded copy made here.  On a CPU
+    ``qdwconv2d_into``).  ``pads`` are the conv's zeros around ``x``: the
+    kernel's band staging takes them, and no padded copy is made.  On a CPU
     tensor this is the plain version; on a CUDA tensor it launches the
     kernel or raises."""
     return _conv("qdwconv2d", x, w, b, groups=x.shape[-1], strides=strides,

@@ -3,7 +3,8 @@
 ``csrc/qdwconv.cu`` cannot run here, so this file holds an integer model
 of what it computes, block by block, against the plain version and the
 JAX package's oracles: each block of ``qconv.dw_plan`` stages its band
-of input rows and columns, halo included, with column ``cl`` holding
+of input rows and columns, halo included, from the unpadded input, a
+pixel in the conv's pads as zeros, with column ``cl`` holding
 input channel ``(c0 + cl) // m`` (zero past Cout); it computes the
 band's conv values in 4-channel lanes over runs of ``DW_RUN`` output
 columns; the epilogue (``qconv.epilogue_plain``) runs on them; a fused
@@ -23,15 +24,19 @@ import torch
 
 from repro.kernels import ref as r_ref
 from repro_torch.kernels import qconv
+from repro_torch.kernels import ref as t_ref
 
 
-def band_model(x, w, b, *, strides=(1, 1), shift=0, relu=True, pool=None,
-               skip=None, skip_shifts=(0, 0), merge_shift=0,
-               merge_relu=False, out_buf=None, out_off=0, concat_shift=0,
-               concat_relu=False, sms=qconv.H100_SMS,
+def band_model(x, w, b, *, strides=(1, 1), pads=(0, 0, 0, 0), shift=0,
+               relu=True, pool=None, skip=None, skip_shifts=(0, 0),
+               merge_shift=0, merge_relu=False, out_buf=None, out_off=0,
+               concat_shift=0, concat_relu=False, sms=qconv.H100_SMS,
                smem_cap=qconv.DW_SMEM):
-    """What the depthwise kernel computes, block by block."""
-    n, hp, wp, cin = x.shape
+    """What the depthwise kernel computes, block by block, over the
+    unpadded ``x`` and the conv's ``pads`` (top, left, bottom, right)."""
+    n, h, wd, cin = x.shape
+    pt, pl_, pb, pr = pads
+    hp, wp = h + pt + pb, wd + pl_ + pr
     kh, kw, _, cout = w.shape
     m = cout // cin
     sh, sw = strides
@@ -58,30 +63,34 @@ def band_model(x, w, b, *, strides=(1, 1), shift=0, relu=True, pool=None,
                     ri, wi = (rc - 1) * sh + kh, (wc - 1) * sw + kw
                     cr0, cc0 = p0 * ps, q0 * ps
                     chans = [c for c in range(c0, c0 + pl.cb) if c < cout]
-                    # the stage: input channel c // m at column c - c0
+                    # the stage: padded-input pixel (cr0*sh + r, cc0*sw +
+                    # col) is pixel (iy, ix) of x, zeros outside x; input
+                    # channel c // m at column c - c0
+                    iy = torch.arange(ri) + cr0 * sh - pt
+                    ix = torch.arange(wi) + cc0 * sw - pl_
+                    ry = ((iy >= 0) & (iy < h)).nonzero()[:, 0]
+                    rx = ((ix >= 0) & (ix < wd)).nonzero()[:, 0]
                     band = torch.zeros((ri, wi, pl.cb), dtype=torch.int64)
-                    band[..., :len(chans)] = xf[
-                        img, cr0 * sh:cr0 * sh + ri, cc0 * sw:cc0 * sw + wi,
-                        [c // m for c in chans]]
+                    band[ry[:, None], rx[None, :], :len(chans)] = xf[
+                        img][iy[ry][:, None], ix[rx][None, :]][
+                        ..., [c // m for c in chans]]
                     taps = torch.zeros((kh, kw, pl.cb), dtype=torch.int64)
                     taps[..., :len(chans)] = wf[:, :, 0, c0:c0 + len(chans)]
                     conv = torch.zeros((rc, wc, pl.cb), dtype=torch.int64)
-                    # 4-channel lanes, runs of DW_RUN conv columns
-                    runs = math.ceil(wc / qconv.DW_RUN)
+                    # 4-channel lanes; the kernel's runs of DW_RUN conv
+                    # columns split the band's columns among its threads,
+                    # and each column's sums read that column's taps
+                    # alone, so the model sums every column at once
                     for qd in range(pl.cb // 4):
                         if c0 + 4 * qd >= cout:
                             continue
                         ln = slice(4 * qd, 4 * qd + 4)
-                        for run in range(runs):
-                            cols = range(run * qconv.DW_RUN,
-                                         min(wc, (run + 1) * qconv.DW_RUN))
-                            for col in cols:
-                                for i in range(kh):
-                                    for j in range(kw):
-                                        conv[:, col, ln] += (
-                                            band[i:i + (rc - 1) * sh + 1:sh,
-                                                 col * sw + j, ln]
-                                            * taps[i, j, ln])
+                        for i in range(kh):
+                            for j in range(kw):
+                                conv[..., ln] += (
+                                    band[i:i + (rc - 1) * sh + 1:sh,
+                                         j:j + (wc - 1) * sw + 1:sw, ln]
+                                    * taps[i, j, ln])
                     assert conv.abs().max() < 2 ** 31
                     sl = slice(c0, c0 + len(chans))
                     kw_ = dict(relu=relu, merge_shift=merge_shift,
@@ -114,10 +123,18 @@ def band_model(x, w, b, *, strides=(1, 1), shift=0, relu=True, pool=None,
 
 
 def _case(c, seed):
+    """Seeded operands of case ``c``.  Without ``pads`` in it, x is the
+    padded input itself (``p`` a side); with them, x is unpadded and
+    ``pads`` go to the call."""
     rng = np.random.default_rng(seed)
-    hp = c["h"] + 2 * c.get("p", 1)
+    pads = c.get("pads")
+    if pads is None:
+        hp = wp = xh = c["h"] + 2 * c.get("p", 1)
+    else:
+        xh = c["h"]
+        hp, wp = xh + pads[0] + pads[2], xh + pads[1] + pads[3]
     cout = c["cin"] * c.get("m", 1)
-    x = torch.from_numpy(rng.integers(-128, 128, (c["n"], hp, hp, c["cin"]),
+    x = torch.from_numpy(rng.integers(-128, 128, (c["n"], xh, xh, c["cin"]),
                                       dtype=np.int8))
     w = torch.from_numpy(rng.integers(-128, 128, (c["k"], c["k"], 1, cout),
                                       dtype=np.int8))
@@ -129,10 +146,13 @@ def _case(c, seed):
              if c.get("per_lane") else base)
     kw = dict(strides=(c.get("s", 1),) * 2, shift=shift,
               relu=c.get("relu", True), pool=c.get("pool"))
+    if pads is not None:
+        kw.update(pads=pads)
     if c.get("skip"):
         ho = (hp - c["k"]) // c.get("s", 1) + 1
+        wo = (wp - c["k"]) // c.get("s", 1) + 1
         kw.update(skip=torch.from_numpy(rng.integers(
-            -128, 128, (c["n"], ho, ho, cout), dtype=np.int8)),
+            -128, 128, (c["n"], ho, wo, cout), dtype=np.int8)),
             skip_shifts=(1, 0), merge_shift=1, merge_relu=True)
     return x, w, b, kw
 
@@ -173,6 +193,50 @@ def test_band_model_equals_the_plain_version(case, sms):
     x, w, b, kw = _case(case, seed=len(case["name"]))
     got = band_model(x, w, b, sms=sms, **kw)
     want = qconv.qdwconv2d_plain(x, w, b, **kw)
+    assert torch.equal(got, want)
+
+
+# MobileNetV2's depthwise convs, 3x3 with pad 1: (H, C, stride) of each
+# distinct shape of its 17 at 224x224; then asymmetric pads, pads on
+# each staging (16- and 4-byte copies, m > 1's byte gather), several rows
+# a band (sms 3), a fused pool, a skip and a 5x5 window
+MOBILENET_V2_DW = ((112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2),
+                   (28, 192, 1), (28, 192, 2), (14, 384, 1), (14, 576, 1),
+                   (14, 576, 2), (7, 960, 1))
+PADDED_CASES = (
+    [dict(name=f"mobilenet_v2_{h}x{c}_s{s}", n=1 if h > 28 else 2, h=h,
+          cin=c, k=3, s=s, pads=(1, 1, 1, 1), relu=True)
+     for h, c, s in MOBILENET_V2_DW]
+    + [dict(name="asym_1201", n=2, h=9, cin=16, k=3, pads=(1, 2, 0, 1)),
+       dict(name="asym_1201_s2_sms3", n=2, h=10, cin=32, k=3, s=2,
+            pads=(1, 2, 0, 1), sms=3),
+       dict(name="asym_0031_c20_sms1", n=1, h=8, cin=20, k=3,
+            pads=(0, 0, 3, 1), per_lane=True, sms=1),
+       dict(name="m2_byte_gather", n=2, h=9, cin=12, m=2, k=3,
+            pads=(1, 1, 1, 1)),
+       dict(name="m3_c5_s2_asym", n=1, h=11, cin=5, m=3, k=3, s=2,
+            pads=(1, 2, 0, 1)),
+       dict(name="pool2s2_sms3", n=2, h=10, cin=32, k=3, pool=(2, 2),
+            pads=(1, 1, 1, 1), sms=3),
+       dict(name="m2_pool3s2_asym", n=1, h=11, cin=16, m=2, k=3,
+            pool=(3, 2), pads=(1, 2, 0, 1), per_lane=True),
+       dict(name="c130_skip_pool2s2", n=1, h=8, cin=130, k=3, skip=True,
+            pool=(2, 2), pads=(1, 1, 1, 1), relu=False),
+       dict(name="k5_p2_sms3", n=1, h=9, cin=24, k=5, pads=(2, 2, 2, 2),
+            sms=3)])
+
+
+@pytest.mark.parametrize("case", PADDED_CASES,
+                         ids=[c["name"] for c in PADDED_CASES])
+def test_the_padded_band_staging_equals_the_plain_version(case):
+    """The kernel's band staging takes the conv's pads: the model over
+    the unpadded x and ``pads`` equals the plain version over
+    ``ref.pad_nhwc(x, pads)``, so no padded copy is needed."""
+    x, w, b, kw = _case(case, seed=len(case["name"]) + 3)
+    pads = kw.pop("pads")
+    got = band_model(x, w, b, pads=pads, sms=case.get("sms", qconv.H100_SMS),
+                     **kw)
+    want = qconv.qdwconv2d_plain(t_ref.pad_nhwc(x, pads), w, b, **kw)
     assert torch.equal(got, want)
 
 

@@ -392,7 +392,8 @@ def test_an_eager_forward_launches_the_depthwise_kernel_17_times(card):
     y = run(torch.as_tensor(x, device=card))
     torch.cuda.synchronize()
     assert qconv.launches["qdwconv2d"] == 17
-    assert qconv.padded_launches["copy"] == 17
+    assert qconv.padded_launches["qdwconv"] == 17   # pads in the staging
+    assert "copy" not in qconv.padded_launches
     assert qconv.skip_launches["qdwconv.clip"] == 17
     assert qconv.skip_launches["qconv.clip"] == 18
     assert qconv.skip_launches["qconv"] == 10
@@ -410,9 +411,9 @@ def test_the_captured_forward_holds_17_depthwise_launches(card):
     convs = {name: n for name, kind, n in rows if kind == "conv"}
     dw = [li.name for li in gate.parsed.layers if li.is_depthwise]
     assert len(dw) == 17 and len(convs) == 52
-    # a depthwise stage is its pad copy and its kernel; a dense one its
-    # kernel alone
-    assert all(convs[n] > 1 for n in dw)
+    # every conv stage, depthwise or dense, is its kernel alone: the
+    # depthwise kernel takes its pads in its band staging
+    assert all(convs[n] == 1 for n in dw)
     assert all(v == 1 for n, v in convs.items() if n not in dw)
     full(xt)
     torch.cuda.synchronize()

@@ -1,17 +1,22 @@
-"""The int8 conv kernel's zero padding, taken in its A gathers, on the card.
+"""The int8 conv kernels' zero padding, taken in the kernels, on the card.
 
 ``csrc/qconv.cu`` reads a padded conv's UNPADDED input: a row whose
 window crosses the image's border zeroes each tap outside it (one test a
 (row, chunk) in the 16- and 4-byte ``cp.async`` gathers, one a byte in the
-narrow gather), so no padded copy is made.  Every test here needs a card
+narrow gather), so no padded copy is made.  ``csrc/qdwconv.cu`` does the
+same in its band staging: a stage pixel outside the image is a copy of
+source size 0 or a zero word.  Every test here needs a card
 (``cuda`` marker) and holds ``qconv.qconv2d(x, pads=...)`` and its into,
 grouped and trial forms ``torch.equal`` to the plain version over
 ``ref.pad_nhwc(x, pads)``: every padded conv of VGG-16, AlexNet and
 ResNet-18 at batch 1 and 64 (their fused pools among them), the skip
 epilogue, a concat buffer, grouped convs, trial forms, an input one byte
-off a word and asymmetric pads; then ``qconv.padded_launches`` over an
-eager forward and the captured graph's one device operation a conv stage.
-The CPU model of the padded gathers is in ``tests/test_torch_qconv_tiles.py``.
+off a word and asymmetric pads; the depthwise kernel at MobileNetV2's
+shapes; then ``qconv.padded_launches`` over an eager forward and the
+captured graph's one device operation a conv stage, depthwise ones
+included.  The CPU models of the padded gathers and of the padded band
+staging are in ``tests/test_torch_qconv_tiles.py`` and
+``tests/test_torch_dwconv_tiles.py``.
 This file imports no JAX, so it runs on a card host without it.
 """
 import math
@@ -216,34 +221,56 @@ def test_asymmetric_pads(card, pads, cin, h):
                lambda xp: qconv.qconv2d_plain(xp, w, b, **kw), cin)
 
 
+# (name, batch, H = W unpadded, C, stride, fused pool, pads, form): a
+# 14x14x32 conv with a pool in each form under symmetric and asymmetric
+# pads; then each distinct depthwise conv of MobileNetV2 (3x3, pad 1) at
+# batch 1 and 8
+DW_PADDED = (
+    [(f"{form}_{''.join(map(str, pads))}", 2, 14, 32, 1, (2, 2), pads, form)
+     for pads in ((1, 1, 1, 1), (1, 2, 0, 1))
+     for form in ("single", "into", "trials")]
+    + [(f"mobilenet_v2_{h}x{c}_s{s}_b{n}", n, h, c, s, None, (1, 1, 1, 1),
+        "single")
+       for h, c, s in ((112, 32, 1), (112, 96, 2), (56, 144, 1),
+                       (56, 144, 2), (28, 192, 1), (28, 192, 2),
+                       (14, 384, 1), (14, 576, 1), (14, 576, 2),
+                       (7, 960, 1))
+       for n in (1, 8)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["single", "into", "trials"])
-@pytest.mark.parametrize("pads", [(1, 1, 1, 1), (1, 2, 0, 1)])
-def test_the_depthwise_wrapper_pads_for_its_kernel(card, form, pads):
-    """The depthwise kernel reads a padded copy that its wrapper makes:
-    ``qdwconv2d(x, pads=p)`` (its into and trial forms, and
-    ``ops.qconv2d_nhwc`` on the depthwise route) equals the same call on
-    ``ref.pad_nhwc(x, p)`` and the plain version over ``x`` and ``p``."""
+@pytest.mark.parametrize("case", DW_PADDED, ids=[c[0] for c in DW_PADDED])
+def test_the_depthwise_wrapper_pads_for_its_kernel(card, case):
+    """The depthwise kernel takes the pads in its band staging, over the
+    unpadded input: ``qdwconv2d(x, pads=p)`` (its into and trial forms,
+    and ``ops.qconv2d_nhwc`` on the depthwise route) equals the same call
+    on ``ref.pad_nhwc(x, p)`` and the plain version over ``x`` and ``p``,
+    and counts one ``padded_launches["qdwconv"]``."""
+    _name, n, h, c, s, pool, pads, form = case
     trials = 3 if form == "trials" else None
-    x, w, b, shift = _operands(card, 2, 14, 32, 32, 3, groups=32,
-                               trials=trials, seed=sum(pads))
-    kw = dict(shift=shift, pool=(2, 2))
+    x, w, b, shift = _operands(card, n, h, c, c, 3, groups=c,
+                               trials=trials, seed=sum(pads) + h + c)
+    kw = dict(strides=(s, s), shift=shift, pool=pool)
     fn, plain = qconv.qdwconv2d, qconv.qdwconv2d_plain
     if trials:
         fn, plain = qconv.qdwconv2d_trials, ref.qdwconv2d_trials_ref
     if form == "into":
-        oh = (14 + pads[0] + pads[2] - 2) // 2
-        ow = (14 + pads[1] + pads[3] - 2) // 2
-        buf = torch.full((2, oh, ow, 40), 77, dtype=torch.int8, device=card)
+        oh = (h + pads[0] + pads[2] - 2) // 2
+        ow = (h + pads[1] + pads[3] - 2) // 2
+        buf = torch.full((n, oh, ow, c + 8), 77, dtype=torch.int8,
+                         device=card)
         kw.update(out_off=4, concat_shift=1)
 
     def copy(kw):   # a fresh buffer a call
         return dict(kw, out_buf=buf.clone()) if form == "into" else kw
 
+    before = qconv.padded_launches["qdwconv"]
     got = fn(x, w, b, pads=pads, **copy(kw))
+    torch.cuda.synchronize()
+    assert qconv.padded_launches["qdwconv"] == before + 1
     assert torch.equal(got, fn(ref.pad_nhwc(x, pads), w, b, **copy(kw)))
     assert torch.equal(got, plain(x, w, b, pads=pads, **copy(kw)))
-    via_ops = ops.qconv2d_nhwc(x, w, b, pads=pads, groups=32, **copy(kw))
+    via_ops = ops.qconv2d_nhwc(x, w, b, pads=pads, groups=c, **copy(kw))
     torch.cuda.synchronize()
     assert torch.equal(got, via_ops)
 
@@ -259,13 +286,14 @@ def _gate(net, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("net,want", [
-    ("vgg16", {"16": 12, "4": 0, "narrow": 1, "copy": 0}),
-    ("alexnet", {"16": 4, "4": 0, "narrow": 1, "copy": 0}),
-    ("resnet18", {"16": 16, "4": 0, "narrow": 1, "copy": 0})])
+    ("vgg16", {"16": 12, "4": 0, "narrow": 1, "qdwconv": 0}),
+    ("alexnet", {"16": 4, "4": 0, "narrow": 1, "qdwconv": 0}),
+    ("resnet18", {"16": 16, "4": 0, "narrow": 1, "qdwconv": 0}),
+    ("mobilenet_v2", {"16": 0, "4": 0, "narrow": 1, "qdwconv": 17})])
 def test_padded_launches_of_an_eager_forward(card, net, want):
     """Every padded conv launches the kernel on its unpadded input; the
-    ResNet-18 projections (1x1, no pads) count under ``gather_launches``
-    alone."""
+    1x1 convs (no pads: ResNet-18's projections, MobileNetV2's expansions
+    and projections) count under ``gather_launches`` alone."""
     gate, x = _gate(net, card)
     run = gate.build("emulation")
     ops.reset_launch_counts()
@@ -273,18 +301,21 @@ def test_padded_launches_of_an_eager_forward(card, net, want):
     torch.cuda.synchronize()
     assert qconv.padded_launches == want
     convs = sum(qconv.gather_launches.values())
-    assert convs == {"vgg16": 13, "alexnet": 5, "resnet18": 20}[net]
+    assert convs == {"vgg16": 13, "alexnet": 5, "resnet18": 20,
+                     "mobilenet_v2": 35}[net]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("net", ["vgg16", "alexnet", "resnet18"])
+@pytest.mark.parametrize("net", ["vgg16", "alexnet", "resnet18",
+                                 "mobilenet_v2"])
 def test_a_conv_stage_is_one_device_operation(card, net):
-    """In the captured graph a conv stage, padded or not, is its kernel
-    alone: no pad fill, no pad copy."""
+    """In the captured graph a conv stage, padded or not, dense or
+    depthwise, is its kernel alone: no pad fill, no pad copy."""
     gate, x = _gate(net, card)
     full = gate.build("fullflow")
     rows = full.stage_map[tuple(x.shape)]
     convs = [n for _stage, kind, n in rows if kind == "conv"]
-    assert len(convs) == {"vgg16": 13, "alexnet": 5, "resnet18": 20}[net]
+    assert len(convs) == {"vgg16": 13, "alexnet": 5, "resnet18": 20,
+                          "mobilenet_v2": 52}[net]
     assert convs == [1] * len(convs)
     assert torch.equal(full(x), gate.build("emulation")(x))

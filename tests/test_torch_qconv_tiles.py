@@ -783,13 +783,33 @@ def test_the_geometry_plans_the_padded_shape(pads, hw):
                         False, (-1, 0, 0, 0))
 
 
-def test_the_depthwise_kernel_refuses_pads():
-    """The depthwise kernel stages halo bands of a pre-padded input: its
-    caller pads (``ops.qconv2d_nhwc``), and ``_geometry`` refuses pads."""
+@pytest.mark.parametrize("pads,out_hw", [((1, 1, 1, 1), (8, 8)),
+                                         ((1, 2, 0, 1), (7, 9))])
+def test_the_depthwise_kernel_takes_pads(pads, out_hw):
+    """The depthwise kernel stages its bands from the unpadded input and
+    takes the pads itself: ``_geometry`` keeps them for the launch and
+    plans the output over the padded extent; a negative pad is
+    refused."""
+    geo = qconv._geometry("qdwconv", "qdwconv2d", (2, 8, 8, 16),
+                          (3, 3, 1, 16), (2,) + out_hw + (16,), 16, (1, 1),
+                          None, 0, None, None, (0, 0, 0, 0), None, False,
+                          pads)
+    assert geo.pads == pads
+    assert geo.head[1:3] == (8, 8)          # the unpadded input goes on
+    hp, wp = 8 + pads[0] + pads[2], 8 + pads[1] + pads[3]
+    assert geo.plan == qconv.dw_plan(2, hp, wp, 16, 3, 3, 16, (1, 1), None)
+    pl = geo.plan
+    assert pl.row_bands * pl.rp >= out_hw[0] > (pl.row_bands - 1) * pl.rp
+    assert pl.col_bands * pl.cp >= out_hw[1] > (pl.col_bands - 1) * pl.cp
+    with pytest.raises(ValueError, match="output"):   # planned padded
+        qconv._geometry("qdwconv", "qdwconv2d", (2, 8, 8, 16),
+                        (3, 3, 1, 16), (2, 6, 6, 16), 16, (1, 1), None, 0,
+                        None, None, (0, 0, 0, 0), None, False, pads)
     with pytest.raises(ValueError, match="pads"):
-        qconv._geometry("qdwconv", "qdwconv2d", (1, 8, 8, 16), (3, 3, 1, 16),
-                        (1, 8, 8, 16), 16, (1, 1), None, 0, None, None,
-                        (0, 0, 0, 0), None, False, (1, 1, 1, 1))
+        qconv._geometry("qdwconv", "qdwconv2d", (2, 8, 8, 16),
+                        (3, 3, 1, 16), (2,) + out_hw + (16,), 16, (1, 1),
+                        None, 0, None, None, (0, 0, 0, 0), None, False,
+                        (-1,) + pads[1:])
 
 
 @pytest.mark.parametrize("pads", [(1, 1, 1, 1), (1, 2, 0, 1)])
@@ -824,7 +844,7 @@ def test_the_cpu_path_pads_before_the_plain_version(pads):
         qconv.qgconv2d_trials(x, wgs, None, groups=2, pads=pads, **kw),
         t_ref.qconv2d_trials_ref(xp, wgs, None, groups=2, **kw))
     assert qconv.padded_launches == {"16": 0, "4": 0, "narrow": 0,
-                                     "copy": 0}
+                                     "qdwconv": 0}
 
 
 def _strip_staged(qm):
