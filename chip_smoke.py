@@ -71,6 +71,15 @@ Twelve phases, each printing one JSON line per check:
    block 1's projection with Cout 16, that one also with a clamp) timed
    beside their bounds and the plain version, in the conv kernels'
    records;
+4a'. resnext50_32x4d, ResNeXt-50 (32x4d) at full width: the build's 16
+   grouped stages and 16 fused skips; the fullflow checks of phase 4 (the
+   replay's 16 grouped launches under ``qconv_grouped_wgmma_kernel``); one
+   eager forward at batch 512 launching the dense conv 37 times (16 with
+   a skip), the grouped conv 16 times, the max-pool and the GEMM once,
+   its logits equal to the plain path's and each of its 55 kernel calls
+   equal to its plain version; one grouped stage of each per-group width
+   (4, 8, 16, 32 channels) timed beside its bound and the plain version,
+   in the grouped kernel's record;
 4b. flow, the paper's whole flow at full width for AlexNet and VGG-16:
    ``verify()`` clean, ``explore`` on the three boards (BF, and RL with
    seeds 0-2) giving the FPGA model's decisions (AlexNet: no fit, (8, 8),
@@ -889,7 +898,7 @@ def fullflow_walls(torch, phase, name, eager, full, xs) -> dict:
 #: The device kernel each counted wrapper launches.
 KERNEL_OF = {"qconv2d": "qconv_wgmma_kernel",
              "qconv2d_into": "qconv_wgmma_kernel",
-             "qgconv2d": "qconv_wgmma_kernel",
+             "qgconv2d": "qconv_grouped_wgmma_kernel",
              "qdwconv2d": "qdwconv_kernel",
              "qdwconv2d_into": "qdwconv_kernel",
              "qgemm": "qgemm_wgmma_kernel",
@@ -1211,14 +1220,19 @@ def qgemm_launch_split(torch, dev) -> None:
                  per_kernel=split)
 
 
-def wgmma_launches(torch, fn, kernel: str = "qconv_wgmma_kernel") -> dict:
-    """Launches of an int8 ``wgmma`` kernel (the conv's by default) in one
-    call of ``fn``, as ``torch.profiler`` sees them on the device
-    (:func:`device_kernels`), beside the launches of every device kernel
-    in the trace."""
+#: The conv's two int8 ``wgmma`` kernels: the dense and the grouped
+#: instance of one body (``csrc/qconv.cu``).
+QCONV_KERNELS = ("qconv_wgmma_kernel", "qconv_grouped_wgmma_kernel")
+
+
+def wgmma_launches(torch, fn, kernels=QCONV_KERNELS) -> dict:
+    """Launches of int8 ``wgmma`` kernels (a tuple of names, the conv's
+    two by default) in one call of ``fn``, as ``torch.profiler`` sees
+    them on the device (:func:`device_kernels`), beside the launches of
+    every device kernel in the trace."""
     seen = device_kernels(torch, fn)
     return dict(wgmma_launches=sum(n for key, n in seen.items()
-                                   if kernel in key),
+                                   if any(k in key for k in kernels)),
                 device_launches=sum(seen.values()))
 
 
@@ -1231,9 +1245,9 @@ def one_launch_per_fc(torch, phase: str, tag: str, run, x) -> None:
     with recorded_calls(calls):
         run(x)
     fcs = [(a, kw) for name, a, kw in calls if name == "qgemm"]
-    forward = wgmma_launches(torch, lambda: run(x), "qgemm_wgmma_kernel")
+    forward = wgmma_launches(torch, lambda: run(x), ("qgemm_wgmma_kernel",))
     alone = [wgmma_launches(torch, lambda: qgemm.qgemm(*a, **kw),
-                            "qgemm_wgmma_kernel") for a, kw in fcs]
+                            ("qgemm_wgmma_kernel",)) for a, kw in fcs]
     check(phase, f"{tag}_one_qgemm_launch_per_fc_call",
           forward["wgmma_launches"] == len(fcs) > 0
           and all(r["wgmma_launches"] == r["device_launches"] == 1
@@ -1377,9 +1391,10 @@ def phase_mobilenet(torch, dev, records):
                  batch1_bound_ms=dw["bound_ms"], **dw["extra"])
 
 
-#: The batch of ``mobilenet_v2.offline_b512``, at which
-#: :func:`phase_mobilenet_v2` holds every kernel call.
-MOBILENET_V2_BATCH = 512
+#: The batch of the offline cells ``mobilenet_v2.offline_b512`` and
+#: ``resnext50_32x4d.offline_b512``, at which :func:`phase_mobilenet_v2`
+#: and :func:`phase_resnext50` hold every kernel call.
+OFFLINE_BATCH = 512
 #: MobileNetV2's batch-512 stages timed beside their bounds: (label,
 #: wrapper, Cin, Cout, stride, input H), each found among the calls of
 #: the eager forward.
@@ -1430,7 +1445,7 @@ def phase_mobilenet_v2(torch, dev, records):
     fullflow_checks(torch, gate, run, reqs, [run(x) for x in reqs], expect,
                     phase, phase)
 
-    x = torch.as_tensor(rng.standard_normal((MOBILENET_V2_BATCH, 3, 224, 224))
+    x = torch.as_tensor(rng.standard_normal((OFFLINE_BATCH, 3, 224, 224))
                         .astype(np.float32), device=dev)
     ops.reset_launch_counts()
     y = run(x)
@@ -1507,6 +1522,115 @@ def phase_mobilenet_v2(torch, dev, records):
     for name, rs in rows.items():
         if name in records:
             records[name].setdefault("extra", {})["mobilenet_v2_batch512"] = rs
+
+
+#: ResNeXt-50's grouped stages timed at batch 512, one a per-group width:
+#: (label, Cin = Cout, stride, input H), each found among the calls of the
+#: eager forward
+RESNEXT50_STAGES = (
+    ("layer1_conv2_56x128_g4", 128, 1, 56),
+    ("layer2_0_conv2_56x256_g8_s2", 256, 2, 56),
+    ("layer3_conv2_14x512_g16", 512, 1, 14),
+    ("layer4_conv2_7x1024_g32", 1024, 1, 7),
+)
+
+
+def phase_resnext50(torch, dev, records):
+    """ResNeXt-50 (32x4d) at full width (224x224, 1000 classes), the net of
+    the ``resnext50_32x4d.offline_b512`` cell: the build counters (16
+    grouped stages, 16 fused skips); the fullflow executor on batch-1
+    requests and a batch of 8 (:func:`fullflow_checks`, the replay's 16
+    grouped launches under ``qconv_grouped_wgmma_kernel``); then one eager
+    forward at the cell's batch of 512, whose launch counts are held
+    (dense conv 37, grouped 16, max-pool 1, GEMM 1; 16 with a skip),
+    whose logits equal the plain path's, and each of whose kernel calls
+    equals its plain version.  One grouped stage of each per-group width
+    (:data:`RESNEXT50_STAGES`) is timed beside its bound and the plain
+    version; the rows go to the grouped kernel's record."""
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.synthesis import CNN2Gate
+    from repro_torch.kernels import ops, qconv
+    from repro_torch.models import cnn
+
+    phase = "resnext50_32x4d"
+    rng = np.random.default_rng(SEED + 4)
+    gate = CNN2Gate.from_graph(cnn.resnext50_32x4d(batch=1, seed=SEED))
+    gate.calibrate_quantization(
+        rng.standard_normal((1, 3, 224, 224)).astype(np.float32))
+    reg = tele.get_registry()
+    names = ("build.grouped_stages", "build.fused_skips")
+    before = [reg.counter(n).value for n in names]
+    run = gate.build("emulation")
+    built = [reg.counter(n).value - v for n, v in zip(names, before)]
+    check(phase, "build_counts_16_grouped_stages_16_fused_skips",
+          built == [16, 16], counters=dict(zip(names, built)))
+    expect = {"qconv2d": 37, "qgconv2d": 16, "maxpool2d": 1, "qgemm": 1}
+    reqs = [torch.as_tensor(rng.standard_normal((n, 3, 224, 224))
+                            .astype(np.float32), device=dev)
+            for n in (1, 1, 8)]
+    fullflow_checks(torch, gate, run, reqs, [run(x) for x in reqs], expect,
+                    phase, phase)
+
+    x = torch.as_tensor(rng.standard_normal((OFFLINE_BATCH, 3, 224, 224))
+                        .astype(np.float32), device=dev)
+    ops.reset_launch_counts()
+    y = run(x)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(phase, "batch512_launches",
+          all(launches[k] == v for k, v in expect.items())
+          and qconv.skip_launches["qconv"] == 16,
+          launches={k: launches[k] for k in expect},
+          skip_launches=dict(qconv.skip_launches))
+    with plain_ops():
+        yp = run(x)
+    torch.cuda.synchronize()
+    check(phase, "batch512_kernel_path_equals_plain_path",
+          torch.equal(y, yp) and bool(torch.isfinite(y).all()),
+          shape=list(y.shape))
+    del y, yp
+
+    calls: list = []
+    with recorded_calls(calls):
+        run(x)
+    torch.cuda.synchronize()
+    wrap = wrappers()
+    bad = []
+    for i, (name, a, kw) in enumerate(calls):
+        yk, ypl = both_sides(torch, wrap[name][1], wrap[name][2], a, kw)
+        if not torch.equal(yk, ypl):
+            bad.append((i, name, list(a[0].shape), kw.get("groups")))
+    del yk, ypl
+    check(phase, "every_call_of_the_batch512_forward_equals_plain",
+          not bad and len(calls) == 55, calls=len(calls), failures=bad[:10],
+          grouped_calls=sum(n == "qgconv2d" for n, _a, _kw in calls))
+
+    flush = torch.empty(96 << 20, dtype=torch.int8, device=dev).zero_
+    rows = []
+    for label, c, stride, h in RESNEXT50_STAGES:
+        _n, a, kw = next(
+            call for call in calls if call[0] == "qgconv2d"
+            and call[1][0].shape[1] == h and call[1][0].shape[-1] == c
+            and tuple(call[2]["strides"]) == (stride, stride))
+        fn, plain = wrap["qgconv2d"][1:]
+        yk, ypl = both_sides(torch, fn, plain, a, kw)
+        nbytes, nops = call_cost("qgconv2d", a, kw)
+        t_bytes = nbytes / card().hbm_bandwidth * 1e3
+        t_ops = nops / card().peak_int8_ops * 1e3
+        row = dict(stage=label, shape=list(a[0].shape), groups=kw["groups"],
+                   channels_a_group=c // kw["groups"], stride=stride,
+                   ms=time_ms(torch, lambda: fn(*a, **kw), flush=flush),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   plain_ms=time_ms(torch, lambda: plain(*a, **kw), reps=3,
+                                    flush=flush),
+                   plan=conv_plan("qgconv2d", a[0], a[1], kw))
+        check(phase, f"{label}_batch512_equals_plain", torch.equal(yk, ypl),
+              **row)
+        rows.append(row)
+    if "qgconv2d" in records:
+        records["qgconv2d"].setdefault("extra", {})[
+            "resnext50_batch512"] = rows
 
 
 def launch_floor_ms(torch) -> float:
@@ -2609,12 +2733,14 @@ def build_record(torch, phase: str, lib: str, label,
 
 def qconv_label(mangled: str):
     """Every kernel of the qconv library, the wgmma instances by name (the
-    narrow gather's instances marked)."""
-    inst = re.search(r"qconv_wgmma_kernelILi(\d+)ELb([01])E", mangled)
+    narrow gather's instances marked; the grouped instances of the same
+    body under their own name)."""
+    inst = re.search(r"qconv_(grouped_)?wgmma_kernelILi(\d+)ELb([01])E",
+                     mangled)
     if not inst:
         return mangled
-    return (f"qconv_wgmma_kernel<{inst.group(1)}"
-            f"{', narrow' if inst.group(2) == '1' else ''}>")
+    return (f"qconv_{inst.group(1) or ''}wgmma_kernel<{inst.group(2)}"
+            f"{', narrow' if inst.group(3) == '1' else ''}>")
 
 
 _QCONV_BUILD: dict = {}
@@ -2629,10 +2755,9 @@ def attach_qconv_build(torch, records, name: str) -> None:
                                          qconv_label, ("IGMMA", "UTMALDG")))
         names = sorted(_QCONV_BUILD["ptxas"])
         check("vgg16", "qconv_library_holds_only_the_wgmma_kernel",
-              names == ["qconv_wgmma_kernel<128, narrow>",
-                        "qconv_wgmma_kernel<128>",
-                        "qconv_wgmma_kernel<64, narrow>",
-                        "qconv_wgmma_kernel<64>"],
+              names == sorted(f"{k}<{bn}{narrow}>" for k in QCONV_KERNELS
+                              for bn in (64, 128)
+                              for narrow in ("", ", narrow")),
               kernels=names)
     r = records.get(name)
     if r is not None:
@@ -4676,6 +4801,7 @@ def main() -> int:
     for phase, fn in (("kernels", phase_kernels), ("vgg16", phase_vgg),
                       ("mobilenet", phase_mobilenet), ("paths", phase_paths),
                       ("mobilenet_v2", phase_mobilenet_v2),
+                      ("resnext50_32x4d", phase_resnext50),
                       ("flow", phase_flow), ("resilience", phase_resilience),
                       ("lm", phase_lm),
                       ("ssm", phase_ssm), ("families", phase_families),

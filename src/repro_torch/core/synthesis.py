@@ -478,14 +478,16 @@ class CNN2Gate:
         (``self.compiled`` is None).  ``synthesis_time_s`` records the
         warm-up and capture, or that run.
 
-        Each build adds the stage program's merges, pools and clamps to
-        four counters of the process registry: ``build.fused_skips`` (adds
-        folded into a conv's epilogue), ``build.standalone_merges`` (add
-        and concat stages that run as their own op; a concat whose
-        producers write its buffer is not one),
-        ``build.standalone_pools`` (pools that no conv epilogue took) and
-        ``build.clipped_stages`` (stages whose epilogue clamps below 127:
-        a fused ReLU-n, ``QuantizedLayer.hi``).
+        Each build adds the stage program's merges, pools, clamps and
+        grouped convs to five counters of the process registry:
+        ``build.fused_skips`` (adds folded into a conv's epilogue),
+        ``build.standalone_merges`` (add and concat stages that run as
+        their own op; a concat whose producers write its buffer is not
+        one), ``build.standalone_pools`` (pools that no conv epilogue
+        took), ``build.clipped_stages`` (stages whose epilogue clamps
+        below 127: a fused ReLU-n, ``QuantizedLayer.hi``) and
+        ``build.grouped_stages`` (conv stages on the grouped route,
+        ``qconv.qgconv2d``: 1 < group, not the depthwise kernel's).
         """
         if self.quantized is None:
             raise RuntimeError("apply_quantization() or "
@@ -510,6 +512,9 @@ class CNN2Gate:
             sum(li.kind == P.POOL for li in layers))
         reg.counter("build.clipped_stages").inc(
             sum(ql.hi < INT8_MAX for ql in self.quantized.layers))
+        reg.counter("build.grouped_stages").inc(
+            sum(li.kind == P.CONV and li.group > 1 and not li.is_dw_kernel
+                for li in layers))
 
     def _build(self, mode: str, n_i: int, n_l: int,
                block_h: Optional[int]):

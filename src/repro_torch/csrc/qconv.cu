@@ -22,7 +22,13 @@
 // [g*Cin/G, (g+1)*Cin/G) of each pixel and owns output channels
 // [g*Cout/G, (g+1)*Cout/G); its contraction is K = KH*KW*Cin/G against
 // those weight columns.  The group rides gridDim.z and each block's channel
-// tiles are masked at the group's edge, so no tile mixes two groups.
+// tiles are masked at the group's edge, so no tile mixes two groups: a
+// block computes one group's Cout/G columns of its 64-wide tile (4 of them
+// in ResNeXt-50's first stage) over one 128-byte K box (K = 9 * 4 = 36 bytes
+// there), and stores bytes where Cout/G or the group's first channel is
+// not a multiple of 16.  Grouped launches take qconv_grouped_wgmma_kernel,
+// the same body as the dense qconv_wgmma_kernel under a name of its own,
+// so that a device trace tells the two routes apart.
 //
 // The kernel is an implicit GEMM: rows are (pooled pixel, window tap)
 // pairs, columns output channels, the contraction runs over (kh, kw, ci).
@@ -362,11 +368,12 @@ __device__ __forceinline__ void epilogue_rows(
   }
 }
 
-// kNarrow: the narrow gather (mode 1), an instantiation of its own so that
-// its unrolled loads stay out of the cp.async gathers' main loop
+// The body of both kernels below.  kNarrow: the narrow gather (mode 1), an
+// instantiation of its own so that its unrolled loads stay out of the
+// cp.async gathers' main loop.
 template <int BN, bool kNarrow>
-__global__ void __launch_bounds__(kThreads, 2)
-qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
+__device__ __forceinline__ void conv_tile(const CUtensorMap& map_w,
+                                          const ConvArgs& a) {
   using T = Tile<BN>;
   constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -650,6 +657,23 @@ qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
   if (a.splits > 1) cluster_wait();
 }
 
+// The dense conv (one group).
+template <int BN, bool kNarrow>
+__global__ void __launch_bounds__(kThreads, 2)
+qconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w, ConvArgs a) {
+  conv_tile<BN, kNarrow>(map_w, a);
+}
+
+// The grouped conv (1 < G, the groups on gridDim.z): the same body under a
+// name of its own, so that a device trace tells its launches from the
+// dense ones.
+template <int BN, bool kNarrow>
+__global__ void __launch_bounds__(kThreads, 2)
+qconv_grouped_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
+                           ConvArgs a) {
+  conv_tile<BN, kNarrow>(map_w, a);
+}
+
 template <int BN, bool kNarrow>
 int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   // the K-major weight (stack) in boxes of 128 K bytes x BN rows (rows
@@ -658,17 +682,21 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   const int err =
       cached_u8_map(&map, a.wk, a.k_pad, trials * a.cout, a.k_pad, BN);
   if (err != 0) return err;
-  // the shared-memory allowance, set once a device
-  static bool allowed[64] = {};
+  const bool grouped = groups > 1;
+  void (*const kernel)(CUtensorMap, ConvArgs) =
+      grouped ? qconv_grouped_wgmma_kernel<BN, kNarrow>
+              : qconv_wgmma_kernel<BN, kNarrow>;
+  // the shared-memory allowance, set once a kernel and device
+  static bool allowed[2][64] = {};
   int dev = 0;
   cudaError_t cerr = cudaGetDevice(&dev);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  if (dev >= 64 || !allowed[dev]) {
-    cerr = cudaFuncSetAttribute(qconv_wgmma_kernel<BN, kNarrow>,
+  if (dev >= 64 || !allowed[grouped][dev]) {
+    cerr = cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(Tile<BN>::kSmem));
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
-    if (dev < 64) allowed[dev] = true;
+    if (dev < 64) allowed[grouped][dev] = true;
   }
   const long long n_pooled = static_cast<long long>(a.n) * a.oh * a.ow;
   const int per_block = kRows / (a.pw * a.pw);
@@ -676,8 +704,7 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(trials) * a.m_tiles,
                   (a.cout_g + BN - 1) / BN, groups * a.splits);
   if (a.splits == 1) {
-    qconv_wgmma_kernel<BN, kNarrow>
-        <<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
+    kernel<<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
   } else {
     // the K splits of a tile are one cluster, adjacent along z
     cudaLaunchConfig_t cfg = {};
@@ -692,7 +719,7 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
     attr[0].val.clusterDim.z = a.splits;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    cerr = cudaLaunchKernelEx(&cfg, qconv_wgmma_kernel<BN, kNarrow>, map, a);
+    cerr = cudaLaunchKernelEx(&cfg, kernel, map, a);
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
   }
   return static_cast<int>(cudaGetLastError());

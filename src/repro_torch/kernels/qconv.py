@@ -35,9 +35,13 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   the conv's zero padding is never stored: the staging reads the
   unpadded input and stages a pixel outside it as zeros, so a padded
   depthwise conv is one launch.
-* :func:`qgconv2d` — ragged grouped conv, the dense kernel of
-  ``csrc/qconv.cu`` with the group on ``gridDim.z``; replaces
-  ``qgconv2d`` (``:945``).
+* :func:`qgconv2d` — ragged grouped conv, the dense kernel's body in
+  ``csrc/qconv.cu`` with the group on ``gridDim.z``, launched under a
+  name of its own (``qconv_grouped_wgmma_kernel``) so that a device
+  trace tells it from the dense conv; replaces ``qgconv2d``
+  (``:945``).  A block computes one group's tile, masked at the group's
+  edge: ResNeXt-50's groups of 4-32 channels fill 4-32 of its 64
+  columns over one to three K steps.
 
 The dense and grouped kernel takes its weight K-major, as
 :func:`stage_kmajor` lays it out; a layer stages it once
@@ -702,8 +706,9 @@ def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
     (KH, KW, Cin/groups, Cout)) with requant, ReLU and the fused
     max-pool, over ``x`` zero-padded by ``pads`` as :func:`qconv2d`; it
     never takes a skip or a concat buffer.  On a CPU tensor this is the
-    plain version; on a CUDA tensor it launches the dense kernel, every
-    group at once, or raises."""
+    plain version; on a CUDA tensor it launches the grouped instance of
+    the dense kernel (``qconv_grouped_wgmma_kernel``), every group at
+    once, or raises."""
     return _conv("qgconv2d", x, w, b, groups=groups, strides=strides,
                  pads=pads, shift=shift, relu=relu, pool=pool, w_k=w_k,
                  shift_vec=shift_vec, hi=hi)

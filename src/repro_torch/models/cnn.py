@@ -296,6 +296,50 @@ def resnet18(batch: int = 1, num_classes: int = 1000, seed: int = 0,
     return b.build()
 
 
+def _bottleneck(b: GraphBuilder, width: int, c_out: int, stride: int = 1,
+                groups: int = 1) -> None:
+    """ResNet bottleneck block, ResNeXt's when ``groups`` > 1: a 1x1 conv
+    to ``width`` with ReLU, a 3x3 conv of ``groups`` groups carrying the
+    block's stride with ReLU, a 1x1 conv to ``c_out`` without one, then
+    the add and its ReLU.  Where the stride or width changes, a 1x1
+    projection of that stride on the skip (option B), written after the
+    third conv as an exporter writes torchvision's block."""
+    skip = b.tap()
+    b.conv(width, 1)
+    b.conv(width, 3, stride=stride, pad=1, group=groups)
+    b.conv(c_out, 1, relu=False)
+    main = b.tap()
+    if stride != 1 or skip[1][1] != c_out:
+        b.from_tap(skip).conv(c_out, 1, stride=stride, relu=False)
+        skip = b.tap()
+    b.from_tap(main).add_from(skip, relu=True)
+
+
+#: ResNeXt-50 (32x4d)'s stages (bottleneck width, output channels, blocks,
+#: first stride): Xie et al., arXiv:1611.05431, Table 1
+RESNEXT50_STAGES = ((128, 256, 3, 1), (256, 512, 4, 2), (512, 1024, 6, 2),
+                    (1024, 2048, 3, 2))
+
+
+def resnext50_32x4d(batch: int = 1, num_classes: int = 1000, seed: int = 0,
+                    in_hw: int = 224) -> Graph:
+    """ResNeXt-50 (32x4d) (arXiv:1611.05431, Table 1; torchvision's
+    ``resnext50_32x4d``), BN folded: a 7x7/2 stem of 64 and a padded
+    3x3/2 max-pool, 16 bottleneck blocks in stages of 3, 4, 6 and 3 whose
+    3x3 convs have 32 groups of 4, 8, 16 and 32 channels, a projection
+    on the first block of each stage, GAP and the classifier: 53 convs,
+    16 of them grouped, 16 adds.  ``in_hw`` shrinks the input for CPU
+    tests (the GAP absorbs what the five stride-2 stages leave)."""
+    b = GraphBuilder("resnext50_32x4d", (batch, 3, in_hw, in_hw), seed)
+    b.conv(64, 7, stride=2, pad=3).maxpool(3, 2, pad=1)
+    for width, c_out, blocks, stride in RESNEXT50_STAGES:
+        for i in range(blocks):
+            _bottleneck(b, width, c_out, stride if i == 0 else 1, groups=32)
+    b.global_avgpool()
+    b.fc(num_classes, relu=False, softmax=True)
+    return b.build()
+
+
 def mobilenet_tiny(batch: int = 1, num_classes: int = 10, seed: int = 0,
                    in_hw: int = 32) -> Graph:
     """MobileNet-v1-style separable stack: strided stem + three
