@@ -574,7 +574,7 @@ def conv_plan(name, x, w, kw):
                     w.shape[1], w.shape[3], tuple(kw["strides"]),
                     None if pool is None else tuple(pool), groups,
                     qgemm.sms_of(x.device.index))
-    return dict(bn=pl.bn, k_pad=pl.k_pad,
+    return dict(bn=pl.bn, k_pad=pl.k_pad, groups=pl.groups,
                 tiles=pl.tiles, splits=pl.splits, chunk=pl.chunk,
                 blocks=pl.blocks)
 
@@ -1542,8 +1542,10 @@ def phase_resnext50(torch, dev, records):
     requests and a batch of 8 (:func:`fullflow_checks`, the replay's 16
     grouped launches under ``qconv_grouped_wgmma_kernel``); then one eager
     forward at the cell's batch of 512, whose launch counts are held
-    (dense conv 37, grouped 16, max-pool 1, GEMM 1; 16 with a skip),
-    whose logits equal the plain path's, and each of whose kernel calls
+    (dense conv 37, grouped 16, max-pool 1, GEMM 1; 16 with a skip; the
+    grouped launches' packs ``qconv.group_pack`` 16, 8, 4 and 2 groups a
+    tile, 3, 4, 6 and 3 times), whose logits equal the plain path's, and
+    each of whose kernel calls
     equals its plain version.  One grouped stage of each per-group width
     (:data:`RESNEXT50_STAGES`) is timed beside its bound and the plain
     version; the rows go to the grouped kernel's record."""
@@ -1582,6 +1584,10 @@ def phase_resnext50(torch, dev, records):
           and qconv.skip_launches["qconv"] == 16,
           launches={k: launches[k] for k in expect},
           skip_launches=dict(qconv.skip_launches))
+    # 4, 8, 16 and 32 channels a group: 16, 8, 4 and 2 groups a tile
+    check(phase, "batch512_group_pack",
+          qconv.group_pack == {"16": 3, "8": 4, "4": 6, "2": 3},
+          group_pack=dict(qconv.group_pack))
     with plain_ops():
         yp = run(x)
     torch.cuda.synchronize()
@@ -1719,10 +1725,13 @@ def path_checks(name, launches, layers):
         return [("depthwise_concat_launched",
                  launches["qdwconv2d_into"] > 0)]
     if name == "alexnet_2tower":
+        from repro_torch.kernels import qconv
         grouped = [li for li in layers if li.kind == "conv" and li.group > 1]
+        # 48-192 channels a group: none narrow enough to pack
         return [("three_grouped_launches_two_pooled",
                  launches["qgconv2d"] == 3 and len(grouped) == 3
-                 and sum(li.pool is not None for li in grouped) == 2)]
+                 and sum(li.pool is not None for li in grouped) == 2),
+                ("no_grouped_launch_packs_groups", not qconv.group_pack)]
     return []
 
 
@@ -2203,7 +2212,7 @@ def trial_kernel_checks(torch, dev, run, x, kinds, tag, out,
         kw = {k: v for k, v in kw.items() if k != "w_k"}
         dw = name.startswith("qdwconv2d")
         wk = (None if dw else qgemm.stage_kmajor(ws) if name == "qgemm"
-              else qconv.stage_kmajor(ws))
+              else qconv.stage_kmajor(ws, kw.get("groups", 1)))
         if kw.get("skip") is not None:
             sk = kw["skip"]
             kw["skip"] = rand_i8(torch, (trials * sk.shape[0],)

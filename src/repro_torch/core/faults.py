@@ -55,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import qconv
 from . import pipeline as pipe
 from .quantize import MAX_SHIFT, QuantSpec
 
@@ -315,7 +316,9 @@ def trial_weights(qm: pipe.QuantizedModel, plans: Sequence[FaultPlan],
     depthwise conv, whose kernel reads ``w_q``).  Both start as copies of
     the build's staged weights, then each plan's dropped tiles are zeroed
     (a column range of ``w_q``, a row range of ``w_k``) and its bit flips
-    XORed in by one scatter a stack: no stack is transposed.  Only the
+    XORed in by one scatter a stack, in ``w_k`` at the places the
+    staging puts each element (:func:`qconv.kmajor_position`, which
+    packs a grouped conv's narrow groups): no stack is transposed.  Only the
     kinds that change nothing but a weight image (weight bits, dropped
     tiles) can be batched so: every image shares the stage's bias, spec
     and ``shift_vec``.  Plans apply their faults in order, as
@@ -368,9 +371,9 @@ def trial_weights(qm: pipe.QuantizedModel, plans: Sequence[FaultPlan],
             flat = w.view(trials, -1)
             cols = torch.as_tensor(flat_ix, device=dev)
             flat[rows, cols] = torch.bitwise_xor(flat[rows, cols], bits)
-            if wk is not None:   # element (k, n) of w_q is wk[n, k]
-                kk = torch.as_tensor(flat_ix // cout, device=dev)
-                nn = torch.as_tensor(flat_ix % cout, device=dev)
+            if wk is not None:   # where the staging put each element
+                nn, kk = qconv.kmajor_position(
+                    cols, ql.w_q.shape[-2], cout, ql.info.group)
                 wk[rows, nn, kk] = torch.bitwise_xor(wk[rows, nn, kk], bits)
         out[name] = (w, wk)
     return out

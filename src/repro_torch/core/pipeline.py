@@ -188,14 +188,15 @@ def stage_kmajor(li: P.LayerInfo,
                  w_q: torch.Tensor) -> Optional[torch.Tensor]:
     """The K-major copy of a staged weight that the wgmma kernels read
     (``QuantizedLayer.w_k``): a dense or grouped conv's
-    (:func:`qconv.stage_kmajor`) and an FC's (:func:`qgemm.stage_kmajor`);
+    (:func:`qconv.stage_kmajor` with its groups, packed as the grouped
+    kernel packs them) and an FC's (:func:`qgemm.stage_kmajor`);
     None for a depthwise conv, whose kernel reads the HWIO weight.  Every
     copy of a weight the kernels see is staged here (the build, a fault
     injection, a call-time weight), so a kernel never reads a stale copy
     of a corrupted ``w_q``."""
     if li.kind == P.CONV and ops.conv_route(
             li.group, li.c_in, w_q.shape) != "depthwise":
-        return qconv.stage_kmajor(w_q)
+        return qconv.stage_kmajor(w_q, li.group)
     if li.kind == P.FC:
         return qgemm.stage_kmajor(w_q)
     return None

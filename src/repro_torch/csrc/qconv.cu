@@ -21,14 +21,25 @@
 // Groups (1 when dense): group g reads input channels
 // [g*Cin/G, (g+1)*Cin/G) of each pixel and owns output channels
 // [g*Cout/G, (g+1)*Cout/G); its contraction is K = KH*KW*Cin/G against
-// those weight columns.  The group rides gridDim.z and each block's channel
-// tiles are masked at the group's edge, so no tile mixes two groups: a
-// block computes one group's Cout/G columns of its 64-wide tile (4 of them
-// in ResNeXt-50's first stage) over one 128-byte K box (K = 9 * 4 = 36 bytes
-// there), and stores bytes where Cout/G or the group's first channel is
-// not a multiple of 16.  Grouped launches take qconv_grouped_wgmma_kernel,
-// the same body as the dense qconv_wgmma_kernel under a name of its own,
-// so that a device trace tells the two routes apart.
+// those weight columns.  P neighbouring groups (`pack`, chosen in
+// kernels/qconv.py:groups_per_tile: the most whose P*Cout/G fits the
+// 64-wide tile) run as one group of P*Cin/G inputs and P*Cout/G outputs
+// whose K-major weight is block-diagonal: row c holds its weights at the
+// inputs of its own group and zeros at the other P - 1 groups' (staged so
+// by kernels/qconv.py:stage_kmajor), so the sums are exact.  The packed
+// groups ride gridDim.z, and each block's channel tiles are masked at a
+// packed group's edge, so no tile mixes two of them.  A block's cost is
+// mostly fixed (prologue, weight boxes, the epilogue over its whole tile),
+// so it is paid once for P groups: a block of ResNeXt-50's first stage (4
+// channels a group, P = 16) computes 64 columns over K = 9 * 64 = 576 (5 K
+// steps), gathers A by 16-byte cp.async and stores 16 bytes at a time.
+// Packing within the 64-wide tile adds no tensor-core work: an unpacked
+// group narrower than the tile computes the masked columns all the same.
+// Grouped launches
+// (G > 1, packed or not, even where G/P is 1) take
+// qconv_grouped_wgmma_kernel, the same body as the dense
+// qconv_wgmma_kernel under a name of its own, so that a device trace
+// tells the two routes apart.
 //
 // The kernel is an implicit GEMM: rows are (pooled pixel, window tap)
 // pairs, columns output channels, the contraction runs over (kh, kw, ci).
@@ -38,8 +49,8 @@
 // work; none extra for VGG's 2x2/2).  The epilogue writes the block's int8
 // values to shared memory, and the block then reduces each window and
 // stores the pooled row.  Every dense and grouped conv takes it, down to
-// googlenet_tiny's 4-channel convs: a group narrower than the tile masks
-// the columns past its edge.
+// googlenet_tiny's 4-channel convs: a group (packed or not) narrower than
+// the tile masks the columns past its edge.
 //
 // What bounds it on the H100: the conv layers of VGG-16 and AlexNet reuse
 // every input byte KH*KW*Cout times and every weight byte once per output
@@ -59,8 +70,9 @@
 //   (BN x 128-byte) box of it per K step, in the 128-byte swizzle that the
 //   wgmma descriptor names, through a ring of kStages mbarrier stages.
 // * A, the im2col rows, is gathered by all 256 threads into the same
-//   swizzled layout: 16-byte cp.async where Cin/G % 16 == 0 (every VGG
-//   layer but the first, AlexNet's groups of 48 and 192), 4-byte cp.async
+//   swizzled layout (Cin/G of the packed group): 16-byte cp.async where
+//   Cin/G % 16 == 0 (every VGG layer but the first, AlexNet's groups of 48
+//   and 192, ResNeXt-50's packed groups of 64), 4-byte cp.async
 //   where Cin/G % 4 == 0, and the narrow gather otherwise (the Cin-3 stems,
 //   Cin 6, Cin/G 9; also any input whose pointer is not 4-byte aligned);
 //   zero past K and past the last row.  The padding is never stored: a row
@@ -675,7 +687,7 @@ qconv_grouped_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 }
 
 template <int BN, bool kNarrow>
-int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
+int launch(ConvArgs a, int groups, int pack, int trials, cudaStream_t st) {
   // the K-major weight (stack) in boxes of 128 K bytes x BN rows (rows
   // past the last read as zero)
   CUtensorMap map;
@@ -702,7 +714,7 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
   const int per_block = kRows / (a.pw * a.pw);
   a.m_tiles = static_cast<int>((n_pooled + per_block - 1) / per_block);
   const dim3 grid(static_cast<unsigned>(trials) * a.m_tiles,
-                  (a.cout_g + BN - 1) / BN, groups * a.splits);
+                  (a.cout_g + BN - 1) / BN, groups / pack * a.splits);
   if (a.splits == 1) {
     kernel<<<grid, kThreads, Tile<BN>::kSmem, st>>>(map, a);
   } else {
@@ -733,8 +745,10 @@ int launch(ConvArgs a, int groups, int trials, cudaStream_t st) {
 // columns left, pb rows below and pr columns right: the padding is taken in
 // the A gathers, never stored.  Pointers may be null where ConvArgs and
 // Epilogue say so.  The wrapper checks every shape, type and range (groups
-// divides Cin and Cout) and plans the launch: wk is the weight K-major
-// (Cout, k_pad), k_pad a multiple of 128, 16-byte aligned; bn (64 or 128)
+// divides Cin and Cout) and plans the launch: `pack` groups (dividing
+// `groups`) run as one, and wk is the weight K-major (Cout, k_pad) with the
+// packed groups' weights block-diagonal, k_pad a multiple of 128, 16-byte
+// aligned; bn (64 or 128)
 // output channels a tile; `splits` (at most 8, a cluster) K splits of
 // `chunk` K tiles.  mode is the A gather (16: 16-byte cp.async, Cin/G % 16
 // == 0 and x 16-byte aligned; 4: 4-byte cp.async, Cin/G % 4 == 0 and x
@@ -753,14 +767,15 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
                         int relu, int hi, int a_conv, int a_skip,
                         int merge_shift, int merge_relu, int concat_shift,
                         int concat_relu, int c_tot, int out_off, int groups,
-                        int bn,
+                        int pack, int bn,
                         int k_pad, int splits, int chunk, int mode, int wide,
                         int trials, int pt, int pl, int pb, int pr,
                         void* stream) {
   if (wk == nullptr || k_pad % tc::kBK != 0 || splits < 1
       || splits > tc::kMaxSplits || chunk < 1
       || (splits - 1) * chunk >= k_pad / tc::kBK || trials < 1
-      || n % trials != 0 || pt < 0 || pl < 0 || pb < 0 || pr < 0)
+      || n % trials != 0 || pt < 0 || pl < 0 || pb < 0 || pr < 0
+      || groups < 1 || pack < 1 || groups % pack != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
@@ -775,7 +790,7 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   a.ep.concat_shift = concat_shift; a.ep.concat_relu = concat_relu;
   a.n = n / trials; a.h = h; a.w = w; a.cin = cin; a.kh = kh; a.kw = kw;
   a.cout = cout; a.sh = sh; a.sw = sw; a.pt = pt; a.pl = pl;
-  a.cin_g = cin / groups; a.cout_g = cout / groups;
+  a.cin_g = cin / groups * pack; a.cout_g = cout / groups * pack;
   a.ho = (h + pt + pb - kh) / sh + 1;
   a.wo = (w + pl + pr - kw) / sw + 1;
   a.pw = pw; a.ps = ps;
@@ -787,10 +802,10 @@ extern "C" int qconv_s8(const void* x, const void* wk, const void* bias,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = mode == 1;
   if (bn == 128)
-    return narrow ? tc::launch<128, true>(a, groups, trials, st)
-                  : tc::launch<128, false>(a, groups, trials, st);
+    return narrow ? tc::launch<128, true>(a, groups, pack, trials, st)
+                  : tc::launch<128, false>(a, groups, pack, trials, st);
   if (bn == 64)
-    return narrow ? tc::launch<64, true>(a, groups, trials, st)
-                  : tc::launch<64, false>(a, groups, trials, st);
+    return narrow ? tc::launch<64, true>(a, groups, pack, trials, st)
+                  : tc::launch<64, false>(a, groups, pack, trials, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

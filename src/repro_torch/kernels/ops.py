@@ -70,11 +70,13 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Zero :func:`launch_counts`, ``qconv.gather_launches``,
-    ``qconv.padded_launches`` and ``qconv.skip_launches``."""
+    ``qconv.padded_launches`` and ``qconv.skip_launches``, and empty
+    ``qconv.group_pack``."""
     for c in _COUNTERS + (_qconv.gather_launches, _qconv.padded_launches,
                           _qconv.skip_launches):
         for name in c:
             c[name] = 0
+    _qconv.group_pack.clear()
 
 
 #: The call lists of the :func:`recording` blocks now open.

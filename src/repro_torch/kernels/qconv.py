@@ -39,9 +39,13 @@ runs the plain version :func:`qconv2d_plain` on a CPU tensor:
   ``csrc/qconv.cu`` with the group on ``gridDim.z``, launched under a
   name of its own (``qconv_grouped_wgmma_kernel``) so that a device
   trace tells it from the dense conv; replaces ``qgconv2d``
-  (``:945``).  A block computes one group's tile, masked at the group's
-  edge: ResNeXt-50's groups of 4-32 channels fill 4-32 of its 64
-  columns over one to three K steps.
+  (``:945``).  Groups narrower than the 64-column tile are packed
+  (:func:`groups_per_tile`): P neighbouring groups are one group of P
+  times their channels whose weight is block-diagonal, zero between an
+  input and an output channel of two groups (:func:`stage_kmajor`), so
+  that fewer, fuller tiles cover the groups and the sums stay exact.
+  ResNeXt-50's groups of 4-32 channels become tiles of 64 channels over
+  K = 576.
 
 The dense and grouped kernel takes its weight K-major, as
 :func:`stage_kmajor` lays it out; a layer stages it once
@@ -120,9 +124,13 @@ padded_launches = {"16": 0, "4": 0, "narrow": 0, "qdwconv": 0}
 #: ``<kernel>.clip``.
 skip_launches = {"qconv": 0, "qdwconv": 0, "qconv.clip": 0,
                  "qdwconv.clip": 0}
+#: Launches of the grouped route (``qgconv2d``, its trial form) that
+#: packed P > 1 groups into a tile, keyed by P as a string
+#: (:func:`groups_per_tile`).
+group_pack = {}
 
 _SIGNATURES = {
-    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 34
+    "qconv": {"qconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 35
               + [ctypes.c_void_p]},
     "qdwconv": {"qdwconv_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 32
                 + [ctypes.c_void_p]},
@@ -209,15 +217,58 @@ def epilogue_plain(acc: torch.Tensor, b: Optional[torch.Tensor], *, shift=0,
     return acc.to(torch.int8)
 
 
-def stage_kmajor(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (KH, KW, Cin/G, Cout) int8 -> the kernel's K-major
-    (Cout, K_pad) int8: row c holds output channel c's weights in the
-    contraction order (kh, kw, ci), zero-padded from K = KH*KW*Cin/G to
-    :func:`k_padded` (:func:`qgemm.stage_kmajor` of the (K, Cout)
-    matrix).  Made once per layer.  A trials' stack (T, KH, KW, Cin/G,
-    Cout) becomes (T, Cout, K_pad)."""
-    return qgemm.stage_kmajor(w.reshape(tuple(w.shape[:-4])
-                                        + (-1, w.shape[-1])))
+def groups_per_tile(groups: int, cout_g: int) -> int:
+    """P, the groups of a grouped conv that the kernel packs into one
+    group: the largest divisor of ``groups`` with P * ``cout_g`` within
+    the 64-column tile, 1 where none above 1 fits (Cout/G > 32, or no
+    divisor of G fits).  A block's cost is mostly fixed (weight boxes,
+    row set-up, the epilogue over its whole tile), so P groups a block
+    cost little more than one: the grid shrinks P-fold, and the tensor
+    cores compute no more than unpacked, where a group narrower than the
+    tile computes its masked columns all the same."""
+    fits = [p for p in range(1, groups + 1)
+            if groups % p == 0 and p * cout_g <= 64]
+    return max(fits, default=1)
+
+
+def kmajor_position(flat: torch.Tensor, cin_g: int, cout: int,
+                    groups: int = 1):
+    """Where the elements ``flat`` (row-major indices) of an HWIO weight
+    (KH, KW, ``cin_g``, ``cout``) lie in its K-major staging for
+    ``groups`` groups (:func:`stage_kmajor`): (row, column), the row its
+    output channel c and the column K = (kh*KW + kw)*P*Cin/G + p*Cin/G
+    + ci, p being c's place among the P groups of its tile
+    (:func:`groups_per_tile`).  An FC's (K, N) weight is the case
+    ``cin_g`` = K, ``groups`` 1."""
+    p = groups_per_tile(groups, cout // groups)
+    c, k = flat % cout, flat // cout
+    tap, ci = k // cin_g, k % cin_g
+    return c, (tap * p + c // (cout // groups) % p) * cin_g + ci
+
+
+def stage_kmajor(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """HWIO (KH, KW, Cin/G, Cout) int8 of ``groups`` groups -> the
+    kernel's K-major (Cout, K_pad) int8: row c holds output channel c's
+    weights in the contraction order (kh, kw, ci), zero-padded from K =
+    KH*KW*Cin/G to :func:`k_padded` (:func:`qgemm.stage_kmajor` of the
+    (K, Cout) matrix).  Where the kernel packs P > 1 groups into a tile
+    (:func:`groups_per_tile`), K is KH*KW*P*Cin/G and row c holds its
+    weights at the columns :func:`kmajor_position` gives, zeros at the
+    other groups' inputs: the block-diagonal weight of the packed group.
+    Made once per layer.  A trials' stack (T, KH, KW, Cin/G, Cout)
+    becomes (T, Cout, K_pad)."""
+    kh, kw, cin_g, cout = w.shape[-4:]
+    lead = tuple(w.shape[:-4])
+    p = groups_per_tile(groups, cout // groups)
+    if p == 1:
+        return qgemm.stage_kmajor(w.reshape(lead + (-1, cout)))
+    wk = torch.zeros(lead + (cout, k_padded(kh * kw * p * cin_g)),
+                     dtype=torch.int8, device=w.device)
+    rows, cols = kmajor_position(
+        torch.arange(kh * kw * cin_g * cout, device=w.device), cin_g, cout,
+        groups)
+    wk[..., rows, cols] = w.reshape(lead + (-1,))
+    return wk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,7 +309,9 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
          sms: int = H100_SMS, trials: int = 1) -> Plan:
     """The tiles and K split of a conv, from its shapes alone: 128-row
     tiles holding ``TILE_M // taps`` whole pool windows, 128 channels a
-    tile where Cout/G >= 128, else 64.  Where the tiles do not fill
+    tile where Cout/G >= 128, else 64.  A grouped conv runs as G/P
+    groups of P packed ones (:func:`groups_per_tile`): ``groups``, ``k``
+    and ``k_pad`` are the packed group's.  Where the tiles do not fill
     ``sms`` blocks, each tile's K tiles are split over
     ``min(sms // tiles, MAX_SPLITS)`` blocks at most: the smallest chunk
     of K tiles a block that keeps the grid within one wave, and as few
@@ -269,6 +322,8 @@ def plan(n: int, hp: int, wp: int, cin: int, kh: int, kw: int, cout: int,
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
     pw, ps = pool if pool is not None else (1, 1)
     oh, ow = (ho - pw) // ps + 1, (wo - pw) // ps + 1
+    pack = groups_per_tile(groups, cout // groups)
+    groups //= pack
     cin_g, cout_g = cin // groups, cout // groups
     k = kh * kw * cin_g
     n_pooled = n * oh * ow
@@ -459,8 +514,10 @@ def _geometry(kernel: str, what: str, xs, ws, outs, groups: int, strides,
                              "offsets take 32 bits")
         pl = plan(n // trials, hp, wp, cin, kh, kw, cout, (sh, sw), pool,
                   groups, qgemm.sms_of(device_index), trials)
-        # the A gather: 16- or 4-byte cp.async, or 1, the narrow gather
-        width = 16 if cin_g % 16 == 0 else 4 if cin_g % 4 == 0 else 1
+        # the A gather over the (packed) group's channels: 16- or 4-byte
+        # cp.async, or 1, the narrow gather
+        packed = cin // pl.groups
+        width = 16 if packed % 16 == 0 else 4 if packed % 4 == 0 else 1
         store = 16
     else:
         pl = dw_plan(n, hp, wp, cin, kh, kw, cout, (sh, sw), pool,
@@ -542,18 +599,21 @@ def _launch(kernel: str, x, w, b, out, *, groups, strides, pool, pads,
                              geo.trials, *geo.pads, stream)
     else:
         if w_k is None:
-            w_k = stage_kmajor(w)
+            w_k = stage_kmajor(w, groups)
         if w_k.data_ptr() % 16:   # TMA reads 16-byte aligned rows
             w_k = w_k.clone()
+        pack = groups // pl.groups   # groups_per_tile's P
         err = lib.qconv_s8(p(x), p(w_k), p(b), p(svec), p(skip), p(out),
-                           *args, int(groups), pl.bn, pl.k_pad, pl.splits,
-                           pl.chunk, width, wide, geo.trials, *geo.pads,
-                           stream)
+                           *args, int(groups), pack, pl.bn, pl.k_pad,
+                           pl.splits, pl.chunk, width, wide, geo.trials,
+                           *geo.pads, stream)
     _build.check(err, what)
     key = kernel
     if kernel == "qconv":
         key = "narrow" if width == 1 else str(width)
         gather_launches[key] += 1
+        if pack > 1:
+            group_pack[str(pack)] = group_pack.get(str(pack), 0) + 1
     if any(geo.pads):
         padded_launches[key] += 1
     if skip is not None:
@@ -708,7 +768,12 @@ def qgconv2d(x, w, b, *, groups: int, strides=(1, 1), pads=(0, 0, 0, 0),
     never takes a skip or a concat buffer.  On a CPU tensor this is the
     plain version; on a CUDA tensor it launches the grouped instance of
     the dense kernel (``qconv_grouped_wgmma_kernel``), every group at
-    once, or raises."""
+    once, or raises.  The kernel packs P groups into one tile
+    (:func:`groups_per_tile`; ResNeXt-50's 4, 8, 16 and 32 channels a
+    group: P = 16, 8, 4, 2) and runs G/P groups of P * Cin/G inputs and P *
+    Cout/G outputs against the block-diagonal weight that
+    ``stage_kmajor(w, groups)`` stages, which ``w_k`` must be; it keeps
+    the grouped kernel's name where G/P is 1."""
     return _conv("qgconv2d", x, w, b, groups=groups, strides=strides,
                  pads=pads, shift=shift, relu=relu, pool=pool, w_k=w_k,
                  shift_vec=shift_vec, hi=hi)
@@ -754,8 +819,9 @@ def qgconv2d_trials(x, w, b, *, groups: int, strides=(1, 1),
                     shift_vec: Optional[torch.Tensor] = None,
                     hi: int = INT8_MAX) -> torch.Tensor:
     """The trial form of :func:`qgconv2d`: w (T, KH, KW, Cin/groups,
-    Cout) one weight image a trial (``w_k`` staged K-major, (T, Cout,
-    K_pad)), x of T*N images zero-padded by ``pads``, from one launch.
+    Cout) one weight image a trial (``w_k`` staged K-major with the
+    groups, ``stage_kmajor(w, groups)``, (T, Cout, K_pad)), x of T*N
+    images zero-padded by ``pads``, from one launch.
     On a CPU tensor this is the plain version :func:`ref.qconv2d_trials_ref`
     with ``groups``; on a CUDA tensor it launches the kernel or raises."""
     return _conv("qgconv2d", x, w, b, groups=groups, trials=True,

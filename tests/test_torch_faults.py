@@ -252,7 +252,7 @@ def test_inject_restages_what_the_kernels_read(name, per_channel):
             assert ql.w_k is None
             kinds_seen.add("depthwise")
         else:
-            assert torch.equal(ql.w_k, qconv.stage_kmajor(ql.w_q))
+            assert torch.equal(ql.w_k, qconv.stage_kmajor(ql.w_q, li.group))
             kinds_seen.add("grouped" if li.group > 1 else "dense")
         want = qgemm.stage_shift(ql.spec.requant_shift, ql.w_q.shape[-1],
                                  ql.w_q.device)

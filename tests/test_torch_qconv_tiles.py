@@ -39,18 +39,23 @@ def kernel_model(x, w, b, *, strides=(1, 1), shift=0, relu=True, pool=None,
                  groups=1, skip=None, skip_shifts=(0, 0), merge_shift=0,
                  merge_relu=False, out_buf=None, out_off=0, concat_shift=0,
                  concat_relu=False, sms=qconv.H100_SMS):
-    """What the wgmma kernel computes, tile by tile, on the CPU."""
+    """What the wgmma kernel computes, tile by tile, on the CPU: a grouped
+    conv as the plan's groups, each of P packed ones, against the
+    block-diagonal weight that ``stage_kmajor`` stages for them."""
     n, hp, wp, cin = x.shape
-    kh, kw, cin_g, cout = w.shape
+    kh, kw, _cin_g, cout = w.shape
     pl = qconv.plan(n, hp, wp, cin, kh, kw, cout, tuple(strides), pool,
                     groups, sms)
     assert pl.bn in (64, 128)
     ho, wo, pw, ps, oh, ow = _shapes(n, hp, wp, kh, kw, strides, pool)
-    cout_g, k, bn = cout // groups, kh * kw * cin_g, pl.bn
+    wk = qconv.stage_kmajor(w, groups).to(torch.float64)
+    groups = pl.groups   # the packed groups the kernel runs
+    cin_g, cout_g = cin // groups, cout // groups
+    k, bn = kh * kw * cin_g, pl.bn
+    assert (pl.k, wk.shape[1]) == (k, pl.k_pad)
     taps = pw * pw
     per_block = qconv.TILE_M // taps
     n_pooled = n * oh * ow
-    wk = qconv.stage_kmajor(w).to(torch.float64)
     xf = x.to(torch.float64)
     acc = torch.full((n, ho, wo, cout), float("nan"), dtype=torch.float64)
     tiles_rows = []
@@ -141,11 +146,12 @@ def _case_inputs(c, seed):
     return torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), kw
 
 
-# Layer shapes of VGG-16, AlexNet (one tower and two) and ResNet-18 at a
-# reduced spatial size, and the ragged cases: Cin 3, Cin/G 9, Cout 130,
-# 3 groups, pools 3/2 and 2/2, strides 2 and 4, skip, per-lane shifts;
-# and googlenet_tiny's narrow convs, 4-12 channels (2 a group) on a
-# 64-channel tile.
+# Layer shapes of VGG-16, AlexNet (one tower and two), ResNet-18 and
+# ResNeXt-50's grouped convs at a reduced spatial size, and the ragged
+# cases: Cin 3, Cin/G 9, Cout 130, 3 groups (packed into one tile), pools
+# 3/2 and 2/2, strides 2 and 4, skip, per-lane shifts; and
+# googlenet_tiny's narrow convs, 4-12 channels (2 a group) on a 64-channel
+# tile.
 CASES = [
     dict(name="vgg_conv1_1_cin3", n=1, h=9, cin=3, cout=64, k=3, p=1),
     dict(name="vgg_conv1_2_pool", n=1, h=8, cin=64, cout=64, k=3, p=1,
@@ -182,6 +188,16 @@ CASES = [
          k=3, p=1, pool=(2, 2)),
     dict(name="groups3_cout_g2_per_lane", n=2, h=6, cin=9, cout=6, k=3,
          p=1, groups=3, per_lane=True),
+    # ResNeXt-50's grouped 3x3s, 32 groups of 4-32 channels packed 16, 8,
+    # 4 and 2 to a 64-column tile
+    dict(name="resnext_g32_cg4_packed16", n=2, h=6, cin=128, cout=128, k=3,
+         p=1, groups=32),
+    dict(name="resnext_g32_cg8_s2_packed8", n=2, h=7, cin=256, cout=256,
+         k=3, s=2, p=1, groups=32),
+    dict(name="resnext_g32_cg16_packed4", n=1, h=5, cin=512, cout=512, k=3,
+         p=1, groups=32, per_lane=True),
+    dict(name="resnext_g32_cg32_s2_packed2", n=1, h=6, cin=1024, cout=1024,
+         k=3, s=2, p=1, groups=32),
 ]
 
 
@@ -447,7 +463,8 @@ def test_the_narrow_gather_reads_the_windows_of_the_plain_conv(case):
                            (0, 0, 0, 0), None).width == 1
     acc = t_ref.int_conv_nhwc(x, w, strides, groups)
     pl = qconv.plan(n, hp, hp, cin, k, k, cout, strides, pool, groups)
-    wk = qconv.stage_kmajor(w).to(torch.int64)
+    wk = qconv.stage_kmajor(w, groups).to(torch.int64)
+    groups = pl.groups   # the packed groups the kernel runs
     cout_g, k_total = cout // groups, k * k * (cin // groups)
     _ho, wo, _pw, _ps, _oh, _ow = _shapes(n, hp, hp, k, k, strides, pool)
     ho = acc.shape[1]
@@ -875,7 +892,8 @@ def test_executors_with_and_without_staged_operands_agree(net, per_channel):
             and ql.info.group == ql.info.c_in
         assert (ql.w_k is None) == dw
         if ql.w_k is not None:
-            assert torch.equal(ql.w_k, qconv.stage_kmajor(ql.w_q))
+            assert torch.equal(ql.w_k, qconv.stage_kmajor(ql.w_q,
+                                                          ql.info.group))
     weighted = [ql for ql in qm.layers if ql.info.kind in ("conv", "fc")]
     for ql in weighted:
         assert (ql.shift_vec is not None) == per_channel

@@ -201,7 +201,7 @@ def test_the_grouped_kernel_at_batch_512(card, case):
     kw = dict(groups=32, strides=(s, s), pads=(1, 1, 1, 1),
               shift=int(np.log2(9 * c // 32)) + 6)
     ops.reset_launch_counts()
-    got = qconv.qgconv2d(x, w, b, w_k=qconv.stage_kmajor(w), **kw)
+    got = qconv.qgconv2d(x, w, b, w_k=qconv.stage_kmajor(w, 32), **kw)
     assert qconv.launches["qgconv2d"] == 1
     want = qconv.qconv2d_plain(x, w, b, **kw)
     torch.cuda.synchronize()
@@ -236,6 +236,8 @@ def test_an_eager_forward_counts_16_16_16(card):
     torch.cuda.synchronize()
     assert qconv.launches["qgconv2d"] == 16
     assert qconv.skip_launches["qconv"] == 16
+    # 4, 8, 16 and 32 channels a group: 16, 8, 4 and 2 groups a tile
+    assert qconv.group_pack == {"16": 3, "8": 4, "4": 6, "2": 3}
     cpu = CNN2Gate.from_graph(gate.parsed.graph, device="cpu")
     cpu.apply_quantization(gate.specs)
     assert torch.equal(y.cpu(), cpu.build("emulation")(x))
